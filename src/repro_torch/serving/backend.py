@@ -1,0 +1,267 @@
+"""Execution backends: the seam between the serving control plane and
+model execution.
+
+A :class:`~repro_torch.serving.dp_group.DPGroup` owns admission, KV
+accounting, prefix statistics, slot management and sampling; the
+forward passes and the cache representation go through an
+:class:`ExecutionBackend`. :class:`TorchBackend` runs a
+:class:`~repro_torch.models.transformer.Model` on one device.
+
+The ``decode_sample`` contract — the zero-sync decode fast path
+---------------------------------------------------------------
+
+``decode_sample(cache, tokens, positions, temperatures, step)`` runs ONE
+decode iteration **and** the token sampling on the device, returning
+``(next_tokens, new_cache)`` where ``next_tokens`` is a ``[B]`` int32
+tensor on the backend's device — the caller fetches it when needed, so
+the only device→host traffic per step is 4 bytes per slot, never a
+``[B, V]`` logits plane.
+
+* ``tokens`` int32 ``[B, 1]``, ``positions`` int32 ``[B]``,
+  ``temperatures`` f32 ``[B]`` (``<= 0`` ⇒ greedy per slot), ``step``
+  an int identifying the engine iteration: the sampling stream is a pure
+  function of ``(backend seed, step)``, so replays are deterministic.
+* The returned ``new_cache`` replaces the caller's handle. With
+  ``donate=True`` (default) KV is updated in place in the caller's
+  buffers; ``donate=False`` leaves them untouched (the §6.2 rollback
+  keeps the pre-step cache) and writes a copy.
+
+The ``prefill_chunk`` contract — chunked prefill
+------------------------------------------------
+
+``prefill_chunk(cache, tokens, offset, total_len)`` runs ONE contiguous
+chunk of a prompt's prefill and returns ``(cache, logits)``: pass
+``cache=None`` on the first chunk (``offset == 0``) and thereafter the
+handle the previous chunk returned; ``logits`` are the chunk's last
+valid position, equal to ``prefill``'s on the final chunk. The default
+implementation buffers the chunks and runs one monolithic ``prefill``.
+
+The ``apply_placement`` contract — the EPLB data plane
+------------------------------------------------------
+
+``apply_placement(table)`` installs a
+:class:`~repro_torch.serving.eplb.PlacementTable` that every later
+decode iteration routes through (``None`` reverts to logical routing).
+Callers never invoke it while a decode step is in flight —
+``DPGroup.apply_placement`` defers the swap to the next
+``decode_complete`` boundary. Prefill and chunked prefill always route
+logically, as in the reference.
+
+Not yet ported (later slices): the prefix-KV trio (``slice_prefill_kv``
+/ ``seed_prefill_cache`` / ``read_remote_kv``) and MTP speculative
+decoding (``decode_sample_mtp``); ``supports_prefix_kv`` is False.
+"""
+from __future__ import annotations
+
+import abc
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.common import resolve_device, tree_map
+from repro_torch.serving.sampling import sample_tokens, step_generator
+from repro_torch.serving.tokenizer import PAD
+
+PyTree = Any
+
+
+class ExecutionBackend(abc.ABC):
+    """Model-execution contract consumed by ``DPGroup``."""
+
+    #: vocab size of the logits this backend produces.
+    vocab_size: int
+
+    @abc.abstractmethod
+    def init_cache(self, max_batch: int, max_len: int) -> PyTree:
+        """Allocate the decode cache for ``max_batch`` slots."""
+
+    @abc.abstractmethod
+    def prefill(self, tokens: List[int]) -> Tuple[PyTree, np.ndarray]:
+        """Run the prefill forward for one prompt. Returns ``(batch-1
+        cache, last-position logits [V])``."""
+
+    #: True when ``prefill_chunk`` executes incrementally; False ⇒ the
+    #: buffering default below.
+    supports_chunked_prefill: bool = False
+    #: prefix-KV seeding is not ported yet
+    supports_prefix_kv: bool = False
+
+    def prefill_chunk(self, cache: Optional[PyTree], tokens: List[int],
+                      offset: int, total_len: int
+                      ) -> Tuple[PyTree, Optional[np.ndarray]]:
+        """Run one contiguous prefill chunk (module docstring). Default:
+        accumulate the chunk tokens and run :meth:`prefill` once the
+        final chunk arrives."""
+        if cache is None:
+            if offset != 0:
+                raise ValueError("first chunk must start at offset 0")
+            cache = {"_chunk_tokens": []}
+        buf = cache["_chunk_tokens"]
+        if offset != len(buf):
+            raise ValueError(
+                f"non-contiguous chunk: offset {offset} != {len(buf)}")
+        buf.extend(tokens)
+        if len(buf) >= total_len:
+            return self.prefill(buf)
+        return cache, None
+
+    @abc.abstractmethod
+    def write_slot(self, cache: PyTree, cache1: PyTree,
+                   slot: int) -> PyTree:
+        """Insert a batch-1 prefill cache into batch slot ``slot``."""
+
+    @abc.abstractmethod
+    def decode(self, cache: PyTree, tokens: np.ndarray,
+               positions: np.ndarray) -> Tuple[np.ndarray, PyTree]:
+        """One decode step over all slots (diagnostic / logits path).
+        Returns ``(logits [B, V], new cache)``."""
+
+    @abc.abstractmethod
+    def decode_sample(self, cache: PyTree, tokens: np.ndarray,
+                      positions: np.ndarray, temperatures: np.ndarray,
+                      step: int, *, donate: bool = True
+                      ) -> Tuple[Any, PyTree]:
+        """One decode iteration + on-device sampling (fast path).
+        Returns ``(next_tokens [B] int32, new cache)``."""
+
+    def apply_placement(self, table: Optional[Any]) -> None:
+        """Install the EPLB placement later decode iterations route
+        through (``None`` ⇒ logical routing). Default: no-op."""
+
+
+def _bucket_len(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return -(-n // 2048) * 2048
+
+
+def _map_pairs(fn, full, one):
+    """Apply ``fn(full_leaf, one_leaf, stacked)`` over two cache trees of
+    the model's layout (``stacked`` for the ``blocks`` leaves)."""
+    for section, sub in full.items():
+        if section == "blocks":
+            for pos, leaves in sub.items():
+                for n, t in leaves.items():
+                    fn(t, one[section][pos][n], True)
+        else:
+            for i, leaves in enumerate(sub):
+                for n, t in leaves.items():
+                    fn(t, one[section][i][n], False)
+
+
+class TorchBackend(ExecutionBackend):
+    """Eager decode + bucketed-length prefill over a model on one device.
+
+    The decode hot loop is :meth:`decode_sample`: forward + sampling on
+    the device with the cache updated in place, returning only ``[B]``
+    int32 token ids. Several backends may share one parameter set."""
+
+    supports_chunked_prefill = True
+
+    def __init__(self, model, params: PyTree, *, max_len: int = 256,
+                 seed: int = 0, device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model
+        self.params = params
+        self.max_len = max_len
+        self.seed = seed
+        self.vocab_size = model.cfg.vocab_size
+        self._placement = None
+
+    def _ints(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+
+    def init_cache(self, max_batch: int, max_len: int) -> PyTree:
+        return self.model.init_cache(max_batch, max_len, device=self.device)
+
+    @torch.no_grad()
+    def prefill(self, tokens: List[int]) -> Tuple[PyTree, np.ndarray]:
+        n = len(tokens)
+        Lp = min(_bucket_len(n), self.max_len)
+        padded = list(tokens) + [PAD] * (Lp - n)
+        logits, cache = self.model.prefill(
+            self.params, self._ints(padded)[None], self._ints([n - 1]))
+        return cache, logits[0].float().cpu().numpy()
+
+    @torch.no_grad()
+    def prefill_chunk(self, cache, tokens: List[int], offset: int,
+                      total_len: int):
+        """One chunk over the full-length cache buffer (written in place),
+        padded to its bucket exactly as the reference pads it: the pad
+        tokens go through the router too."""
+        Lc = min(_bucket_len(max(total_len, 1)), self.max_len)
+        if cache is None:
+            if offset != 0:
+                raise ValueError("first chunk must start at offset 0")
+            cache = self.model.init_cache(1, Lc, device=self.device)
+        n = len(tokens)
+        Sc = min(_bucket_len(max(n, 1)), Lc - offset)
+        padded = list(tokens) + [PAD] * (Sc - n)
+        logits, cache = self.model.prefill_chunk(
+            self.params, cache, self._ints(padded)[None], offset,
+            self._ints([n - 1]))
+        return cache, logits[0].float().cpu().numpy()
+
+    @torch.no_grad()
+    def write_slot(self, cache: PyTree, cache1: PyTree,
+                   slot: int) -> PyTree:
+        """Copy a batch-1 cache (any length up to the slot's) into slot
+        ``slot`` in place; the slot's positions past it are zeroed."""
+        def one(full, part, stacked):
+            dst = full[:, slot] if stacked else full[slot]
+            src = part[:, 0] if stacked else part[0]
+            L = src.shape[-2]
+            dst.zero_()
+            dst[..., :L, :] = src.to(dst.dtype)
+        _map_pairs(one, cache, cache1)
+        return cache
+
+    def apply_placement(self, table: Optional[Any]) -> None:
+        """Install ``table`` with its arrays on this backend's device.
+        Safe only between decode iterations (``DPGroup`` guarantees it)."""
+        if table is None:
+            self._placement = None
+            return
+        from repro_torch.serving.eplb import PlacementTable
+
+        arrays = [np.asarray(a) for a in (table.replica_slots,
+                                          table.n_replicas,
+                                          table.phys_owner)]
+        slots, n_rep, owner = arrays
+        # the kernels index with these ids: check them here, on the host
+        if (owner.min() < 0 or owner.max() >= slots.shape[1]
+                or slots.min() < 0 or slots.max() >= owner.shape[1]
+                or n_rep.min() < 1):
+            raise ValueError("placement table holds an out-of-range id")
+        self._placement = PlacementTable(
+            *(torch.as_tensor(a, dtype=torch.int32, device=self.device)
+              for a in arrays))
+
+    @torch.no_grad()
+    def decode(self, cache: PyTree, tokens: np.ndarray,
+               positions: np.ndarray) -> Tuple[np.ndarray, PyTree]:
+        logits, cache = self.model.decode_step(
+            self.params, cache, self._ints(tokens), self._ints(positions),
+            placement=self._placement)
+        return logits.float().cpu().numpy(), cache
+
+    @torch.no_grad()
+    def decode_sample(self, cache: PyTree, tokens: np.ndarray,
+                      positions: np.ndarray, temperatures: np.ndarray,
+                      step: int, *, donate: bool = True
+                      ) -> Tuple[Any, PyTree]:
+        if not donate:
+            cache = tree_map(torch.clone, cache)
+        logits, cache = self.model.decode_step(
+            self.params, cache, self._ints(tokens), self._ints(positions),
+            placement=self._placement)
+        temps = np.asarray(temperatures, np.float32)
+        if np.any(temps > 0.0):
+            toks = sample_tokens(
+                logits, torch.as_tensor(temps, device=self.device),
+                step_generator(self.seed, step, self.device))
+        else:
+            toks = torch.argmax(logits, dim=-1).to(torch.int32)
+        return toks, cache
