@@ -7,4 +7,5 @@ the kernel for a CUDA tensor, the plain version for a CPU tensor),
 
   route_pack — capacity rank + INT8 quantize + bucket scatter (§3.2/§4.7)
   gmm        — grouped expert FFN, plain and owner-indexed (§3.2/§4.5)
+  decode_attention — flash-decoding GQA attention over the KV cache
 """

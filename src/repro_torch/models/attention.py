@@ -1,21 +1,29 @@
-"""DeepSeek multi-head latent attention (MLA).
+"""Attention mixers: GQA global attention and DeepSeek multi-head latent
+attention (MLA).
 
 Three execution modes, as in the reference:
 
-  * ``prefill`` — full sequence; returns the layer's latent cache
-    (``ckv`` [B, S, kv_lora_rank], ``krope`` [B, S, rope_dim]).
-  * ``chunk``   — chunked prefill: the chunk's latents are written IN
-    PLACE into the layer's full-length cache buffer at ``offset``, and
-    the chunk attends causally over the whole buffer with explicit
-    position masks (same values as a monolithic prefill on the valid
-    region).
-  * ``decode``  — one new token per row, absorbed form: the query is
-    folded into latent space (``q_nope · wk_b``) and scored against the
-    latent cache directly; the new token's latents are written IN PLACE
-    at ``positions`` (the reference donates the buffer instead).
+  * ``prefill`` — full sequence; returns the layer's cache (GQA: roped
+    ``k``/``v`` [B, S, KV, hd]; MLA: latent ``ckv`` [B, S,
+    kv_lora_rank], ``krope`` [B, S, rope_dim]).
+  * ``chunk``   — chunked prefill: the chunk's K/V (or latents) are
+    written IN PLACE into the layer's full-length cache buffer at
+    ``offset``, and the chunk attends causally over the whole buffer
+    with explicit position masks (same values as a monolithic prefill on
+    the valid region).
+  * ``decode``  — one new token per row: its K/V (or latents) are
+    written IN PLACE at ``positions`` (the reference donates the buffer
+    instead), then the token attends over slots ``<= position``. GQA
+    decode runs the decode-attention kernel
+    (``kernels/decode_attention``); MLA decode is the absorbed form: the
+    query is folded into latent space (``q_nope · wk_b``) and scored
+    against the latent cache directly.
 
 The per-layer cache is a dict of tensors; in-place writes through views
-of the stacked superblock cache update the stack itself.
+of the stacked superblock cache update the stack itself. The GQA mixer
+here is global attention only (the reference's ring-window layout,
+``blockwise_attention`` for prompts over 2048 tokens and tensor-parallel
+head padding wait for later slices).
 """
 from __future__ import annotations
 
@@ -25,9 +33,101 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.models.common import apply_rope, naive_attention, rms_norm
 
 Cache = Dict[str, torch.Tensor]
+#: longest prompt the naive prefill attention takes (the reference
+#: switches to blockwise attention above it)
+NAIVE_MAX_LEN = 2048
+
+
+def _write_new_token(leaf, new, positions):
+    """``leaf`` [B, L, ...] ← ``new`` [B, ...] at slot ``positions[b]``,
+    in place; a row whose position lies outside the buffer keeps the
+    buffer unchanged."""
+    B, L = leaf.shape[:2]
+    owned = ((positions >= 0) & (positions < L)).view(
+        B, *([1] * (new.dim() - 1)))
+    safe = positions.clamp(0, L - 1).long()
+    bidx = torch.arange(B, device=leaf.device)
+    leaf[bidx, safe] = torch.where(owned, new.to(leaf.dtype),
+                                   leaf[bidx, safe])
+
+
+# ===========================================================================
+# GQA attention (global)
+# ===========================================================================
+def attn_param_shapes(cfg: ModelConfig):
+    """name → (shape, fan_in)."""
+    d, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.resolved_head_dim)
+    return {"wq": ((d, H, hd), d), "wk": ((d, KV, hd), d),
+            "wv": ((d, KV, hd), d), "wo": ((H, hd, d), H * hd)}
+
+
+def attn_cache_spec(cfg: ModelConfig, batch: int, max_len: int):
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return {"k": (batch, max_len, KV, hd), "v": (batch, max_len, KV, hd)}
+
+
+def _project_qkv(params, x, cfg: ModelConfig, positions):
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def attn_apply(params, x, *, cfg: ModelConfig, mode: str,
+               cache: Optional[Cache] = None,
+               positions: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """Global causal GQA. ``positions``: the chunk offset (an int) in
+    ``chunk`` mode, the new tokens' positions [B] in ``decode`` mode."""
+    S = x.shape[1]
+    if mode == "prefill":
+        if S > NAIVE_MAX_LEN:
+            raise NotImplementedError(
+                f"prefill of {S} > {NAIVE_MAX_LEN} tokens needs blockwise "
+                f"attention, which is not ported yet")
+        q, k, v = _project_qkv(params, x, cfg,
+                               torch.arange(S, device=x.device))
+        o = naive_attention(q, k, v)
+        return torch.einsum("bshk,hkd->bsd", o, params["wo"]), \
+            {"k": k, "v": v}
+    if mode == "chunk":
+        return _attn_chunk(params, x, cfg=cfg, cache=cache, offset=positions)
+    if mode != "decode":
+        raise ValueError(f"attn_apply: unsupported mode {mode!r}")
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions[:, None])
+    _write_new_token(cache["k"], k_new[:, 0], positions)
+    _write_new_token(cache["v"], v_new[:, 0], positions)
+    o = decode_attention(q[:, 0], cache["k"], cache["v"],
+                         positions).to(q.dtype)
+    return torch.einsum("bshk,hkd->bsd", o[:, None], params["wo"]), cache
+
+
+def _attn_chunk(params, x, *, cfg: ModelConfig, cache: Cache, offset: int):
+    """Write the chunk's roped K/V into the buffer at ``offset`` (in
+    place), then attend causally over the whole buffer with explicit
+    position masks."""
+    B, S, _ = x.shape
+    L = cache["k"].shape[1]
+    if offset + S > L:
+        raise ValueError(f"chunk [{offset}, {offset + S}) exceeds buffer {L}")
+    pos = offset + torch.arange(S, device=x.device)
+    q, k, v = _project_qkv(params, x, cfg, pos)
+    cache["k"][:, offset:offset + S] = k.to(cache["k"].dtype)
+    cache["v"][:, offset:offset + S] = v.to(cache["v"].dtype)
+    o = naive_attention(q, cache["k"], cache["v"], q_positions=pos,
+                        kv_positions=torch.arange(L, device=x.device))
+    return torch.einsum("bshk,hkd->bsd", o, params["wo"]), cache
+
+
+# ===========================================================================
+# MLA
+# ===========================================================================
 
 
 def mla_param_shapes(cfg: ModelConfig):
@@ -134,17 +234,10 @@ def _mla_decode(q_lat, q_rope, ckv_new, krope_new, cache: Cache, positions,
     whose position lies outside the buffer keeps the buffer unchanged),
     then attend over slots ``<= position``. Returns [B, 1, H, r]."""
     ckv_c, krope_c = cache["ckv"], cache["krope"]
-    B, L, _ = ckv_c.shape
+    L = ckv_c.shape[1]
     scale = 1.0 / np.sqrt(scale_dim)
-    owned = (positions >= 0) & (positions < L)
-    safe = positions.clamp(0, L - 1).long()
-    bidx = torch.arange(B, device=positions.device)
-    ckv_c[bidx, safe] = torch.where(owned[:, None],
-                                    ckv_new[:, 0].to(ckv_c.dtype),
-                                    ckv_c[bidx, safe])
-    krope_c[bidx, safe] = torch.where(owned[:, None],
-                                      krope_new[:, 0].to(krope_c.dtype),
-                                      krope_c[bidx, safe])
+    _write_new_token(ckv_c, ckv_new[:, 0], positions)
+    _write_new_token(krope_c, krope_new[:, 0], positions)
     valid = torch.arange(L, device=positions.device)[None, :] \
         <= positions[:, None]
     s = (torch.einsum("bhr,blr->bhl", q_lat[:, 0].float(), ckv_c.float())

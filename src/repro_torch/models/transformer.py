@@ -11,9 +11,10 @@ and residual connections, split into:
 
 Parameters are nested dicts of tensors whose paths and shapes equal the
 JAX package's ``Model.init`` leaves, so ``models/weights.py`` can carry
-weights across one to one. This slice runs MLA mixers with MLP or MoE
-FFNs, decoder-only, with no unrolled tail after the superblocks; the MTP
-head, the encoder, the tail and the other mixers wait.
+weights across one to one. The port runs global GQA (``ATTN``) and MLA
+mixers with MLP or MoE FFNs, decoder-only, with no unrolled tail after
+the superblocks; the MTP head, the encoder, the tail and the other
+mixers (sliding-window, cross-attention, SSM, RG-LRU) wait.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.configs.base import MLA_ATTN, MLP, MOE, ModelConfig
+from repro_torch.configs.base import ATTN, MLA_ATTN, MLP, MOE, ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models.common import (dense_init, dtype_of, embed_init,
@@ -49,10 +50,12 @@ def block_spec(cfg: ModelConfig, kind, dtype) -> Dict[str, PyTree]:
     d = cfg.d_model
     norm = ParamSpec((d,), torch.float32, "zeros")
     spec: Dict[str, PyTree] = {"mixer_norm": norm}
+    shapes = (A.attn_param_shapes(cfg) if mixer == ATTN
+              else A.mla_param_shapes(cfg))
     spec["mixer"] = {
         n: (ParamSpec(s, torch.float32, "zeros") if fan is None
             else ParamSpec(s, dtype, "dense", fan))
-        for n, (s, fan) in A.mla_param_shapes(cfg).items()}
+        for n, (s, fan) in shapes.items()}
 
     def mlp(f):
         return {"wi_gate": ParamSpec((d, f), dtype, "dense", d),
@@ -83,8 +86,9 @@ def block_apply(params, x, *, cfg: ModelConfig, kind, mode: str,
     slice ``(replica_slots, n_replicas, phys_owner)`` or None."""
     mixer, ffn = kind
     h = rms_norm(x, params["mixer_norm"], cfg.norm_eps)
-    y, new_cache = A.mla_apply(params["mixer"], h, cfg=cfg, mode=mode,
-                               cache=cache, positions=positions)
+    apply = A.attn_apply if mixer == ATTN else A.mla_apply
+    y, new_cache = apply(params["mixer"], h, cfg=cfg, mode=mode, cache=cache,
+                         positions=positions)
     x = x + y
     if ffn == MLP:
         h = rms_norm(x, params["ffn_norm"], cfg.norm_eps)
@@ -105,13 +109,13 @@ class Model:
 
     def __init__(self, cfg: ModelConfig):
         kinds = cfg.layer_kinds()
-        bad = sorted({k for k in kinds if k[0] != MLA_ATTN
+        bad = sorted({k for k in kinds if k[0] not in (ATTN, MLA_ATTN)
                       or k[1] not in (MLP, MOE)})
         if bad or cfg.is_encdec or cfg.num_tail_layers:
             raise NotImplementedError(
                 f"{cfg.name}: block kinds {bad}, an encoder or a tail after "
-                f"the superblocks are not ported yet (MLA mixers with "
-                f"MLP/MoE FFNs only)")
+                f"the superblocks are not ported yet (global GQA and MLA "
+                f"mixers with MLP/MoE FFNs only)")
         self.cfg = cfg
         self.dtype = dtype_of(cfg.dtype)
         self.prefix_kinds = kinds[:len(cfg.prefix_layers)]
@@ -163,17 +167,17 @@ class Model:
                    device="cuda") -> PyTree:
         dev = resolve_device(device)
 
-        def zeros(shape):
-            return torch.zeros(shape, dtype=self.dtype, device=dev)
-        one = A.mla_cache_spec(self.cfg, batch, max_len)
+        def zeros(kind, lead=()):
+            spec = (A.attn_cache_spec if kind[0] == ATTN
+                    else A.mla_cache_spec)(self.cfg, batch, max_len)
+            return {n: torch.zeros(lead + s, dtype=self.dtype, device=dev)
+                    for n, s in spec.items()}
         cache: Dict[str, PyTree] = {}
         if self.prefix_kinds:
-            cache["prefix"] = tuple({n: zeros(s) for n, s in one.items()}
-                                    for _ in self.prefix_kinds)
+            cache["prefix"] = tuple(zeros(k) for k in self.prefix_kinds)
         if self.n_sb:
-            cache["blocks"] = {f"pos{i}": {n: zeros((self.n_sb,) + s)
-                                           for n, s in one.items()}
-                               for i in range(len(self.pattern))}
+            cache["blocks"] = {f"pos{i}": zeros(k, (self.n_sb,))
+                               for i, k in enumerate(self.pattern)}
         return cache
 
     # ------------------------------------------------------------------

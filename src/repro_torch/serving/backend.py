@@ -210,11 +210,13 @@ class TorchBackend(ExecutionBackend):
         """Copy a batch-1 cache (any length up to the slot's) into slot
         ``slot`` in place; the slot's positions past it are zeroed."""
         def one(full, part, stacked):
+            # per-layer leaves are [B, L, ...] (MLA latents, GQA k/v),
+            # stacked ones [n_sb, B, L, ...]
             dst = full[:, slot] if stacked else full[slot]
             src = part[:, 0] if stacked else part[0]
-            L = src.shape[-2]
+            ax = 1 if stacked else 0
             dst.zero_()
-            dst[..., :L, :] = src.to(dst.dtype)
+            dst.narrow(ax, 0, src.shape[ax]).copy_(src.to(dst.dtype))
         _map_pairs(one, cache, cache1)
         return cache
 

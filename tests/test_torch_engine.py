@@ -11,6 +11,7 @@ import torch
 
 from repro.serving.flowserve import FlowServeEngine as JaxEngine
 from repro.serving.request import Request as JaxRequest
+from repro_torch.configs.base import MOE
 from repro_torch.models.common import tree_map
 from repro_torch.models.weights import flatten
 from repro_torch.serving import dp_group as tdp
@@ -24,9 +25,11 @@ PROMPTS = ["hello world", "the quick brown fox jumps", "a"]
 
 
 def _skewed_counts(cfg):
+    """Routed-token counts with one hot expert in every MoE layer."""
+    moe = [i for i, (_, f) in enumerate(cfg.layer_kinds()) if f == MOE]
     counts = np.zeros((cfg.num_layers, cfg.moe.num_experts), np.int64)
-    counts[len(cfg.prefix_layers):, 1] = 100
-    counts[len(cfg.prefix_layers):, 0] = 5
+    counts[moe, 1] = 100
+    counts[moe, 0] = 5
     return counts
 
 
@@ -63,6 +66,41 @@ def test_engine_greedy_tokens_identical_to_reference_before_and_after_eplb():
     teng.close()
     assert got == want
     assert all(len(t) == 8 for rnd in got for t in rnd)
+
+
+@pytest.mark.parametrize("chunk_tokens", [None, 8])
+def test_llama4_gqa_engine_greedy_tokens_identical_to_reference(
+        chunk_tokens, monkeypatch):
+    """The smoke Llama-4 with G = 5 (GQA, a dense layer then a top-1 MoE
+    layer): each prompt prefilled as one chunk, and in 8-token chunks
+    (``attn_apply(mode="chunk")`` at offsets past 0); before and after
+    EPLB replicates an expert of the MoE layer (layer 1)."""
+    from repro_torch.models import attention
+    jcfg, _, jparams, tcfg, tparams = reference("float32",
+                                                config="llama4-gqa")
+    jeng = JaxEngine(jcfg, jparams, ctx=auto_ctx(), n_dp_groups=2,
+                     max_batch=2, chunk_tokens=chunk_tokens)
+    want = _two_rounds(jeng, JaxRequest, jcfg)
+    jeng.close()
+    modes, apply = [], attention.attn_apply
+
+    def spy(*a, mode, **kw):
+        modes.append((mode, kw["positions"] if mode == "chunk" else None))
+        return apply(*a, mode=mode, **kw)
+    monkeypatch.setattr(attention, "attn_apply", spy)
+    teng = FlowServeEngine(tcfg, tparams, device="cpu", n_dp_groups=2,
+                           max_batch=2, chunk_tokens=chunk_tokens)
+    got = _two_rounds(teng, Request, tcfg)
+    table = teng.dps[0].backend._placement
+    teng.close()
+    assert got == want
+    assert all(len(t) == 8 for rnd in got for t in rnd)
+    # EPLB replicated an expert of the MoE layer only
+    n_rep = table.n_replicas.numpy()
+    assert n_rep[1].max() > 1 and n_rep[0].max() == 1
+    offsets = {o for m, o in modes if m == "chunk"}
+    assert 0 in offsets and (max(offsets) > 0) == (chunk_tokens is not None)
+    assert ("decode", None) in modes
 
 
 def test_decode_step_moves_only_token_ids(monkeypatch):

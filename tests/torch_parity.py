@@ -21,6 +21,14 @@ from repro_torch.configs import get_config as torch_get_config
 from repro_torch.models.weights import from_jax_params
 
 ARCH = "deepseek-v3-671b-smoke"
+#: named smoke configurations: registry name and field overrides. The
+#: Llama-4 one has G = 5 query heads per KV head, as at full width (the
+#: plain smoke variant has G = 1).
+CONFIGS = {
+    "deepseek-v3": (ARCH, {}),
+    "llama4-gqa": ("llama4-maverick-400b-a17b-smoke",
+                   {"num_heads": 10, "num_kv_heads": 2, "head_dim": 32}),
+}
 
 
 def auto_ctx(**kw) -> MeshCtx:
@@ -29,23 +37,30 @@ def auto_ctx(**kw) -> MeshCtx:
     return MeshCtx(mesh=mesh, batch_axes=("data",), remat="none", **kw)
 
 
-def configs(dtype: str = "float32", num_layers=None):
-    """(JAX config, port config) of the smoke DeepSeek-V3, equal fields."""
-    kw = {"dtype": dtype}
+def configs(dtype: str = "float32", num_layers=None,
+            config: str = "deepseek-v3"):
+    """(JAX config, port config) of a smoke configuration of
+    :data:`CONFIGS`, equal fields."""
+    arch, kw = CONFIGS[config]
+    kw = dict(kw, dtype=dtype)
     if num_layers is not None:
         kw["num_layers"] = num_layers
-    return (dataclasses.replace(jax_get_config(ARCH), **kw),
-            dataclasses.replace(torch_get_config(ARCH), **kw))
+    return (dataclasses.replace(jax_get_config(arch), **kw),
+            dataclasses.replace(torch_get_config(arch), **kw))
 
 
 @functools.lru_cache(maxsize=None)
-def reference(dtype: str = "float32", num_layers=None, seed: int = 0):
-    """(jax cfg, jax model, jax params, port cfg, port params on CPU)."""
-    jcfg, tcfg = configs(dtype, num_layers)
+def reference(dtype: str = "float32", num_layers=None, seed: int = 0,
+              config: str = "deepseek-v3"):
+    """(jax cfg, jax model, jax params, port cfg, port params on CPU).
+    The MTP head is the one subtree the bridge skips, where there is
+    one."""
+    jcfg, tcfg = configs(dtype, num_layers, config)
     model = jax_build_model(jcfg, auto_ctx())
     params = model.init(jax.random.PRNGKey(seed))
     tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, params),
-                              tcfg, "cpu", skip=("mtp",))
+                              tcfg, "cpu",
+                              skip=("mtp",) if "mtp" in params else ())
     return jcfg, model, params, tcfg, tparams
 
 
