@@ -13,29 +13,49 @@ Stages (any failure raises and exits non-zero):
 
 DeepSeek-V3 (MLA + top-8 MoE):
 
-3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (DeepSeek-V3 width, top-8 of 256 experts, capacity
-   4; the token counts T the path packs: decode T=4, the prompts' padded
-   prefill buckets 32 and 64, and the unpadded 37-token prompt):
-   route-pack exactly (bf16, spread and hot routing, with and without
-   INT8 quantize and expert ids, and with masked rows, over the 256
-   experts and the EPLB table's 258 slots), the grouped expert FFN
-   within 3e-2 (bf16), and the owner-indexed FFN within 3e-2 of its
-   plain version and bit-identical to the plain kernel on
-   owner-gathered weights over the 258 slots; time kernel (CUDA events,
-   median of 20 after warm-up, and device time under the profiler),
-   plain version and one PyTorch library call;
+3. hold each MoE kernel against its plain PyTorch version on the card at
+   the main path's shapes (DeepSeek-V3 width, top-8 of 256 experts,
+   capacity 4; the token counts T the path packs: decode T=4, the
+   prompts' padded prefill buckets 32 and 64, and the unpadded 37-token
+   prompt): route-pack exactly (bf16, spread and hot routing, with and
+   without INT8 quantize and expert ids, and with masked rows, over the
+   256 experts and the EPLB table's 258 slots), Collect exactly at every
+   N = T·8 (routed int64 ids, and int32 ids with -1 and ids >= E mixed
+   in), the grouped expert FFN within 3e-2 (bf16), and the owner-indexed
+   FFN within 3e-2 of its plain version and bit-identical to the plain
+   kernel on owner-gathered weights over the 258 slots; time kernel
+   (CUDA events, median of 20 after warm-up, and device time under the
+   profiler), plain version and one PyTorch library call;
 4. serve full-width DeepSeek-V3 cut to 4 layers (3 dense + 1 MoE, random
    bf16 weights made on the card from a seed) through the port's
    ``FlowServeEngine`` (2 DP groups × 4 slots): 4 prompts × 16 greedy
    tokens, then a skewed EPLB pass, then 4 more prompts; every kernel's
-   launch count over this stage must be above 0, and the owner-indexed
-   FFN must run after EPLB; the first route-pack of each shape the path
-   makes (before and after EPLB) is replayed on the kernel and the plain
-   version, exactly; then profile full-batch decode steps (host clock
-   per engine step, device time by kernel with ``torch.profiler``, and
-   the device's idle share within the same profiled steps);
-5. check the output by the repository's own means: every request
+   launch count over this stage must be above 0 (route-pack, gmm,
+   placement_gmm, and Collect under every MoE layer call), and the
+   owner-indexed FFN must run after EPLB; the first route-pack and the
+   first Collect of each shape the path makes are replayed on the kernel
+   and the plain version, exactly; then profile full-batch decode steps
+   (host clock per engine step, device time by kernel with
+   ``torch.profiler``, and the device's idle share within the same
+   profiled steps);
+5. the INT8 path of §4.7 on that engine before it is freed, with the
+   launch counts set to 0 just before it and read just after: on layer
+   0's full-width ``wq_a``, ``wkv_a``, ``wq_b`` (as [1536, 24576]), the
+   dense MLP's ``wi_gate`` and ``wo`` and one routed expert's
+   ``we_gate``, with the path's own tokens' rms-normed embeddings (their
+   q latent for ``wq_b``, their SwiGLU for ``wo``) as activations and
+   calibration set: SmoothQuant, channel-wise weights, the W8A8 linear
+   (quant-dispatch + INT8-matmul kernels) at M 4, 37, 64 and 512, naive
+   and smoothed, each bit-identical to the plain path, with its error
+   against the bf16 product logged; GPTQ of ``wkv_a`` in float64 on the
+   card (timed, error against naive rounding); the served MLA caches
+   quantized. Then quant-dispatch bit-identical at every input, a zero
+   row, .5 quotients and (7, 32); INT8 matmul at the ragged (100,300,50)
+   and (1,64,17); the caches bit-identical; and both kernels timed
+   (quant-dispatch at [512, 7168] bf16, INT8 matmul at M 4 and 512 on
+   ``wi_gate``, ``torch._int_mm`` as the library call where it takes the
+   shape);
+6. check the output by the repository's own means: every request
    finished with its tokens, the logits are finite, and on the smoke
    DeepSeek-V3 (float32) the engine on the card gives the same greedy
    tokens as the engine on the CPU with the plain versions, before and
@@ -44,29 +64,36 @@ DeepSeek-V3 (MLA + top-8 MoE):
 Llama-4 Maverick (GQA + top-1 MoE with a shared expert), after the
 DeepSeek-V3 engine is freed:
 
-6. make full-width Llama-4 cut to 2 layers (one dense GQA+MLP layer, one
+7. make full-width Llama-4 cut to 2 layers (one dense GQA+MLP layer, one
    GQA+MoE layer; random bf16 weights made on the card from a seed) in
    a ``FlowServeEngine`` (2 DP groups x 4 slots, ``max_len`` 1024,
    512-token prefill chunks);
-7. hold the kernels against their plain versions at Llama-4's shapes:
+8. hold the kernels against their plain versions at Llama-4's shapes:
    decode attention in bf16 (3e-2) and float32 (2e-4) at the path's
    shape (B 4, H 40, KV 8, hd 128, L 1024, positions 0 and L-1 among
    them), at a ragged L, in ring-window mode, at G = 1 and G = 8, on a
-   strided cache view and at head sizes 64 and 32; the MoE kernels as in stage 3, at top-1 of 128
-   experts and 130 slots, on the engine's own MoE weights, at every
-   capacity the path's packs have (4 at decode, 5 for a 512-token
-   chunk, 8 for the 826-token prompt: one, two and two row tiles); time
-   them as in stage 3 (``scaled_dot_product_attention`` is decode
-   attention's library call), and decode attention also at L 32768;
-8. serve 4 prompts x 16 greedy tokens (one of 825 bytes, prefilled in
+   strided cache view and at head sizes 64 and 32; the MoE kernels and
+   Collect as in stage 3, at top-1 of 128 experts and 130 slots, on the
+   engine's own MoE weights, at every capacity the path's packs have (4
+   at decode, 5 for a 512-token chunk, 8 for the 826-token prompt: one,
+   two and two row tiles); time them as in stage 3
+   (``scaled_dot_product_attention`` is decode attention's library
+   call), and decode attention also at L 32768;
+9. serve 4 prompts x 16 greedy tokens (one of 825 bytes, prefilled in
    two 512-token chunks), a skewed EPLB pass on the MoE layer, 4 more
-   prompts; every kernel of the path launches, the path's first pack of
-   each shape is replayed exactly, the logits are finite; profile
-   decode steps as for DeepSeek-V3;
-9. the smoke Llama-4 with G = 5 (float32): the engine on the card gives
-   the CPU's greedy tokens, before and after EPLB;
+   prompts; every kernel of the path launches, the path's first pack
+   and Collect of each shape are replayed exactly, the logits are
+   finite; profile decode steps as for DeepSeek-V3;
+10. the INT8 KV cache on that engine, launch counts set to 0 just
+    before and read just after: every layer's k/v of both DP groups
+    quantized per (position, head) through quant-dispatch, bit-identical
+    to the plain version; INT8 attention scores at the path's shape (one
+    query row per KV head, [4, 8, 128] against [4, 1024, 8, 128]) equal
+    on the card and the CPU;
+11. the smoke Llama-4 with G = 5 (float32): the engine on the card gives
+    the CPU's greedy tokens, before and after EPLB;
 
-10. print the card's name and power limit, one JSON line with every
+12. print the card's name and power limit, one JSON line with every
     kernel's launches per path, error, times and bound, then the final
     ``{"ok": true, ...}`` line.
 """
@@ -86,6 +113,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, published
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16, published
+INT8_OP_PER_S = 1979e12            # H100 SXM dense int8, published
 PROMPTS = ["The SuperPod serves DeepSeek-V3 with", "Expert parallel decode",
            "Hello, world! 1 2 3", "Latent attention caches"]
 PROMPTS_EPLB = ["Load balancing moves experts", "A second wave of",
@@ -98,17 +126,25 @@ LLAMA_PROMPTS = [
 LLAMA_PROMPTS_EPLB = ["After the swap", "a hot expert has", "two replicas",
                       "and the run ends."]
 DEEPSEEK, LLAMA = "deepseek-v3-671b", "llama4-maverick-400b-a17b"
-KERNELS = ("route_pack", "gmm", "placement_gmm", "decode_attention")
-SOURCES = {"route_pack": "src/repro_torch/kernels/csrc/route_pack.cu",
-           "gmm": "src/repro_torch/kernels/csrc/gmm.cu",
-           "placement_gmm": "src/repro_torch/kernels/csrc/gmm.cu",
-           "decode_attention":
-               "src/repro_torch/kernels/csrc/decode_attention.cu"}
+DEEPSEEK_INT8, LLAMA_INT8_KV = DEEPSEEK + "/int8", LLAMA + "/int8-kv"
+KERNELS = ("route_pack", "gmm", "placement_gmm", "decode_attention",
+           "quant_dispatch", "int8_matmul", "collect")
+SOURCES = {n: f"src/repro_torch/kernels/csrc/{n}.cu" for n in KERNELS}
+SOURCES["placement_gmm"] = SOURCES["gmm"]
 REPLACES = {"route_pack": "src/repro/kernels/route_pack/kernel.py:105",
             "gmm": "src/repro/kernels/gmm/kernel.py:56",
             "placement_gmm": "src/repro/kernels/gmm/kernel.py:91",
             "decode_attention": "src/repro/kernels/decode_attention/"
-                                "kernel.py:67"}
+                                "kernel.py:67",
+            "quant_dispatch": "src/repro/kernels/quant_dispatch/kernel.py:30",
+            "int8_matmul": "src/repro/kernels/int8_matmul/kernel.py:38",
+            "collect": "src/repro/kernels/collect/kernel.py:38"}
+#: the path whose measurements each kernel's entry of the kernels line
+#: carries (every path's own are under ``by_path``)
+TIMED_ON = {"quant_dispatch": DEEPSEEK_INT8, "int8_matmul": DEEPSEEK_INT8}
+#: the INT8 stage's token counts M: a DP group's decode batch, the
+#: unpadded first prompt, its padded prefill bucket, and a 512 bucket
+INT8_M = (4, 37, 64, 512)
 
 
 def log(msg: str) -> None:
@@ -137,11 +173,13 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20, warm: int = 3) -> float:
+def device_ms(fn, reps: int = 20, warm: int = 3):
     """Device time of ``fn`` per call: the CUDA kernels' own time under
     ``torch.profiler`` over ``reps`` calls after warm-up. Unlike
     :func:`time_ms` it leaves out the host's launch work, which sets the
-    event-timed figure of a call shorter than its launch cost."""
+    event-timed figure of a call shorter than its launch cost. None when
+    the profiler recorded no device time (it has missed a window now and
+    then): "not measured", never 0."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
@@ -151,13 +189,14 @@ def device_ms(fn, reps: int = 20, warm: int = 3) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / 1e3 / reps
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type.name == "CUDA")
+    return total / 1e3 / reps if total > 0 else None
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, peak: float = BF16_FLOP_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / BF16_FLOP_PER_S * 1e3
+    t_ops = n_flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -192,6 +231,19 @@ def pack_err(a, b, what: str) -> float:
     return err
 
 
+def exact(got, want, what: str) -> float:
+    """Hold a kernel's output to its plain version: same shape and dtype
+    and bit-identical, or the check fails. Returns the largest absolute
+    difference, computed from the two tensors."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: shape and dtype")
+    err = ((got.double() - want.double()).abs().max().item()
+           if got.numel() else 0.0)
+    check(torch.equal(got, want), f"{what}: bit-identical (max abs "
+                                  f"difference {err})")
+    return err
+
+
 def path_token_counts(prompts, max_batch: int, max_len: int = 256,
                       chunk: int = 0) -> list:
     """Token counts T of the route-packs a path makes: a decode step's
@@ -212,7 +264,7 @@ def path_token_counts(prompts, max_batch: int, max_len: int = 256,
 
 
 # ---------------------------------------------------------------------------
-# stages 3 and 7: kernels against their plain versions
+# stages 3 and 8: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def bmm_chain(xb, g, u, dn):
     """The grouped SwiGLU FFN as PyTorch batched products (the library
@@ -229,9 +281,10 @@ def check_moe_kernels(cfg, counts, max_batch: int, weights=None) -> dict:
     expert weights (we_gate, we_up, we_down), or None to make random
     ones. Route-pack is held exactly at every T, over the E logical
     experts and over the E + 2 physical slots of an EPLB table that
-    replicates two experts. gmm is held within 3e-2 of its plain version
-    at every bucket capacity the path's packs have (a capacity above 4
-    takes more than one row tile), and placement_gmm within 3e-2 of its
+    replicates two experts, and Collect at every N = T·k. gmm is held
+    within 3e-2 of its plain version at every bucket capacity the path's
+    packs have (a capacity above 4 takes more than one row tile), and
+    placement_gmm within 3e-2 of its
     plain version and bit-identical to gmm on owner-gathered weights
     (gathered 16 slots at a time: a whole copy at Llama-4 width would be
     32 GB beside its 37 GB of weights). Times are taken at the decode
@@ -308,6 +361,8 @@ def check_moe_kernels(cfg, counts, max_batch: int, weights=None) -> dict:
         plain_ms=time_ms(lambda: route_pack_ref(x, dest, None, None, **kw)),
         library_ms=None, bound_ms=bnd, bound_by=by)}
 
+    out["collect"] = check_collect(counts, k, E, gen)
+
     # -- gmm and placement_gmm at each capacity the path's packs have ----
     def pack(T, dst, n_dest):
         return route_pack_cuda(packs[T][0], dst, None, None, k=k,
@@ -367,14 +422,53 @@ def check_moe_kernels(cfg, counts, max_batch: int, weights=None) -> dict:
             bound_ms=bnd, bound_by=by, bound_dense_walk_ms=dense,
             nonempty_slots=live, slots=n_dest)
     for name, r in out.items():
-        log(f"  {name}: {r['ms']:.4f} ms, device {r['device_ms']:.4f} ms "
+        log(f"  {name}: {r['ms']:.4f} ms, device {r['device_ms']} ms "
             f"(plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
     return out
 
 
+def check_collect(counts, k: int, E: int, gen) -> dict:
+    """Collect exactly against its plain version at every N = T·k the
+    path routes, on routed ids (int64, as the router's top-k gives them)
+    and on int32 ids with -1 and ids at E or above mixed in; its counts
+    sum to the number of valid ids. Timed at the decode shape (the first
+    T) on routed ids."""
+    from repro_torch.kernels.collect.kernel import collect_cuda
+    from repro_torch.kernels.collect.ref import collect_ref
+
+    err = 0.0
+    for T in counts:
+        N = T * k
+        routed = torch.rand((T, E), generator=gen, device="cuda").topk(
+            k, dim=-1).indices.reshape(-1)
+        mixed = torch.randint(-1, E, (N,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        wild = torch.rand((N,), generator=gen, device="cuda") < 0.15
+        mixed[wild] = E + torch.randint(0, 3 * E, (N,), generator=gen,
+                                        device="cuda",
+                                        dtype=torch.int32)[wild]
+        for name, ids in (("routed int64", routed), ("mixed int32", mixed)):
+            got = collect_cuda(ids, E)
+            err = max(err, exact(got, collect_ref(ids, E),
+                                 f"collect N={N} E={E} {name}"))
+            check(int(got.sum()) == int(((ids >= 0) & (ids < E)).sum()),
+                  f"collect N={N}: the counts sum to the valid ids")
+        log(f"collect N={N} E={E}: exact on routed int64 ids and on int32 "
+            f"ids with -1 and ids >= E mixed in")
+    ids = torch.rand((counts[0], E), generator=gen, device="cuda").topk(
+        k, dim=-1).indices.reshape(-1)
+    bnd, by = bound_ms(nbytes(ids) + E * 4, 0)
+    return dict(max_abs_err=err, n=ids.numel(),
+                ms=time_ms(lambda: collect_cuda(ids, E)),
+                device_ms=device_ms(lambda: collect_cuda(ids, E)),
+                plain_ms=time_ms(lambda: collect_ref(ids, E)),
+                library_ms=time_ms(lambda: torch.bincount(ids, minlength=E)),
+                library="torch.bincount", bound_ms=bnd, bound_by=by)
+
+
 # ---------------------------------------------------------------------------
-# stage 7: decode attention against its plain version
+# stage 8: decode attention against its plain version
 # ---------------------------------------------------------------------------
 def check_decode_attention(cfg, max_batch: int, max_len: int) -> dict:
     """Decode attention at the path's shape and around it, in bf16 and
@@ -541,6 +635,35 @@ def replay_packs(rec: PackRecorder, cfg) -> float:
     return err
 
 
+class CollectRecorder:
+    """Stands in for the MoE layer's Collect entry point and keeps a copy
+    of the ids of the first call of each shape, to be replayed on the
+    kernel and the plain version afterwards."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, {}
+
+    def __call__(self, ids, *, n_experts):
+        key = (ids.shape[0], ids.dtype, n_experts)
+        if key not in self.calls:
+            self.calls[key] = ids.clone()
+        return self.fn(ids, n_experts=n_experts)
+
+
+def replay_collect(rec: CollectRecorder) -> float:
+    """The path's own Collect calls, one of each shape: exact."""
+    from repro_torch.kernels.collect.kernel import collect_cuda
+    from repro_torch.kernels.collect.ref import collect_ref
+
+    err = 0.0
+    for (N, _, E), ids in rec.calls.items():
+        err = max(err, exact(collect_cuda(ids, E), collect_ref(ids, E),
+                             f"path collect N={N} E={E}"))
+    log(f"path collect replayed exactly at (N, E) "
+        f"{sorted((N, E) for N, _, E in rec.calls)}")
+    return err
+
+
 def make_engine(cfg, **kw):
     """The port's engine with random weights made on the card."""
     from repro_torch.models.weights import flatten
@@ -555,11 +678,14 @@ def make_engine(cfg, **kw):
     return engine
 
 
-def run_path(engine, prompts, prompts_eplb, kernels) -> dict:
+def run_path(engine, prompts, prompts_eplb, kernels,
+             before_close=None) -> dict:
     """Serve ``prompts``, run a skewed EPLB pass, serve
     ``prompts_eplb``, with every launch count set to 0 just before and
     read just after: each of ``kernels`` must have launched. Then replay
-    the path's packs, profile decode, and close the engine."""
+    the path's packs and Collect calls, profile decode, call
+    ``before_close(engine, requests)`` if given (its result goes under
+    ``"stage"``), and close the engine."""
     from unittest import mock
 
     from repro_torch.kernels import runtime
@@ -568,7 +694,9 @@ def run_path(engine, prompts, prompts_eplb, kernels) -> dict:
     cfg = engine.cfg
     torch.cuda.reset_peak_memory_stats()
     rec = PackRecorder(ffn.fused_route_pack)
-    with mock.patch.object(ffn, "fused_route_pack", rec):
+    crec = CollectRecorder(ffn.expert_counts)
+    with mock.patch.object(ffn, "fused_route_pack", rec), \
+            mock.patch.object(ffn, "expert_counts", crec):
         runtime.reset_launch_counts()
         reqs, wall = serve(engine, prompts, 16)
         before = dict(runtime.LAUNCHES)
@@ -591,21 +719,25 @@ def run_path(engine, prompts, prompts_eplb, kernels) -> dict:
             logits, _ = engine.model.prefill(engine.params, tok)
         check(bool(torch.isfinite(logits).all()), "finite logits")
     replay_err = replay_packs(rec, cfg)
-    del rec
+    collect_err = replay_collect(crec)
+    del rec, crec
     profile = profile_decode(engine)
     everyone = reqs + reqs2
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    stage = before_close(engine, everyone) if before_close else None
     ttft = [r.ttft for r in everyone]
     tpot = [r.tpot for r in everyone]
     res = dict(launches=launches, launches_before_eplb=before,
                route_pack_replay_err=replay_err,
+               collect_replay_err=collect_err,
                ttft_ms_mean=1e3 * statistics.mean(ttft),
                ttft_ms_max=1e3 * max(ttft),
                tpot_ms_mean=1e3 * statistics.mean(tpot),
                tpot_ms_max=1e3 * max(tpot),
                ttft_ms=[1e3 * t for t in ttft],
                serve_s=[wall, wall2],
-               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-               decode_profile=profile,
+               peak_mem_gib=peak,
+               decode_profile=profile, stage=stage,
                text=engine.tokenizer.decode(reqs[0].output_tokens))
     engine.close()
     log(f"path: {len(everyone)} requests x 16 tokens served in {wall:.2f} "
@@ -670,7 +802,7 @@ def profile_decode(engine, steps: int = 4) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# stage 5: the card against the CPU on a small input
+# stages 6 and 11: the card against the CPU on a small input
 # ---------------------------------------------------------------------------
 def check_small_reference(arch: str, **overrides):
     """The smoke variant of ``arch`` in float32: greedy tokens of the
@@ -715,6 +847,314 @@ def serve_any(engine, prompts):
 
 
 # ---------------------------------------------------------------------------
+# stages 5 and 10: the INT8 path of §4.7 on the served engines
+# ---------------------------------------------------------------------------
+def int8_token_rows(engine, reqs) -> dict:
+    """M → token ids of the INT8 stage: the last token of four served
+    requests (a DP group's decode batch), the first prompt unpadded and
+    padded to its prefill bucket as the backend pads it, and every prompt
+    and output token of the path, cycled to 512 (the calibration set)."""
+    from repro_torch.serving.backend import _bucket_len
+    from repro_torch.serving.tokenizer import PAD
+
+    enc = engine.tokenizer.encode
+    first = enc(PROMPTS[0])
+    every = [t for r in reqs for t in enc(r.prompt) + list(r.output_tokens)]
+    rows = {4: [r.output_tokens[-1] for r in reqs[:4]],
+            len(first): first,
+            _bucket_len(len(first)): first + [PAD] * (
+                _bucket_len(len(first)) - len(first)),
+            512: (every * (512 // len(every) + 1))[:512]}
+    check(tuple(sorted(rows)) == INT8_M, f"INT8 token counts {sorted(rows)}")
+    return rows
+
+
+def hold_quant_dispatch(x, what: str) -> float:
+    """quant-dispatch on ``x`` [T, d] against its plain version: the
+    int8 values and the scales bit-identical."""
+    from repro_torch.kernels.quant_dispatch.kernel import quant_dispatch_cuda
+    from repro_torch.kernels.quant_dispatch.ref import quant_dispatch_ref
+
+    (q, sc), (rq, rsc) = quant_dispatch_cuda(x), quant_dispatch_ref(x)
+    return max(exact(q, rq, f"quant_dispatch {what} values"),
+               exact(sc, rsc, f"quant_dispatch {what} scales"))
+
+
+def rel_err(y, ref) -> float:
+    return float(torch.linalg.norm(y.float() - ref.float())
+                 / torch.linalg.norm(ref.float()))
+
+
+def int8_stage(engine, reqs) -> dict:
+    """The §4.7 pipeline on the served DeepSeek-V3 engine's layer-0
+    weights and its cache. Launch counts are set to 0 just before the
+    pipeline and read just after; the comparisons with the plain
+    versions that need a kernel launch come after that."""
+    from repro_torch import quant as Q
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.int8_matmul.kernel import int8_matmul_cuda
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
+    from repro_torch.kernels.quant_dispatch.kernel import quant_dispatch_cuda
+    from repro_torch.kernels.quant_dispatch.ref import quant_dispatch_ref
+    from repro_torch.models.common import rms_norm
+
+    t_stage = time.monotonic()
+    cfg, p = engine.cfg, engine.params
+    eps, m = cfg.norm_eps, cfg.mla
+    l0 = p["prefix"][0]
+    mla, mlp = l0["mixer"], l0["ffn"]
+    silu = torch.nn.functional.silu
+    ids = {M: torch.tensor(t, device="cuda")
+           for M, t in int8_token_rows(engine, reqs).items()}
+    with torch.no_grad():
+        # the weights' inputs, computed with the port's functions: the
+        # rms-normed embeddings (wq_a, wkv_a, wi_gate, the expert), their
+        # q latent (wq_b) and their SwiGLU through the dense MLP (wo)
+        x = {M: rms_norm(p["embed"][t], l0["mixer_norm"], eps)
+             for M, t in ids.items()}
+        acts = {"x": x,
+                "cq": {M: rms_norm(v @ mla["wq_a"], mla["q_norm"], eps)
+                       for M, v in x.items()},
+                "h": {M: silu(v @ mlp["wi_gate"]) * (v @ mlp["wi_up"])
+                      for M, v in x.items()}}
+    weights = [("wq_a", mla["wq_a"], "x"), ("wkv_a", mla["wkv_a"], "x"),
+               ("wq_b", mla["wq_b"].reshape(m.q_lora_rank, -1), "cq"),
+               ("wi_gate", mlp["wi_gate"], "x"), ("wo", mlp["wo"], "h"),
+               ("we_gate[3]", p["blocks"]["pos0"]["ffn"]["we_gate"][0][3],
+                "x")]
+
+    def plain_linear(x, qw):
+        xq, xs = quant_dispatch_ref(x.reshape(-1, x.shape[-1]))
+        return int8_matmul_ref(xq, xs, qw.values, qw.scale)
+
+    # -- the pipeline, counted ------------------------------------------
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    t0 = time.monotonic()
+    errs, lin_err, held, qws = {}, 0.0, [], {}
+    for name, w, kind in weights:
+        ws, s = Q.smooth_quant_pair(acts[kind][512], w)
+        qn, qs = Q.quantize_weight_channelwise(w), \
+            Q.quantize_weight_channelwise(ws)
+        qws[name] = qn
+        for M in INT8_M:
+            xm = acts[kind][M]
+            y16 = xm @ w                                # the bf16 product
+            xs_ = xm / s[None]                          # f32 after smoothing
+            yn, ys = Q.quantized_linear(xm, qn), Q.quantized_linear(xs_, qs)
+            lin_err = max(lin_err,
+                          exact(yn, plain_linear(xm, qn),
+                                f"quantized_linear {name} M={M}"),
+                          exact(ys, plain_linear(xs_, qs),
+                                f"smoothed quantized_linear {name} M={M}"))
+            held += [(f"{name} M={M} bf16", xm), (f"{name} M={M} smoothed",
+                                                  xs_)]
+            errs[f"{name} M={M}"] = dict(naive=rel_err(yn, y16),
+                                         smoothed=rel_err(ys, y16))
+        del ws, s, qs
+    x512 = acts["x"][512]
+    h = Q.hessian_from_calibration(x512)
+    torch.cuda.synchronize()
+    tg = time.monotonic()
+    qg, gptq_w_rel = Q.gptq_quantize(mla["wkv_a"], h)
+    torch.cuda.synchronize()
+    gptq_s = time.monotonic() - tg
+    del h
+    y16 = x512 @ mla["wkv_a"]
+    yg = Q.quantized_linear(x512, qg)
+    lin_err = max(lin_err, exact(yg, plain_linear(x512, qg),
+                                 "quantized_linear wkv_a GPTQ"))
+    gptq = dict(seconds=gptq_s, weight_rel_err=gptq_w_rel,
+                out_rel_err=rel_err(yg, y16),
+                naive_out_rel_err=errs["wkv_a M=512"]["naive"])
+    caches = []
+    for g, dp in enumerate(engine.dps):
+        c = dp.cache
+        layers = [(f"prefix{i}", lc) for i, lc in enumerate(c["prefix"])]
+        layers.append(("blocks.pos0", c["blocks"]["pos0"]))
+        caches += [(f"dp{g} {n}", lc, Q.quantize_mla_cache(lc))
+                   for n, lc in layers]
+    torch.cuda.synchronize()
+    pipeline_s = time.monotonic() - t0
+    launches = dict(runtime.LAUNCHES)
+    check(all(launches.get(n, 0) > 0 for n in ("quant_dispatch",
+                                                 "int8_matmul")),
+          f"the INT8 path launched both kernels: {launches}")
+    log(f"int8: pipeline over {len(weights)} weights x M {INT8_M} (naive "
+        f"and smoothed), GPTQ of wkv_a ({gptq_s:.2f} s in float64 on the "
+        f"card) and {len(caches)} MLA caches in {pipeline_s:.2f} s; "
+        f"launches {launches}; quantized_linear bit-identical to the plain "
+        f"path everywhere")
+    for k, e in errs.items():
+        log(f"  {k}: rel err vs bf16 naive {e['naive']:.4g}, smoothed "
+            f"{e['smoothed']:.4g}")
+    log(f"  GPTQ wkv_a M=512: rel err {gptq['out_rel_err']:.4g} (naive "
+        f"{gptq['naive_out_rel_err']:.4g}), weight rel err "
+        f"{gptq_w_rel:.4g}")
+
+    # -- quant-dispatch and INT8 matmul against their plain versions -----
+    qd_err = 0.0
+    for what, xh in held:
+        qd_err = max(qd_err, hold_quant_dispatch(xh.reshape(-1, xh.shape[-1]),
+                                                 what))
+    kv_err, kv_rt = 0.0, 0.0
+    for what, lc, qc in caches:
+        rows = lc["ckv"].reshape(-1, lc["ckv"].shape[-1])
+        rq, rsc = quant_dispatch_ref(rows)
+        kv_err = max(kv_err,
+                     exact(qc["ckv_q"].reshape(rows.shape), rq,
+                           f"MLA cache {what} values"),
+                     exact(qc["ckv_scale"].reshape(-1), rsc,
+                           f"MLA cache {what} scales"))
+        check(qc["krope"] is lc["krope"], "the RoPE part stays as it is")
+        back = Q.dequantize_mla_cache(qc)["ckv"]
+        kv_rt = max(kv_rt, (back.float() - lc["ckv"].float()).abs().max()
+                    .item())
+    log(f"int8: MLA caches {tuple(caches[0][1]['ckv'].shape)} per layer "
+        f"quantized bit-identically to the plain version; round-trip max "
+        f"abs err {kv_rt:.4g}")
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    edge = torch.zeros((3, 300), device="cuda")
+    edge[1, :8] = torch.tensor([127, 2.5, -3.5, 0.5, -0.5, 1.5, 126.5,
+                                -126.5])
+    edge[2] = torch.randn(300, generator=gen, device="cuda")
+    qd_err = max(qd_err, hold_quant_dispatch(edge, "zero row, .5 quotients"))
+    check(quant_dispatch_cuda(edge)[0][1, :8].tolist()
+          == [127, 2, -4, 0, 0, 2, 126, -126], "half to even")
+    for dt in (torch.float32, torch.bfloat16):
+        qd_err = max(qd_err, hold_quant_dispatch(
+            torch.randn((7, 32), generator=gen, device="cuda").to(dt),
+            f"(7, 32) {dt}"))
+    mm_err = lin_err
+    for M, K, N in ((100, 300, 50), (1, 64, 17)):
+        xq, wq = (torch.randint(-127, 128, sh, generator=gen, device="cuda",
+                                dtype=torch.int8) for sh in ((M, K), (K, N)))
+        xs_, ws_ = (torch.rand(n, generator=gen, device="cuda") + 0.1
+                    for n in (M, N))
+        mm_err = max(mm_err, exact(int8_matmul_cuda(xq, xs_, wq, ws_),
+                                   int8_matmul_ref(xq, xs_, wq, ws_),
+                                   f"int8_matmul ragged ({M},{K},{N})"))
+    log("int8: quant_dispatch bit-identical at every input of the pipeline, "
+        "a zero row, .5 quotients and (7, 32); int8_matmul at the ragged "
+        "(100,300,50) and (1,64,17)")
+
+    # -- times at the path's shapes ----------------------------------------
+    xt = acts["x"][512]
+    xq, xs_ = quant_dispatch_cuda(xt)
+    bnd, by = bound_ms(nbytes(xt, xq, xs_), 0)
+    qd = dict(max_abs_err=qd_err, kv_max_abs_err=kv_err,
+              kv_round_trip_max_abs_err=kv_rt, shape=list(xt.shape),
+              ms=time_ms(lambda: quant_dispatch_cuda(xt)),
+              device_ms=device_ms(lambda: quant_dispatch_cuda(xt)),
+              plain_ms=time_ms(lambda: quant_dispatch_ref(xt)),
+              library_ms=None, library="none", bound_ms=bnd, bound_by=by)
+    qw = qws["wi_gate"]
+    mm = {}
+    for M in (4, 512):
+        xq, xs_ = quant_dispatch_cuda(acts["x"][M])
+        K, N = qw.values.shape
+        out = int8_matmul_cuda(xq, xs_, qw.values, qw.scale)
+        bnd, by = bound_ms(nbytes(xq, xs_, qw.values, qw.scale, out),
+                           2 * M * K * N, INT8_OP_PER_S)
+        r = dict(shape=[M, K, N],
+                 ms=time_ms(lambda: int8_matmul_cuda(xq, xs_, qw.values,
+                                                     qw.scale)),
+                 device_ms=device_ms(lambda: int8_matmul_cuda(
+                     xq, xs_, qw.values, qw.scale)),
+                 plain_ms=time_ms(lambda: int8_matmul_ref(
+                     xq, xs_, qw.values, qw.scale)),
+                 library_ms=None, library="none at this shape (torch._int_mm "
+                                          "takes M > 16)",
+                 bound_ms=bnd, bound_by=by)
+        if M > 16 and K % 8 == 0 and N % 8 == 0:
+            def lib():
+                return (torch._int_mm(xq, qw.values).float() * xs_[:, None]
+                        * qw.scale[None, :])
+            # the same call on a column-major copy of the weight, the
+            # layout cuBLASLt's int8 kernels prefer (another input, so a
+            # datum beside library_ms, not library_ms)
+            w_cm = qw.values.t().contiguous().t()
+
+            def lib_cm():
+                return (torch._int_mm(xq, w_cm).float() * xs_[:, None]
+                        * qw.scale[None, :])
+            r.update(library_ms=time_ms(lib),
+                     library="torch._int_mm + the same epilogue",
+                     library_max_abs_err=(lib() - out).abs().max().item(),
+                     library_col_major_weight_ms=time_ms(lib_cm),
+                     library_col_major_max_abs_err=(lib_cm() - out).abs()
+                     .max().item())
+            del w_cm
+        mm[M] = r
+    mm4 = dict(mm[4], max_abs_err=mm_err, m512=mm[512])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for n, r in (("quant_dispatch", qd), ("int8_matmul M=4", mm[4]),
+                 ("int8_matmul M=512", mm[512])):
+        log(f"  {n}: {r['ms']:.4f} ms, device {r['device_ms']} ms "
+            f"(plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+    return dict(kernels={"quant_dispatch": qd, "int8_matmul": mm4},
+                launches=launches, output_rel_err=errs, gptq=gptq,
+                pipeline_s=pipeline_s, peak_mem_gib=peak,
+                stage_s=time.monotonic() - t_stage)
+
+
+def int8_kv_stage(engine, reqs) -> dict:
+    """The INT8 GQA cache on the served Llama-4 engine: each layer's k/v
+    of each DP group quantized per (position, head) with launch counts
+    set to 0 just before and read just after, bit-identical to the plain
+    version; then INT8 attention scores at the path's shape, one query
+    row per KV head, against the CPU."""
+    from repro_torch import quant as Q
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.quant_dispatch.ref import quant_dispatch_ref
+
+    layers = [(f"dp{g} {pos}", lc) for g, dp in enumerate(engine.dps)
+              for pos, lc in dp.cache["blocks"].items()]
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    quantized = [(w, lc, Q.quantize_gqa_cache(lc)) for w, lc in layers]
+    torch.cuda.synchronize()
+    launches = dict(runtime.LAUNCHES)
+    check(launches.get("quant_dispatch", 0) > 0,
+          f"the INT8 KV path launched quant_dispatch: {launches}")
+    err, rt = 0.0, 0.0
+    for what, lc, qc in quantized:
+        back = Q.dequantize_gqa_cache(qc, lc["k"].dtype)
+        for n in ("k", "v"):
+            rows = lc[n].reshape(-1, lc[n].shape[-1])
+            rq, rsc = quant_dispatch_ref(rows)
+            err = max(err, exact(qc[n + "_q"].reshape(rows.shape), rq,
+                                 f"GQA cache {what} {n} values"),
+                      exact(qc[n + "_scale"].reshape(-1), rsc,
+                            f"GQA cache {what} {n} scales"))
+            rt = max(rt, (back[n].float() - lc[n].float()).abs().max()
+                     .item())
+    # scores: q [B, KV, hd] per row, k [B, L, KV, hd] per (row, head) over
+    # all positions, the scale shapes the reference's broadcast takes
+    k = layers[0][1]["k"][0]
+    B, L, KV, hd = k.shape
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn((B, KV, hd), generator=gen, device="cuda").to(k.dtype)
+    qq, qs = Q.quantize_act_tokenwise(q)
+    kh, ks = Q.quantize_act_tokenwise(
+        k.permute(0, 2, 1, 3).reshape(B, KV, L * hd))
+    err = max(err, hold_quant_dispatch(
+        k.permute(0, 2, 1, 3).reshape(B * KV, L * hd), "k per head"))
+    kq = kh.reshape(B, KV, L, hd).permute(0, 2, 1, 3)
+    got = Q.int8_attention_scores(qq, qs, kq, ks)
+    want = Q.int8_attention_scores(qq.cpu(), qs.cpu(), kq.cpu(), ks.cpu())
+    sc_err = exact(got.cpu(), want, "int8_attention_scores card vs CPU")
+    log(f"int8-kv: {len(layers)} GQA caches {tuple(k.shape)} quantized "
+        f"bit-identically to the plain version (round-trip max abs err "
+        f"{rt:.4g}); launches {launches}; int8_attention_scores "
+        f"[{B},{KV},{hd}] x [{B},{L},{KV},{hd}] on the card equal the CPU's")
+    return dict(kernels={"quant_dispatch": dict(max_abs_err=err)},
+                launches=launches, round_trip_max_abs_err=rt,
+                scores_max_abs_err=sc_err)
+
+
+# ---------------------------------------------------------------------------
 def free(what: str) -> None:
     """Drop what the last stage left on the card."""
     gc.collect()
@@ -723,8 +1163,8 @@ def free(what: str) -> None:
         f"allocated")
 
 
-def deepseek_stages(get_config) -> tuple:
-    """Stages 3-5 on DeepSeek-V3 cut to 4 layers."""
+def deepseek_stages(get_config) -> dict:
+    """Stages 3-6 on DeepSeek-V3 cut to 4 layers."""
     cfg = dataclasses.replace(get_config(DEEPSEEK), num_layers=4,
                               mtp_num_layers=0)
     max_batch = 4
@@ -735,20 +1175,30 @@ def deepseek_stages(get_config) -> tuple:
 
     t0 = time.monotonic()
     path = run_path(make_engine(cfg, max_batch=max_batch), PROMPTS,
-                    PROMPTS_EPLB, ("route_pack", "gmm", "placement_gmm"))
-    kern["route_pack"]["max_abs_err"] = max(kern["route_pack"]["max_abs_err"],
-                                            path["route_pack_replay_err"])
-    free(f"path: {time.monotonic() - t0:.1f} s; sample output "
-         f"{path['text']!r}")
+                    PROMPTS_EPLB, ("route_pack", "gmm", "placement_gmm",
+                                   "collect"), before_close=int8_stage)
+    fold_replays(kern, path)
+    int8 = path.pop("stage")
+    free(f"path: {time.monotonic() - t0:.1f} s (the INT8 stage "
+         f"{int8['stage_s']:.1f} s of it); sample output {path['text']!r}")
 
     t0 = time.monotonic()
     check_small_reference(DEEPSEEK)
     log(f"small reference: {time.monotonic() - t0:.1f} s")
-    return kern, path
+    return {DEEPSEEK: (kern, path), DEEPSEEK_INT8: (int8.pop("kernels"),
+                                                    int8)}
 
 
-def llama_stages(get_config) -> tuple:
-    """Stages 6-9 on Llama-4 Maverick cut to 2 layers."""
+def fold_replays(kern: dict, path: dict) -> None:
+    """The path's replayed route-packs and Collect calls count in the
+    kernels' errors."""
+    for n in ("route_pack", "collect"):
+        kern[n]["max_abs_err"] = max(kern[n]["max_abs_err"],
+                                     path[f"{n}_replay_err"])
+
+
+def llama_stages(get_config) -> dict:
+    """Stages 7-11 on Llama-4 Maverick cut to 2 layers."""
     from repro_torch.configs.base import MOE
 
     cfg = dataclasses.replace(get_config(LLAMA), num_layers=2)
@@ -770,30 +1220,35 @@ def llama_stages(get_config) -> tuple:
     free(f"kernel checks: {time.monotonic() - t0:.1f} s")
 
     t0 = time.monotonic()
-    path = run_path(engine, LLAMA_PROMPTS, LLAMA_PROMPTS_EPLB, KERNELS)
+    path = run_path(engine, LLAMA_PROMPTS, LLAMA_PROMPTS_EPLB,
+                    ("route_pack", "gmm", "placement_gmm",
+                     "decode_attention", "collect"),
+                    before_close=int8_kv_stage)
     del engine
-    kern["route_pack"]["max_abs_err"] = max(kern["route_pack"]["max_abs_err"],
-                                            path["route_pack_replay_err"])
+    fold_replays(kern, path)
+    kv = path.pop("stage")
     free(f"path: {time.monotonic() - t0:.1f} s; sample output "
          f"{path['text']!r}")
 
     t0 = time.monotonic()
     check_small_reference(LLAMA, num_heads=10, num_kv_heads=2, head_dim=32)
     log(f"small reference: {time.monotonic() - t0:.1f} s")
-    return kern, path
+    return {LLAMA: (kern, path), LLAMA_INT8_KV: (kv.pop("kernels"), kv)}
 
 
 def kernel_line(results: dict) -> dict:
     """One entry per kernel: launches per path (and their sum), the
-    largest error of any path, and the Llama-4 path's times and bound
-    (each path's own measurements in full under ``by_path``)."""
+    largest error of any path, and the times and bound of the path named
+    in ``TIMED_ON`` (Llama-4 by default; each path's own measurements in
+    full under ``by_path``)."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     kernels = []
     for n in KERNELS:
         meas = {p: k[n] for p, (k, _) in results.items() if n in k}
         launches = {p: r["launches"].get(n, 0)
                     for p, (_, r) in results.items()}
-        top = meas[LLAMA]
+        check(sum(launches.values()) > 0, f"{n} launched on a path")
+        top = meas[TIMED_ON.get(n, LLAMA)]
         kernels.append(dict(
             name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],
             launches=sum(launches.values()), launches_by_path=launches,
@@ -828,8 +1283,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}.cu: {line.strip()}")
 
-    results = {DEEPSEEK: deepseek_stages(get_config),
-               LLAMA: llama_stages(get_config)}
+    results = {**deepseek_stages(get_config), **llama_stages(get_config)}
     for p, (_, path) in results.items():
         log(json.dumps({"path": p, **{k: v for k, v in path.items()
                                       if k != "text"}}))

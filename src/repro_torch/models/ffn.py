@@ -1,7 +1,8 @@
 """FFN blocks: dense SwiGLU MLP and Mixture-of-Experts.
 
 The MoE layer runs the pull-based gather strategy of the reference on
-one device (experts replicated): route in f32, pack capacity buckets
+one device (experts replicated): route in f32, count the routed ids
+per expert through the EPLB Collect kernel, pack capacity buckets
 through the fused route-pack kernel, run the grouped expert FFN kernel
 over the buckets, then combine with the routing weights in f32 and add
 the shared expert. Decode, chunked prefill and prefill all take it, as
@@ -23,6 +24,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.collect.ops import expert_counts
 from repro_torch.kernels.gmm.ops import expert_ffn
 from repro_torch.kernels.route_pack.ops import (fused_route_pack,
                                                 placement_route)
@@ -63,12 +65,8 @@ def _route(x_flat: torch.Tensor, router_w: torch.Tensor, top_k: int):
 
 def _aux_stats(probs, idx, n_experts: int, logits):
     """Load-balance + router-z losses (Switch-style) and the per-expert
-    assignment counts."""
-    counts = torch.zeros((n_experts,), dtype=torch.float32,
-                         device=idx.device)
-    counts.index_add_(0, idx.reshape(-1),
-                      torch.ones((idx.numel(),), dtype=torch.float32,
-                                 device=idx.device))
+    assignment counts, made by the EPLB Collect kernel (§4.5 step 1)."""
+    counts = expert_counts(idx.reshape(-1), n_experts=n_experts).float()
     f = counts / torch.clamp(counts.sum(), min=1.0)
     p = probs.mean(dim=0)
     lb = n_experts * torch.sum(f * p)

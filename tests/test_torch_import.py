@@ -40,6 +40,12 @@ def test_import_loads_no_jax_and_no_reference_package():
                for p in PORT.rglob("*.py")} - {"repro_torch"}
     assert set(out[0].split(",")) == on_disk, out[0]
     assert out[1].strip() == "[]", out[1]
+    # the INT8 path: its kernels' three files each, and the quant package
+    assert {f"repro_torch.kernels.{k}.{f}"
+            for k in ("quant_dispatch", "int8_matmul", "collect")
+            for f in ("kernel", "ops", "ref")} <= on_disk
+    assert {f"repro_torch.quant.{m}" for m in
+            ("int8", "smoothquant", "gptq", "kvcache_quant")} <= on_disk
 
 
 @pytest.mark.parametrize("needle", ["import jax", "from jax", "import repro.",
@@ -93,3 +99,19 @@ def test_kernel_wrappers_refuse_other_devices():
     w = torch.zeros((2, 4, 4), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         expert_ffn(b, w, w, w)
+
+
+def test_quant_entry_points_follow_their_inputs():
+    """The INT8 package has no device argument: it runs where its tensors
+    lie, so a tensor on another device than the card or the CPU raises."""
+    from repro_torch.quant import (quantize_act_tokenwise, quantize_mla_cache,
+                                   quantized_linear, QTensor)
+    x = torch.zeros((2, 4), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        quantize_act_tokenwise(x)
+    with pytest.raises(ValueError, match="no kernel"):
+        quantize_mla_cache({"ckv": x, "krope": x})
+    w = QTensor(torch.zeros((4, 3), dtype=torch.int8, device="meta"),
+                torch.zeros(3, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        quantized_linear(x, w)
