@@ -23,9 +23,15 @@ DeepSeek-V3 (MLA + top-8 MoE):
    N = T·8 (routed int64 ids, and int32 ids with -1 and ids >= E mixed
    in), the grouped expert FFN within 3e-2 (bf16), and the owner-indexed
    FFN within 3e-2 of its plain version and bit-identical to the plain
-   kernel on owner-gathered weights over the 258 slots; time kernel
-   (CUDA events, median of 20 after warm-up, and device time under the
-   profiler), plain version and one PyTorch library call;
+   kernel on owner-gathered weights over the 258 slots; every gmm call
+   also has its device-side live rows equal to ``live_rows``, a second
+   call bit-identical and every all-zero bucket row +0, and gmm is also
+   held on an all-empty call (all +0), one live slot, partly filled rows
+   and in float32 (2e-4, 16 experts' weights); time kernel (CUDA events,
+   median of 20 after warm-up, and device time under the profiler),
+   plain version and one PyTorch library call, gmm also on one live slot
+   and at the largest T of each capacity, each beside its live-slot
+   count, its bound and its dense-walk bound;
 4. serve full-width DeepSeek-V3 cut to 4 layers (3 dense + 1 MoE, random
    bf16 weights made on the card from a seed) through the port's
    ``FlowServeEngine`` (2 DP groups × 4 slots): 4 prompts × 16 greedy
@@ -75,8 +81,8 @@ DeepSeek-V3 engine is freed:
    strided cache view and at head sizes 64 and 32; the MoE kernels and
    Collect as in stage 3, at top-1 of 128 experts and 130 slots, on the
    engine's own MoE weights, at every capacity the path's packs have (4
-   at decode, 5 for a 512-token chunk, 8 for the 826-token prompt: one,
-   two and two row tiles); time them as in stage 3
+   at decode, 5 for a 512-token chunk, 8 for the 826-token prompt: one
+   tensor-core row tile each); time them as in stage 3
    (``scaled_dot_product_attention`` is decode attention's library
    call), and decode attention also at L 32768;
 9. serve 4 prompts x 16 greedy tokens (one of 825 bytes, prefilled in
@@ -275,22 +281,16 @@ def bmm_chain(xb, g, u, dn):
 
 
 def check_moe_kernels(cfg, counts, max_batch: int, weights=None) -> dict:
-    """Route-pack, gmm and placement_gmm at a path's shapes.
+    """Route-pack, Collect, gmm and placement_gmm at a path's shapes.
 
     ``counts``: the token counts T of the path's packs; ``weights``: the
     expert weights (we_gate, we_up, we_down), or None to make random
     ones. Route-pack is held exactly at every T, over the E logical
     experts and over the E + 2 physical slots of an EPLB table that
-    replicates two experts, and Collect at every N = T·k. gmm is held
-    within 3e-2 of its plain version at every bucket capacity the path's
-    packs have (a capacity above 4 takes more than one row tile), and
-    placement_gmm within 3e-2 of its
-    plain version and bit-identical to gmm on owner-gathered weights
-    (gathered 16 slots at a time: a whole copy at Llama-4 width would be
-    32 GB beside its 37 GB of weights). Times are taken at the decode
-    shape (T = ``max_batch``)."""
-    from repro_torch.kernels.gmm.kernel import gmm_cuda
-    from repro_torch.kernels.gmm.ref import gmm_ref, placement_gmm_ref
+    replicates two experts, and Collect at every N = T·k; gmm and
+    placement_gmm as :func:`check_gmm` says, on the path's packs. Times
+    are taken at the decode shape (T = ``max_batch``), and gmm's also at
+    the shapes :func:`check_gmm` names."""
     from repro_torch.kernels.route_pack.kernel import route_pack_cuda
     from repro_torch.kernels.route_pack.ops import placement_route
     from repro_torch.kernels.route_pack.ref import route_pack_ref
@@ -369,63 +369,184 @@ def check_moe_kernels(cfg, counts, max_batch: int, weights=None) -> dict:
                                n_dest=n_dest, capacity=cap_of(T),
                                quantize=False).buckets
 
+    out.update(check_gmm(
+        weights, owner, hot, counts, max_batch, cap_of, gen,
+        lambda T: pack(T, packs[T][1], E), lambda T: pack(T, packs[T][2], S)))
+    for name, r in out.items():
+        log(f"  {name}: {r['ms']:.4f} ms, device {r['device_ms']} ms "
+            f"(plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+    return out
+
+
+def sparse_buckets(S: int, C: int, d: int, live: int, gen,
+                   dtype=torch.bfloat16, full: bool = False):
+    """[S, C, d] buckets, all zero but ``live`` random slots, which hold
+    1..C leading rows of random values (all C if ``full``); in a live
+    slot of three or more rows, row 1 is zero (a zero row between live
+    ones)."""
+    b = torch.zeros((S, C, d), device="cuda")
+    slots = torch.randperm(S, generator=gen, device="cuda")[:live].tolist()
+    n = (torch.full((live,), C) if full else
+         torch.randint(1, C + 1, (live,), generator=gen, device="cuda"))
+    for s, r in zip(slots, n.tolist()):
+        b[s, :r] = torch.randn((r, d), generator=gen, device="cuda")
+        if r >= 3:
+            b[s, 1] = 0.0
+    return b.to(dtype)
+
+
+def check_gmm(weights, owner, hot, counts, max_batch: int, cap_of, gen,
+              pack_experts, pack_slots) -> dict:
+    """gmm and placement_gmm at a path's shapes.
+
+    ``pack_experts(T)`` / ``pack_slots(T)``: the path's route-pack of T
+    tokens into the E experts' / the EPLB table's S slots' buckets. Every
+    call below is held to its plain version (3e-2 in bf16, 2e-4 in f32),
+    its device-side rows (the kernel's prologue) to ``live_rows`` exactly,
+    a second call bit-identical to it, and every all-zero bucket row to
+    +0 in the output. The calls: each capacity the path's packs have
+    (with identity owners bit-identical to gmm, and placement_gmm
+    bit-identical to gmm on owner-gathered weights, 16 slots at a time: a
+    whole copy at Llama-4 width would be 32 GB beside its 37 GB of
+    weights); at the decode capacity an all-empty call (all +0), one live
+    slot, partly filled rows; the float32 variant on 16 experts' weights.
+    Timed: the decode packs of both, and for gmm a one-live-slot decode
+    and the largest T of each capacity, each beside its live-slot count,
+    its bound (live experts' weights read once), its dense-walk bound
+    (every slot's weights), the plain version and ``bmm_chain``."""
+    from repro_torch.kernels.gmm.kernel import gmm_cuda, gmm_cuda_with_rows
+    from repro_torch.kernels.gmm.ref import (gmm_ref, live_rows,
+                                             placement_gmm_ref)
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparison
+    torch.backends.cudnn.allow_tf32 = False
+    wg, wu, wd = weights
+    E, d, f = wg.shape
+    S = owner.shape[0]
     o = owner.long()
-    err = perr = 0.0
+    errs = {}
+
+    def held(b, own, what, ws=weights):
+        """One call held to the plain version, rows, repeat and zeros."""
+        bar = 3e-2 if b.dtype == torch.bfloat16 else 2e-4
+        got, rows = gmm_cuda_with_rows(b, *ws, own)
+        want = (gmm_ref(b, *ws) if own is None
+                else placement_gmm_ref(b, *ws, own))
+        err = (got - want).abs().max().item()
+        check(err <= bar, f"{what}: max abs err {err} <= {bar}")
+        check(torch.equal(rows, live_rows(b)),
+              f"{what}: the kernel's rows equal live_rows")
+        check(torch.equal(gmm_cuda(b, *ws, own), got),
+              f"{what}: two calls bit-identical")
+        zero = ~(b != 0).any(dim=-1)
+        check(bool((got[zero] == 0).all())
+              and not bool(torch.signbit(got[zero]).any()),
+              f"{what}: every all-zero bucket row gives +0")
+        key = ("gmm" if own is None else "placement_gmm", str(b.dtype))
+        errs[key] = max(errs.get(key, 0.0), err)
+        return got, int((rows > 0).sum())
+
     by_cap = {}
     for T in sorted(counts):
         by_cap.setdefault(cap_of(T), T)     # the smallest T of a capacity
+    ident = torch.arange(E, device="cuda", dtype=torch.int32)
     for T in by_cap.values():
-        b = pack(T, packs[T][1], E)
-        got = gmm_cuda(b, wg, wu, wd)
-        err = max(err, (got - gmm_ref(b, wg, wu, wd)).abs().max().item())
-        ident = torch.arange(E, device="cuda", dtype=torch.int32)
+        b = pack_experts(T)
+        got, live = held(b, None, f"gmm T={T}")
         check(torch.equal(gmm_cuda(b, wg, wu, wd, ident), got),
               f"placement_gmm with identity owners bit-identical to gmm, "
               f"T={T}")
-        pb = pack(T, packs[T][2], S)
-        pgot = gmm_cuda(pb, wg, wu, wd, owner)
+        pb = pack_slots(T)
+        pgot, plive = held(pb, owner, f"placement_gmm T={T}")
         for s in range(0, S, 16):
             sub = [t[o[s:s + 16]] for t in (wg, wu, wd)]
             check(torch.equal(gmm_cuda(pb[s:s + 16], *sub), pgot[s:s + 16]),
                   f"placement_gmm bit-identical to gmm on owner-gathered "
                   f"weights, T={T}, slots {s}..{s + 15}")
             del sub
-        perr = max(perr, (pgot - placement_gmm_ref(pb, wg, wu, wd, owner))
-                   .abs().max().item())
         torch.cuda.synchronize()
-        log(f"gmm [{E},{b.shape[1]},{d}]x{f}: max abs err {err:.3g}; "
-            f"placement_gmm [{S},{pb.shape[1]},{d}] (replicas of experts "
-            f"{hot}): bit-identical to gathered, max abs err vs plain "
-            f"{perr:.3g}")
-    check(err <= 3e-2, f"gmm max abs err {err} <= 3e-2")
-    check(perr <= 3e-2, f"placement_gmm max abs err {perr} <= 3e-2")
+        log(f"gmm [{E},{b.shape[1]},{d}]x{f} ({live} live): rows, repeat "
+            f"and zeros held; placement_gmm [{S},{pb.shape[1]},{d}] "
+            f"({plive} live; replicas of experts {hot}): bit-identical to "
+            f"gathered; max abs err vs plain {errs}")
 
-    for name, dst, n_dest in (("gmm", dest, E), ("placement_gmm", pdest, S)):
-        b = pack(max_batch, dst, n_dest)
-        own = None if name == "gmm" else owner
+    C = cap_of(max_batch)
+    for own, n in ((None, E), (owner, S)):
+        z, rows = gmm_cuda_with_rows(
+            torch.zeros((n, C, d), dtype=wg.dtype, device="cuda"), wg, wu,
+            wd, own)
+        check(not bool(rows.any()) and bool((z == 0).all())
+              and not bool(torch.signbit(z).any()),
+              f"all-empty call ({n} slots): no live rows, output all +0")
+    held(sparse_buckets(E, C, d, 1, gen, full=True), None, "gmm, one live "
+         "slot")
+    held(sparse_buckets(S, C, d, 1, gen, full=True), owner,
+         "placement_gmm, one live slot")
+    held(sparse_buckets(E, C, d, E // 4, gen), None, "gmm, partly filled")
+    held(sparse_buckets(S, C, d, S // 4, gen), owner,
+         "placement_gmm, partly filled")
+    # float32 on 16 experts (the smoke engines' variant; a whole f32 copy
+    # would be 45 GB at DeepSeek-V3 width), 4 more slots with replicas
+    n = min(16, E)
+    wf = [w[:n].float() for w in weights]
+    own_f = (torch.cat([torch.arange(n), torch.tensor([3, 3, 9, 15]) % n])
+             .to(device="cuda", dtype=torch.int32))
+    for Cf in sorted({C, max(by_cap)}):
+        held(sparse_buckets(n, Cf, d, 6, gen, torch.float32), None,
+             f"gmm f32 C={Cf}", wf)
+        held(sparse_buckets(n + 4, Cf, d, 7, gen, torch.float32), own_f,
+             f"placement_gmm f32 C={Cf}", wf)
+    del wf
+    log(f"gmm: all-empty, one live slot, partly filled rows and float32 "
+        f"held; max abs err vs plain {errs}")
+    f32 = str(torch.float32)
+    bf = str(torch.bfloat16)
+
+    def timed(b, own) -> dict:
         ref = gmm_ref if own is None else (
-            lambda *a: placement_gmm_ref(*a, owner))
-        rows = int((b.abs().amax(dim=-1) > 0).sum())
-        live = int((b.abs().amax(dim=(1, 2)) > 0).sum())
+            lambda *a: placement_gmm_ref(*a, own))
+        rows = live_rows(b)
+        live_slots = (rows > 0).nonzero().flatten()
+        live = int(live_slots.numel())
+        experts = int((live_slots if own is None else own[live_slots])
+                      .unique().numel())
         io = nbytes(b, own) + b.numel() * 4
-        bnd, by = bound_ms(live * 3 * d * f * 2 + io, 6 * rows * d * f)
-        dense, _ = bound_ms(n_dest * 3 * d * f * 2 + io,
+        n_rows = int(rows.sum())
+        bnd, by = bound_ms(experts * 3 * d * f * 2 + io, 6 * n_rows * d * f)
+        dense, _ = bound_ms(b.shape[0] * 3 * d * f * 2 + io,
                             6 * b.shape[0] * b.shape[1] * d * f)
-        out[name] = dict(
-            max_abs_err=err if own is None else perr,
-            ms=time_ms(lambda: gmm_cuda(b, wg, wu, wd, own)),
-            device_ms=device_ms(lambda: gmm_cuda(b, wg, wu, wd, own)),
-            plain_ms=time_ms(lambda: ref(b, wg, wu, wd)),
-            # no single PyTorch call takes an owner table
-            library_ms=(time_ms(lambda: bmm_chain(b, wg, wu, wd))
-                        if own is None else None),
-            bound_ms=bnd, bound_by=by, bound_dense_walk_ms=dense,
-            nonempty_slots=live, slots=n_dest)
-    for name, r in out.items():
-        log(f"  {name}: {r['ms']:.4f} ms, device {r['device_ms']} ms "
-            f"(plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
-            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
-    return out
+        r = dict(shape=list(b.shape), nonempty_slots=live,
+                 live_experts=experts, slots=b.shape[0],
+                 ms=time_ms(lambda: gmm_cuda(b, wg, wu, wd, own)),
+                 device_ms=device_ms(lambda: gmm_cuda(b, wg, wu, wd, own)),
+                 plain_ms=time_ms(lambda: ref(b, wg, wu, wd)),
+                 # no single PyTorch call takes an owner table
+                 library_ms=(time_ms(lambda: bmm_chain(b, wg, wu, wd))
+                             if own is None else None),
+                 bound_ms=bnd, bound_by=by, bound_dense_walk_ms=dense)
+        log(f"  {'gmm' if own is None else 'placement_gmm'} "
+            f"{list(b.shape)} x {f}, {live} of {b.shape[0]} slots live: "
+            f"{r['ms']:.4f} ms, device {r['device_ms']} ms, bound "
+            f"{bnd:.4f} ms by {by}, dense walk {dense:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bmm_chain {r['library_ms']}")
+        return r
+
+    res = {"gmm": timed(pack_experts(max_batch), None),
+           "placement_gmm": timed(pack_slots(max_batch), owner)}
+    res["gmm"]["max_abs_err"] = errs[("gmm", bf)]
+    res["gmm"]["max_abs_err_f32"] = errs[("gmm", f32)]
+    res["placement_gmm"]["max_abs_err"] = errs[("placement_gmm", bf)]
+    res["placement_gmm"]["max_abs_err_f32"] = errs[("placement_gmm", f32)]
+    largest = {}
+    for T in sorted(counts):
+        largest[cap_of(T)] = T
+    res["gmm"]["shapes"] = {
+        "one live slot, decode": timed(
+            sparse_buckets(E, C, d, 1, gen, full=True), None),
+        **{f"T={T}, C={c}": timed(pack_experts(T), None)
+           for c, T in largest.items()}}
+    return res
 
 
 def check_collect(counts, k: int, E: int, gen) -> dict:

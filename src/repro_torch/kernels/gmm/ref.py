@@ -40,3 +40,16 @@ def placement_gmm_ref(buckets, we_gate, we_up, we_down, phys_owner):
         out.append(_ffn(x[s:s + _GROUP], we_gate[og], we_up[og],
                         we_down[og]))
     return torch.cat(out, dim=0)
+
+
+def live_rows(buckets):
+    """[S, C, d] → [S] int32: 1 + the index of the last row of each slot
+    with a non-zero element, 0 for an empty slot. -0.0 counts as zero,
+    NaN and inf as non-zero. The CUDA kernel computes this on the card
+    and runs only these rows: an all-zero row gives +0 in every output
+    element, which is what it writes for the rows past them."""
+    S, C, _ = buckets.shape
+    nz = (buckets != 0).any(dim=-1)                          # [S, C]
+    idx = torch.arange(1, C + 1, device=buckets.device)
+    last = torch.zeros((S, 1), dtype=idx.dtype, device=buckets.device)
+    return torch.cat([last, nz * idx], dim=1).amax(dim=1).to(torch.int32)
