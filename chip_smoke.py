@@ -43,7 +43,9 @@ DeepSeek-V3 (MLA + top-8 MoE):
    and the plain version, exactly; then profile full-batch decode steps
    (host clock per engine step, device time by kernel with
    ``torch.profiler``, and the device's idle share within the same
-   profiled steps);
+   profiled steps), and run one full-batch decode step of a DP group
+   twice from copies of one cache with the same inputs: the logits must
+   be bit-identical (the MoE combine sums in a fixed order);
 5. the INT8 path of §4.7 on that engine before it is freed, with the
    launch counts set to 0 just before it and read just after: on layer
    0's full-width ``wq_a``, ``wkv_a``, ``wq_b`` (as [1536, 24576]), the
@@ -75,21 +77,31 @@ DeepSeek-V3 engine is freed:
    a ``FlowServeEngine`` (2 DP groups x 4 slots, ``max_len`` 1024,
    512-token prefill chunks);
 8. hold the kernels against their plain versions at Llama-4's shapes:
-   decode attention in bf16 (3e-2) and float32 (2e-4) at the path's
-   shape (B 4, H 40, KV 8, hd 128, L 1024, positions 0 and L-1 among
-   them), at a ragged L, in ring-window mode, at G = 1 and G = 8, on a
-   strided cache view and at head sizes 64 and 32; the MoE kernels and
-   Collect as in stage 3, at top-1 of 128 experts and 130 slots, on the
-   engine's own MoE weights, at every capacity the path's packs have (4
-   at decode, 5 for a 512-token chunk, 8 for the 826-token prompt: one
-   tensor-core row tile each); time them as in stage 3
-   (``scaled_dot_product_attention`` is decode attention's library
-   call), and decode attention also at L 32768;
+   the MoE kernels and Collect as in stage 3, at top-1 of 128 experts
+   and 130 slots, on the engine's own MoE weights, at every capacity
+   the path's packs have (4 at decode, 5 for a 512-token chunk, 8 for
+   the 826-token prompt: one tensor-core row tile each), timed as in
+   stage 3; decode attention in bf16 (3e-2) and float32 (2e-4), both as
+   an absolute error and scaled by each output row's size (min(1,
+   max |want|)), at the path's shape (B 4, H 40, KV 8, hd 128, L 1024,
+   positions 0 and L-1 among them), at a ragged L, in ring-window mode
+   (rows past and before their first wrap), at G = 1 and G = 8, on a
+   strided cache view, at head sizes 64 and 32 and with peaked scores,
+   each also with every slot its rows do not attend to NaN-filled (a
+   stale tail: the output must not change beyond the bar) and repeated
+   bit-identically; timed (``scaled_dot_product_attention`` is its
+   library call, the two called in turn) at the path's shape, at
+   L 8192, 32768 and 131072 and on a ragged batch at L 32768 (positions
+   L-1, L/2, 100, 0), each beside its bound from the slots the data
+   needs; one call must be one launch under the profiler, no slower
+   than SDPA at L 1024, 8192 and 32768, and at L 32768 within 2x the
+   bound on the device;
 9. serve 4 prompts x 16 greedy tokens (one of 825 bytes, prefilled in
    two 512-token chunks), a skewed EPLB pass on the MoE layer, 4 more
    prompts; every kernel of the path launches, the path's first pack
    and Collect of each shape are replayed exactly, the logits are
-   finite; profile decode steps as for DeepSeek-V3;
+   finite; profile decode steps and repeat a decode step as for
+   DeepSeek-V3;
 10. the INT8 KV cache on that engine, launch counts set to 0 just
     before and read just after: every layer's k/v of both DP groups
     quantized per (position, head) through quant-dispatch, bit-identical
@@ -179,25 +191,62 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20, warm: int = 3):
-    """Device time of ``fn`` per call: the CUDA kernels' own time under
-    ``torch.profiler`` over ``reps`` calls after warm-up. Unlike
-    :func:`time_ms` it leaves out the host's launch work, which sets the
-    event-timed figure of a call shorter than its launch cost. None when
-    the profiler recorded no device time (it has missed a window now and
-    then): "not measured", never 0."""
+def profile_calls(fn, reps: int = 20, warm: int = 3, tries: int = 3) -> dict:
+    """``fn`` under ``torch.profiler`` over ``reps`` calls after warm-up:
+    ``device_ms``, the CUDA kernels' own time per call, ``per_call``, the
+    device kernels and memsets per call, and their ``names``, all from
+    one window. Unlike :func:`time_ms` the time leaves out the host's
+    launch work, which sets the event-timed figure of a call shorter than
+    its launch cost. The profiler drops a single event now and then, so
+    each kernel counts as its mean time times its launches per call (its
+    count over ``reps``, rounded); more rarely it records nothing in a
+    window, which is then profiled again, up to ``tries`` times. After
+    that every figure is None: "not measured", never 0."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type.name == "CUDA")
-    return total / 1e3 / reps if total > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and e.count]
+        total = sum(e.self_device_time_total / e.count
+                    * max(1, round(e.count / reps)) for e in ev)
+        if total > 0:
+            return dict(device_ms=total / 1e3,
+                        per_call=round(sum(e.count for e in ev) / reps, 2),
+                        names=sorted(e.key for e in ev))
+    return dict(device_ms=None, per_call=None, names=[])
+
+
+def device_ms(fn, reps: int = 20, warm: int = 3):
+    """The device time per call of :func:`profile_calls`, or None."""
+    return profile_calls(fn, reps, warm)["device_ms"]
+
+
+def time_pair(fa, fb, reps: int = 50, warm: int = 3):
+    """Median CUDA-event times of ``fa`` and ``fb`` (ms per call, as
+    :func:`time_ms`), called in turn (a, b, b, a, ...) so that both
+    meet the same card and host state."""
+    for _ in range(warm):
+        fa()
+        fb()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for i in range(2 * reps):
+        j = (i + i // 2) % 2                   # a b b a a b b a ...
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        (fa, fb)[j]()
+        b.record()
+        b.synchronize()
+        times[j].append(a.elapsed_time(b))
+    return statistics.median(times[0]), statistics.median(times[1])
 
 
 def bound_ms(n_bytes: float, n_flops: float, peak: float = BF16_FLOP_PER_S):
@@ -591,11 +640,44 @@ def check_collect(counts, k: int, E: int, gen) -> dict:
 # ---------------------------------------------------------------------------
 # stage 8: decode attention against its plain version
 # ---------------------------------------------------------------------------
+def attention_err(got, want) -> tuple:
+    """(max abs err, scaled err) of decode attention's output [B, H, hd]
+    against the plain version's. The scaled error is the largest of any
+    row (b, head) over that row's scale, min(1, max |want|): with
+    near-uniform scores an output is a mean of many values, far below 1,
+    where a bar on the absolute error could not tell a wrong kernel
+    (zeros, a dropped split or warp) from a right one. NaN reads as
+    failed."""
+    d = (got - want).abs()
+    scale = want.abs().amax(-1).clamp(min=1e-30, max=1.0)
+    scaled = (d.amax(-1) / scale).max().item()
+    return d.max().item(), scaled
+
+
+def held_attention(got, want, bar: float, what: str) -> tuple:
+    """Check decode attention's output within ``bar`` of the plain
+    version's, both as an absolute error and scaled by each row's
+    output (:func:`attention_err`); returns both errors."""
+    err, scaled = attention_err(got, want)
+    check(bool(torch.isfinite(got).all()) and err <= bar and scaled <= bar,
+          f"decode_attention {what}: max abs err {err}, scaled by the "
+          f"output {scaled}, within {bar}")
+    return err, scaled
+
+
 def check_decode_attention(cfg, max_batch: int, max_len: int) -> dict:
     """Decode attention at the path's shape and around it, in bf16 and
-    float32, against the plain version; then timed at the path's shape
-    (every row at the last slot, so the whole cache is read) and at a
-    long context."""
+    float32, against the plain version (:func:`held_attention`), with
+    the slots past each row's position NaN-filled where the row does not
+    attend to them (a stale cache tail the kernel must never read), and
+    a repeat of every call bit-identical; then timed (CUDA events and
+    device time) at the path's shape and at L 8192, 32768 and 131072
+    (every row at the last slot, so the whole cache is read), and on a
+    ragged batch at L 32768 (positions L-1, L/2, 100, 0), each beside
+    its bound from the slots the data needs, the plain version and
+    ``scaled_dot_product_attention``. One call must be one launch, no
+    slower than SDPA's (events, called in turn) at L <= 32768 with every
+    row full, and at L 32768 within 2x its bound on the device."""
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_cuda)
     from repro_torch.kernels.decode_attention.ref import (
@@ -610,72 +692,130 @@ def check_decode_attention(cfg, max_batch: int, max_len: int) -> dict:
     def rand(*shape):
         return torch.randn(shape, generator=gen, device="cuda") * 0.5
 
-    def inputs(H, KV, L, dtype, pos, heads_alloc=None, hd=hd):
+    def inputs(H, KV, L, dtype, pos, heads_alloc=None, hd=hd, q_scale=1.0):
         """q, k, v, positions; ``heads_alloc`` > KV makes k/v views of a
-        wider cache (a head stride that is not KV * hd). The random
-        values past each row's position stand for stale slots."""
+        wider cache (a head stride that is not KV * hd); ``q_scale``
+        widens the scores (std 0.25 at 1). The random values past each
+        row's position stand for stale slots."""
         n = heads_alloc or KV
         k = rand(B, L, n, hd).to(dtype)[:, :, :KV]
         v = rand(B, L, n, hd).to(dtype)[:, :, :KV]
-        return (rand(B, H, hd).to(dtype), k, v,
+        return ((rand(B, H, hd) * q_scale).to(dtype), k, v,
                 torch.tensor(pos, dtype=torch.int32, device="cuda"))
 
     last = [L - 1] * B
-    cases = [  # name, H, KV, L, window, positions, heads_alloc, hd
-        ("path", H, KV, L, 0, [0, L - 1, L // 2 + 3, 37], None, hd),
-        ("ragged L=1000", H, KV, 1000, 0, [999, 0, 517, 1], None, hd),
+    cases = [  # name, H, KV, L, window, positions, heads_alloc, hd, q_scale
+        ("path", H, KV, L, 0, [0, L - 1, L // 2 + 3, 37], None, hd, 1.0),
+        ("ragged L=1000", H, KV, 1000, 0, [999, 0, 517, 1], None, hd, 1.0),
         ("ring window 256", H, KV, 256, 256, [255, 256, 700, 1500], None,
-         hd),
+         hd, 1.0),
         ("ring window 256, ragged L=250", H, KV, 250, 256,
-         [249, 300, 1000, 0], None, hd),
-        ("G=1", KV, KV, L, 0, last, None, hd),
-        ("G=8", 8 * KV, KV, L, 0, [5, L - 1, 600, 0], None, hd),
+         [249, 300, 1000, 0], None, hd, 1.0),
+        ("ring window 256, early rows", H, KV, 256, 256, [255, 20, 5, 0],
+         None, hd, 1.0),
+        ("G=1", KV, KV, L, 0, last, None, hd, 1.0),
+        ("G=8", 8 * KV, KV, L, 0, [5, L - 1, 600, 0], None, hd, 1.0),
         ("strided cache view", H, KV, L, 0, [L - 1, 3, 800, 64], 2 * KV,
-         hd),
+         hd, 1.0),
         # the other head sizes the wrapper takes (32: the smoke model's)
-        ("hd=64", H, KV, L, 0, [L - 1, 0, 300, 901], None, 64),
-        ("hd=32", H, KV, 1000, 0, [999, 12, 0, 640], None, 32),
+        ("hd=64", H, KV, L, 0, [L - 1, 0, 300, 901], None, 64, 1.0),
+        ("hd=32", H, KV, 1000, 0, [999, 12, 0, 640], None, 32, 1.0),
+        # peaked scores (std 4): the running max moves between tiles and
+        # splits, and the outputs are of order 1
+        ("peaked scores", H, KV, L, 0, [L - 1, 700, 64, 3], None, hd, 16.0),
     ]
     errs = {}
     for dtype, bar in ((torch.bfloat16, 3e-2), (torch.float32, 2e-4)):
-        for name, h, kv, length, w, pos, alloc, d in cases:
-            q, k, v, p = inputs(h, kv, length, dtype, pos, alloc, d)
-            got = decode_attention_cuda(q, k, v, p, window=w)
+        for name, h, kv, length, w, pos, alloc, d, qs in cases:
+            q, k, v, p = inputs(h, kv, length, dtype, pos, alloc, d, qs)
             want = decode_attention_ref(q, k, v, p, window=w)
+            got = decode_attention_cuda(q, k, v, p, window=w)
+            # the same call with every slot the rows do not attend to
+            # NaN-filled: the stale tail must not reach the output
+            stale = ~valid_slots(p, length, w)[:, :, None, None]
+            k.masked_fill_(stale, float("nan"))
+            v.masked_fill_(stale, float("nan"))
+            nan_got = decode_attention_cuda(q, k, v, p, window=w)
+            again = decode_attention_cuda(q, k, v, p, window=w)
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            check(err <= bar, f"decode_attention {name} {dtype}: max abs "
-                  f"err {err} <= {bar}")
-            errs[(name, str(dtype))] = err
+            what = f"{name} {dtype}"
+            e1 = held_attention(got, want, bar, what)
+            e2 = held_attention(nan_got, want, bar, what + ", NaN tail")
+            check(torch.equal(nan_got, again),
+                  f"decode_attention {what}: repeat bit-identical")
+            errs[(name, str(dtype))] = (max(e1[0], e2[0]), max(e1[1], e2[1]))
             log(f"decode_attention {name} [{B},{h},{d}] x L={length} "
-                f"window={w} {str(dtype)[6:]}: max abs err {err:.3g}")
+                f"window={w} {str(dtype)[6:]}: max abs err "
+                f"{errs[(name, str(dtype))][0]:.3g}, scaled "
+                f"{errs[(name, str(dtype))][1]:.3g} (NaN tail too), repeat "
+                f"bit-identical")
 
-    def timed(L):
-        q, k, v, p = inputs(H, KV, L, torch.bfloat16, [L - 1] * B)
-        mask = valid_slots(p, L)[:, None, None, :]
+    def timed(L, pos):
+        q, k, v, p = inputs(H, KV, L, torch.bfloat16, pos)
+        valid = valid_slots(p, L)
+        mask = valid[:, None, None, :]
+
+        def kernel():
+            return decode_attention_cuda(q, k, v, p)
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
                 q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=mask, enable_gqa=True)
-        lib_err = (sdpa()[:, :, 0].float()
-                   - decode_attention_ref(q, k, v, p)).abs().max().item()
-        rows = int(mask.sum())                 # cache slots the data needs
+        want = decode_attention_ref(q, k, v, p)
+        err, scaled = held_attention(kernel(), want, 3e-2, f"timed L={L}")
+        lib_err = attention_err(sdpa()[:, :, 0].float(), want)
+        del want
+        rows = int(valid.sum())                # cache slots the data needs
         bnd, by = bound_ms(rows * KV * hd * 2 * 2 + nbytes(q, p)
                            + B * H * hd * 4, 4 * rows * H * hd)
-        return dict(ms=time_ms(lambda: decode_attention_cuda(q, k, v, p)),
-                    device_ms=device_ms(
-                        lambda: decode_attention_cuda(q, k, v, p)),
-                    plain_ms=time_ms(lambda: decode_attention_ref(q, k, v,
-                                                                  p)),
-                    library_ms=time_ms(sdpa), library_max_abs_err=lib_err,
-                    bound_ms=bnd, bound_by=by)
-    out = timed(L)
-    out["long_context_L32768"] = timed(32768)
-    out["max_abs_err"] = max(e for (_, dt), e in errs.items()
-                             if dt == "torch.bfloat16")
-    out["max_abs_err_f32"] = max(e for (_, dt), e in errs.items()
-                                 if dt == "torch.float32")
+        prof = profile_calls(kernel)
+        check(prof["per_call"] is not None and prof["device_ms"] is not None,
+              f"decode_attention L={L}: measured under the profiler")
+        check(len(prof["names"]) == 1 and round(prof["per_call"]) == 1
+              and "decode_attention" in prof["names"][0],
+              f"decode_attention L={L}: one launch per call, got "
+              f"{prof['per_call']} of {prof['names']}")
+        ms, lib_ms = time_pair(kernel, sdpa)
+        res = dict(ms=ms, device_ms=prof["device_ms"],
+                   plain_ms=time_ms(lambda: decode_attention_ref(q, k, v, p),
+                                    reps=5, warm=1),
+                   library_ms=lib_ms, library_device_ms=device_ms(sdpa),
+                   library_max_abs_err=lib_err[0],
+                   library_scaled_err=lib_err[1], max_abs_err=err,
+                   scaled_err=scaled, bound_ms=bnd, bound_by=by,
+                   slots_needed=rows, kernels_per_call=prof["per_call"],
+                   positions=pos)
+        log(f"decode_attention timed L={L} positions {pos}: "
+            f"{res['ms']:.4f} ms (device {res['device_ms']}), plain "
+            f"{res['plain_ms']:.4f}, SDPA {res['library_ms']:.4f} (device "
+            f"{res['library_device_ms']}), bound {bnd:.4f} ms ({by}); err "
+            f"{err:.3g}, scaled {scaled:.3g}")
+        return res
+    out = timed(L, last)
+    for n in (8192, 32768, 131072):
+        out[f"long_context_L{n}"] = timed(n, [n - 1] * B)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["ragged_L32768"] = timed(32768, [32767, 16384, 100, 0])
+    for n, t in ((L, out), (8192, out["long_context_L8192"]),
+                 (32768, out["long_context_L32768"])):
+        check(t["ms"] <= t["library_ms"],
+              f"decode_attention L={n}: {t['ms']} ms no slower than "
+              f"scaled_dot_product_attention's {t['library_ms']} ms")
+    t = out["long_context_L32768"]
+    check(t["device_ms"] <= 2 * t["bound_ms"],
+          f"decode_attention L=32768: device {t['device_ms']} ms within 2x "
+          f"its bound {t['bound_ms']} ms")
+    timed_runs = [t for t in out.values() if isinstance(t, dict)] + [out]
+    bf16 = [e for (_, dt), e in errs.items() if dt == "torch.bfloat16"]
+    out["max_abs_err"] = max([e for e, _ in bf16]
+                             + [t["max_abs_err"] for t in timed_runs])
+    out["max_scaled_err"] = max([s for _, s in bf16]
+                                + [t["scaled_err"] for t in timed_runs])
+    f32 = [e for (_, dt), e in errs.items() if dt == "torch.float32"]
+    out["max_abs_err_f32"] = max(e for e, _ in f32)
+    out["max_scaled_err_f32"] = max(s for _, s in f32)
     return out
 
 
@@ -843,6 +983,7 @@ def run_path(engine, prompts, prompts_eplb, kernels,
     collect_err = replay_collect(crec)
     del rec, crec
     profile = profile_decode(engine)
+    check_decode_repeat(engine)
     everyone = reqs + reqs2
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     stage = before_close(engine, everyone) if before_close else None
@@ -856,16 +997,57 @@ def run_path(engine, prompts, prompts_eplb, kernels,
                tpot_ms_mean=1e3 * statistics.mean(tpot),
                tpot_ms_max=1e3 * max(tpot),
                ttft_ms=[1e3 * t for t in ttft],
+               # the first wave pays the process's cold costs
+               ttft_ms_mean_by_wave=[1e3 * statistics.mean(r.ttft for r in w)
+                                     for w in (reqs, reqs2)],
                serve_s=[wall, wall2],
                peak_mem_gib=peak,
                decode_profile=profile, stage=stage,
                text=engine.tokenizer.decode(reqs[0].output_tokens))
     engine.close()
     log(f"path: {len(everyone)} requests x 16 tokens served in {wall:.2f} "
-        f"s + {wall2:.2f} s; TTFT mean {res['ttft_ms_mean']:.1f} ms, TPOT "
+        f"s + {wall2:.2f} s; TTFT mean {res['ttft_ms_mean']:.1f} ms (by "
+        f"wave {res['ttft_ms_mean_by_wave'][0]:.1f}, "
+        f"{res['ttft_ms_mean_by_wave'][1]:.1f}), TPOT "
         f"mean {res['tpot_ms_mean']:.2f} ms, peak memory "
         f"{res['peak_mem_gib']:.2f} GiB; launches {launches}")
     return res
+
+
+def check_decode_repeat(engine) -> None:
+    """One full-batch decode step of a DP group (every slot prefilled
+    with its own prompt, the EPLB placement installed), run twice from
+    copies of the same cache with the same inputs: the logits must be
+    bit-identical, so the MoE combine sums in a fixed order."""
+    from repro_torch.models.common import tree_map
+
+    dp = engine.dps[0]
+    be, B = dp.backend, dp.max_batch
+    check(be._placement is not None, "an EPLB placement is installed")
+    cache = be.init_cache(B, dp.max_len)
+    lens = []
+    for i in range(B):
+        toks = engine.tokenizer.encode(f"repeat {i}: " + PROMPTS[i % 4])
+        cache1, _ = be.prefill(toks)
+        be.write_slot(cache, cache1, i)
+        lens.append(len(toks))
+    tokens = torch.arange(7, 7 + B, dtype=torch.int32,
+                          device=engine.device)[:, None]
+    positions = torch.tensor(lens, dtype=torch.int32, device=engine.device)
+    logits = []
+    with torch.no_grad():
+        for _ in range(2):
+            out, _ = be.model.decode_step(be.params,
+                                          tree_map(torch.clone, cache),
+                                          tokens, positions,
+                                          placement=be._placement)
+            logits.append(out)
+    torch.cuda.synchronize()
+    check(torch.equal(logits[0], logits[1]),
+          f"{engine.cfg.name}: a decode step run twice gives bit-identical "
+          f"logits")
+    log(f"decode repeat: {engine.cfg.name} full-batch decode step (B {B}) "
+        f"twice from one cache: logits bit-identical")
 
 
 def profile_decode(engine, steps: int = 4) -> dict:
@@ -906,17 +1088,20 @@ def profile_decode(engine, steps: int = 4) -> dict:
                       and e.self_device_time_total > 0),
                      key=lambda kv: -kv[1])
     busy = sum(ms for _, ms in kernels)
+    attention = sum(ms for k, ms in kernels if "decode_attention" in k)
     check(0 < busy <= prof_wall, f"device busy {busy} ms per step within "
           f"the profiled step's {prof_wall} ms")
     engine.run_until_done()
     res = dict(engine_step_ms=wall, profiled_step_ms=prof_wall,
                device_busy_ms=busy, device_idle_share=1.0 - busy / prof_wall,
+               decode_attention_ms=attention,
                dp_groups=len(engine.dps),
                batch_per_group=engine.dps[0].max_batch,
                top_kernels_ms=[(k[:60], ms) for k, ms in kernels[:8]])
     log(f"decode profile: engine step {wall:.2f} ms (host clock), "
         f"{prof_wall:.2f} ms under the profiler, device busy {busy:.2f} ms, "
-        f"idle share {res['device_idle_share']:.4f} of the profiled step")
+        f"idle share {res['device_idle_share']:.4f} of the profiled step; "
+        f"decode attention {attention:.4f} ms of it")
     for k, ms in res["top_kernels_ms"]:
         log(f"  {ms:8.3f} ms/step  {k}")
     return res

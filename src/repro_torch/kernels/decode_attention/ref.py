@@ -4,8 +4,9 @@ Written in the unnormalised form the JAX package's model uses on one
 device (``_local_partial_attention`` followed by ``acc / max(l,
 1e-30)``): scores in float32, the max of each row guarded so that a
 fully masked row gives zeros, ``p`` cast to the value type before the
-``p·v`` product, float32 accumulation. The CPU model path runs this, so
-it rounds the way the reference model does.
+``p·v`` product, float32 accumulation; a masked cache slot counts as
+zeros, whatever it holds. The CPU model path runs this, so it rounds the
+way the reference model does.
 """
 from __future__ import annotations
 
@@ -43,6 +44,9 @@ def decode_attention_ref(q, k, v, positions, *, window: int = 0):
     p = torch.where(torch.isfinite(s), torch.exp(s - safe_m[..., None]),
                     torch.zeros_like(s))
     l = p.sum(dim=-1)
+    # a masked slot counts as zeros whatever it holds (a NaN in a stale
+    # slot times p = 0 would be NaN)
+    v = torch.where(valid[:, :, None, None], v, torch.zeros((), dtype=v.dtype))
     acc = torch.einsum("bkgl,blkd->bkgd", p.to(v.dtype).float(), v.float())
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(B, H, v.shape[-1])

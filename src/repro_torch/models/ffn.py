@@ -74,6 +74,19 @@ def _aux_stats(probs, idx, n_experts: int, logits):
     return lb, z, counts
 
 
+def combine_assignments(wa: torch.Tensor, k: int) -> torch.Tensor:
+    """wa [T*k, d] f32, token t's assignments at rows t*k .. t*k+k-1 →
+    y [T, d]: each token's k rows added into zeros in index order
+    (j = 0..k-1), the order ``index_add_`` takes on the CPU. The order is
+    fixed on every device, so a decode step is bit-reproducible on the
+    card, where ``index_add_`` adds with atomics in any order."""
+    wa = wa.view(wa.shape[0] // k, k, -1)
+    y = wa[:, 0] + 0.0                 # 0 + a_0: -0.0 becomes +0.0
+    for j in range(1, k):
+        y = y + wa[:, j]
+    return y
+
+
 def _moe_gather_local(x: torch.Tensor, params: Params, cfg: ModelConfig,
                       microbatches: int = 1, placement=None):
     """x: [B, S, d] → (y [B, S, d], (lb, z, counts)), experts replicated
@@ -112,8 +125,7 @@ def _moe_gather_local(x: torch.Tensor, params: Params, cfg: ModelConfig,
         y_assign = out_b[dest.long(), pack.rank.long().clamp(0, cap - 1)]
         y_assign = torch.where(pack.keep[:, None], y_assign.float(),
                                torch.zeros((), device=x.device))
-        y = torch.zeros((T, d), dtype=torch.float32, device=x.device)
-        y.index_add_(0, tok_of, y_assign * flat_w[:, None])
+        y = combine_assignments(y_assign * flat_w[:, None], k)
         return y.reshape(B, S, d), (lb, z, counts)
 
     B = x.shape[0]

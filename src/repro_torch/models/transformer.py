@@ -81,9 +81,13 @@ def block_spec(cfg: ModelConfig, kind, dtype) -> Dict[str, PyTree]:
 
 
 def block_apply(params, x, *, cfg: ModelConfig, kind, mode: str,
-                cache=None, positions=None, placement=None):
+                cache=None, positions=None, placement=None,
+                decode_microbatches: int = 1):
     """Returns (x_out, layer cache). ``placement``: this layer's EPLB
-    slice ``(replica_slots, n_replicas, phys_owner)`` or None."""
+    slice ``(replica_slots, n_replicas, phys_owner)`` or None;
+    ``decode_microbatches``: the §4.4 ping-pong split of a decode MoE
+    batch (1 = off; ``moe_apply`` applies it at decode only), as
+    ``MeshCtx.decode_microbatches`` in the reference."""
     mixer, ffn = kind
     h = rms_norm(x, params["mixer_norm"], cfg.norm_eps)
     apply = A.attn_apply if mixer == ATTN else A.mla_apply
@@ -96,7 +100,8 @@ def block_apply(params, x, *, cfg: ModelConfig, kind, mode: str,
     elif ffn == MOE:
         h = rms_norm(x, params["ffn_norm"], cfg.norm_eps)
         y, _ = F.moe_apply(params["ffn"], h, cfg=cfg, mode=mode,
-                           placement=placement)
+                           placement=placement,
+                           microbatches=decode_microbatches)
         x = x + y
     return x, new_cache
 
@@ -105,9 +110,11 @@ def block_apply(params, x, *, cfg: ModelConfig, kind, mode: str,
 # Model
 # ===========================================================================
 class Model:
-    """Functional model: parameters and caches are passed in."""
+    """Functional model: parameters and caches are passed in.
+    ``decode_microbatches >= 2`` splits each decode MoE batch into that
+    many §4.4 ping-pong micro-batches (1 = off)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, *, decode_microbatches: int = 1):
         kinds = cfg.layer_kinds()
         bad = sorted({k for k in kinds if k[0] not in (ATTN, MLA_ATTN)
                       or k[1] not in (MLP, MOE)})
@@ -117,6 +124,7 @@ class Model:
                 f"the superblocks are not ported yet (global GQA and MLA "
                 f"mixers with MLP/MoE FFNs only)")
         self.cfg = cfg
+        self.decode_microbatches = decode_microbatches
         self.dtype = dtype_of(cfg.dtype)
         self.prefix_kinds = kinds[:len(cfg.prefix_layers)]
         self.pattern = cfg.layer_pattern
@@ -194,7 +202,8 @@ class Model:
         def layer(p, x, kind, c, gl):
             lp = None if placement is None else placement.layer(gl)
             return block_apply(p, x, cfg=cfg, kind=kind, mode=mode, cache=c,
-                               positions=positions, placement=lp)
+                               positions=positions, placement=lp,
+                               decode_microbatches=self.decode_microbatches)
 
         prefix = []
         for i, kind in enumerate(self.prefix_kinds):

@@ -156,17 +156,20 @@ class TorchBackend(ExecutionBackend):
 
     The decode hot loop is :meth:`decode_sample`: forward + sampling on
     the device with the cache updated in place, returning only ``[B]``
-    int32 token ids. Several backends may share one parameter set."""
+    int32 token ids. Several backends may share one parameter set.
+    ``top_k > 0`` truncates sampling at temperature > 0 to each row's
+    ``top_k`` highest logits, as the reference's ``JAXBackend`` does."""
 
     supports_chunked_prefill = True
 
     def __init__(self, model, params: PyTree, *, max_len: int = 256,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, top_k: int = 0, device="cuda"):
         self.device = resolve_device(device)
         self.model = model
         self.params = params
         self.max_len = max_len
         self.seed = seed
+        self.top_k = top_k
         self.vocab_size = model.cfg.vocab_size
         self._placement = None
 
@@ -263,7 +266,8 @@ class TorchBackend(ExecutionBackend):
         if np.any(temps > 0.0):
             toks = sample_tokens(
                 logits, torch.as_tensor(temps, device=self.device),
-                step_generator(self.seed, step, self.device))
+                step_generator(self.seed, step, self.device),
+                top_k=self.top_k)
         else:
             toks = torch.argmax(logits, dim=-1).to(torch.int32)
         return toks, cache

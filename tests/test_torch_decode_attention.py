@@ -107,10 +107,19 @@ def test_cuda_wrapper_checks_before_launching():
 
 @pytest.mark.parametrize("B,KV,L", [(4, 8, 1024), (4, 8, 32768),
                                     (4, 8, 1000), (1, 2, 1), (3, 2, 100),
-                                    (64, 8, 4096)])
+                                    (64, 8, 4096), (4, 8, 131072),
+                                    (4, 8, 576), (1, 1, 1_000_000)])
 def test_split_plan_covers_the_cache_in_whole_tiles(B, KV, L):
-    split_len, n = split_plan(B, KV, L, n_sms=132)
-    assert split_len % 32 == 0 and split_len <= 512
+    sms = 132
+    split_len, n = split_plan(B, KV, L, n_sms=sms)
+    assert split_len % 64 == 0 and 1 <= n <= 64
     assert (n - 1) * split_len < L <= n * split_len
-    # two blocks per SM, unless the cache has fewer tiles than that
-    assert B * KV * n >= min(2 * 132, B * KV * -(-L // 32))
+    tiles = -(-L // 64)
+    # a wave is two blocks per SM; the batch alone may fill it
+    wave = max(1, 2 * sms // (B * KV))
+    # the card is at least half filled, or every tile has its own block
+    assert 2 * n > min(wave, tiles, 64)
+    # at most two waves
+    assert B * KV * n <= max(2 * 2 * sms, 2 * B * KV)
+    # a block walks at most 2048 slots unless the plan takes two waves
+    assert split_len <= 2048 or n >= min(2 * wave, 64)
