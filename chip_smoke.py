@@ -19,7 +19,9 @@ DeepSeek-V3 (MLA + top-8 MoE):
    prompts' padded prefill buckets 32 and 64, and the unpadded 37-token
    prompt): route-pack exactly (bf16, spread and hot routing, with and
    without INT8 quantize and expert ids, and with masked rows, over the
-   256 experts and the EPLB table's 258 slots), Collect exactly at every
+   256 experts and the EPLB table's 258 slots; and on padding rows,
+   payload rows off the 16-byte vector, a capacity past 256 slots and a
+   call with no rows), Collect exactly at every
    N = T·8 (routed int64 ids, and int32 ids with -1 and ids >= E mixed
    in), the grouped expert FFN within 3e-2 (bf16), and the owner-indexed
    FFN within 3e-2 of its plain version and bit-identical to the plain
@@ -27,9 +29,11 @@ DeepSeek-V3 (MLA + top-8 MoE):
    also has its device-side live rows equal to ``live_rows``, a second
    call bit-identical and every all-zero bucket row +0, and gmm is also
    held on an all-empty call (all +0), one live slot, partly filled rows
-   and in float32 (2e-4, 16 experts' weights); time kernel (CUDA events,
-   median of 20 after warm-up, and device time under the profiler),
-   plain version and one PyTorch library call, gmm also on one live slot
+   and in float32 (2e-4, 16 experts' weights); route-pack must be one
+   device kernel per call under the profiler, with no memset or fill
+   beside it; time kernel (CUDA events, median of 20 after warm-up, and
+   device time under the profiler), plain version and one PyTorch
+   library call, gmm also on one live slot
    and at the largest T of each capacity, each beside its live-slot
    count, its bound and its dense-walk bound;
 4. serve full-width DeepSeek-V3 cut to 4 layers (3 dense + 1 MoE, random
@@ -52,17 +56,21 @@ DeepSeek-V3 (MLA + top-8 MoE):
    dense MLP's ``wi_gate`` and ``wo`` and one routed expert's
    ``we_gate``, with the path's own tokens' rms-normed embeddings (their
    q latent for ``wq_b``, their SwiGLU for ``wo``) as activations and
-   calibration set: SmoothQuant, channel-wise weights, the W8A8 linear
-   (quant-dispatch + INT8-matmul kernels) at M 4, 37, 64 and 512, naive
-   and smoothed, each bit-identical to the plain path, with its error
-   against the bf16 product logged; GPTQ of ``wkv_a`` in float64 on the
-   card (timed, error against naive rounding); the served MLA caches
-   quantized. Then quant-dispatch bit-identical at every input, a zero
-   row, .5 quotients and (7, 32); INT8 matmul at the ragged (100,300,50)
-   and (1,64,17); the caches bit-identical; and both kernels timed
-   (quant-dispatch at [512, 7168] bf16, INT8 matmul at M 4 and 512 on
-   ``wi_gate``, ``torch._int_mm`` as the library call where it takes the
-   shape);
+   calibration set: SmoothQuant, channel-wise weights (stored K-major),
+   the W8A8 linear (quant-dispatch + INT8-matmul kernels) at M 4, 37, 64
+   and 512, naive and smoothed, each bit-identical to the plain path,
+   with its error against the bf16 product logged; GPTQ of ``wkv_a`` in
+   float64 on the card (timed, error against naive rounding); the served
+   MLA caches quantized. Then quant-dispatch bit-identical at every
+   input, a zero row, .5 quotients and (7, 32); INT8 matmul on K-major
+   weights at (100,300,50), (1,64,17), (37,1000,300), (130,136,257) (K
+   not a multiple of 16 but at (1,64,17)) and on a weight 1 byte off a
+   16-byte boundary; the caches bit-identical; and both kernels timed
+   (quant-dispatch at [512, 7168] bf16; INT8 matmul on ``wi_gate`` at
+   every M, one device kernel per call, its share of the int8 peak
+   logged, and called in turn with ``torch._int_mm`` + the same epilogue
+   on the same K-major weight where that takes the shape (M > 16): the
+   kernel must be faster at M 512);
 6. check the output by the repository's own means: every request
    finished with its tokens, the logits are finite, and on the smoke
    DeepSeek-V3 (float32) the engine on the card gives the same greedy
@@ -226,6 +234,17 @@ def profile_calls(fn, reps: int = 20, warm: int = 3, tries: int = 3) -> dict:
 def device_ms(fn, reps: int = 20, warm: int = 3):
     """The device time per call of :func:`profile_calls`, or None."""
     return profile_calls(fn, reps, warm)["device_ms"]
+
+
+def one_launch(prof: dict, name: str, what: str) -> None:
+    """Hold a :func:`profile_calls` window to one device kernel per call,
+    the kernel ``name``: no memset, fill or second kernel beside it."""
+    check(prof["per_call"] is not None and prof["device_ms"] is not None,
+          f"{what}: measured under the profiler")
+    check(len(prof["names"]) == 1 and round(prof["per_call"]) == 1
+          and name in prof["names"][0],
+          f"{what}: one launch per call, got {prof['per_call']} of "
+          f"{prof['names']}")
 
 
 def time_pair(fa, fb, reps: int = 50, warm: int = 3):
@@ -398,15 +417,45 @@ def check_moe_kernels(cfg, counts, max_batch: int, weights=None) -> dict:
         log(f"route_pack T={T} N={N} C={cap}: exact in "
             f"{4 * len(variants)} variants (n_dest {E} and {S}, spread and "
             f"hot routing x quantize x eid, and masked)")
+    # edge cases: padding rows (dest == n_dest, valid or masked), payload
+    # rows off the 16-byte vector (f32 and bf16), a capacity past one
+    # 256-slot window, and a call with no rows
+    for T, dd, kk, n_dest, cap, dt in ((37, d, k, E, cap_of(37), bf16),
+                                       (64, 100, 2, 3, 300, torch.float32),
+                                       (16, 36, 1, 5, 4, bf16),
+                                       (0, d, k, E, 4, bf16)):
+        N = T * kk
+        x = torch.randn((T, dd), generator=gen, device="cuda").to(dt)
+        dest = torch.randint(0, n_dest, (N,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        pad = torch.rand((N,), generator=gen, device="cuda") < 0.2
+        dest = torch.where(pad, torch.full_like(dest, n_dest), dest)
+        eid = torch.randint(0, E, (N,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        mask = torch.rand((N,), generator=gen, device="cuda") > 0.2
+        for quant in (False, True):
+            for ei, valid in ((None, None), (eid, mask), (eid, None)):
+                kw = dict(k=kk, n_dest=n_dest, capacity=cap, quantize=quant)
+                rp_err = max(rp_err, pack_err(
+                    route_pack_cuda(x, dest, valid, ei, **kw),
+                    route_pack_ref(x, dest, valid, ei, **kw),
+                    f"route_pack edge T={T} d={dd} {dt} n_dest={n_dest} "
+                    f"C={cap} quantize={quant} eid={ei is not None} "
+                    f"masked={valid is not None}"))
+        log(f"route_pack edge T={T} d={dd} {dt} n_dest={n_dest} C={cap}, "
+            f"padding rows: exact with and without quantize, eid, mask")
     x, dest, pdest = packs[max_batch]
     kw = dict(k=k, n_dest=E, capacity=cap_of(max_batch), quantize=False)
-    res = route_pack_cuda(x, dest, None, None, **kw)
+
+    def rp():
+        return route_pack_cuda(x, dest, None, None, **kw)
+    res = rp()
     bnd, by = bound_ms(nbytes(x, dest, res.buckets, res.rank, res.keep), 0)
+    prof = profile_calls(rp)
+    one_launch(prof, "route_pack", f"route_pack T={max_batch}")
     out = {"route_pack": dict(
-        max_abs_err=rp_err,
-        ms=time_ms(lambda: route_pack_cuda(x, dest, None, None, **kw)),
-        device_ms=device_ms(lambda: route_pack_cuda(x, dest, None, None,
-                                                    **kw)),
+        max_abs_err=rp_err, ms=time_ms(rp), device_ms=prof["device_ms"],
+        kernels_per_call=prof["per_call"],
         plain_ms=time_ms(lambda: route_pack_ref(x, dest, None, None, **kw)),
         library_ms=None, bound_ms=bnd, bound_by=by)}
 
@@ -770,12 +819,7 @@ def check_decode_attention(cfg, max_batch: int, max_len: int) -> dict:
         bnd, by = bound_ms(rows * KV * hd * 2 * 2 + nbytes(q, p)
                            + B * H * hd * 4, 4 * rows * H * hd)
         prof = profile_calls(kernel)
-        check(prof["per_call"] is not None and prof["device_ms"] is not None,
-              f"decode_attention L={L}: measured under the profiler")
-        check(len(prof["names"]) == 1 and round(prof["per_call"]) == 1
-              and "decode_attention" in prof["names"][0],
-              f"decode_attention L={L}: one launch per call, got "
-              f"{prof['per_call']} of {prof['names']}")
+        one_launch(prof, "decode_attention", f"decode_attention L={L}")
         ms, lib_ms = time_pair(kernel, sdpa)
         res = dict(ms=ms, device_ms=prof["device_ms"],
                    plain_ms=time_ms(lambda: decode_attention_ref(q, k, v, p),
@@ -1199,6 +1243,7 @@ def int8_stage(engine, reqs) -> dict:
     from repro_torch import quant as Q
     from repro_torch.kernels import runtime
     from repro_torch.kernels.int8_matmul.kernel import int8_matmul_cuda
+    from repro_torch.kernels.int8_matmul.kernel import plan as int8_plan
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
     from repro_torch.kernels.quant_dispatch.kernel import quant_dispatch_cuda
     from repro_torch.kernels.quant_dispatch.ref import quant_dispatch_ref
@@ -1331,18 +1376,30 @@ def int8_stage(engine, reqs) -> dict:
         qd_err = max(qd_err, hold_quant_dispatch(
             torch.randn((7, 32), generator=gen, device="cuda").to(dt),
             f"(7, 32) {dt}"))
-    mm_err = lin_err
-    for M, K, N in ((100, 300, 50), (1, 64, 17)):
-        xq, wq = (torch.randint(-127, 128, sh, generator=gen, device="cuda",
-                                dtype=torch.int8) for sh in ((M, K), (K, N)))
+    mm_err, n_sms = lin_err, torch.cuda.get_device_properties(0) \
+        .multi_processor_count
+    # K-major weights ([N, K] row-major, viewed [K, N]); K not a multiple
+    # of 16 at M 100, 37 and 130, and the last one's weight 1 byte off a
+    # 16-byte boundary at a shape TMA would take: the ragged variant
+    for M, K, N, skew in ((100, 300, 50, 0), (1, 64, 17, 0),
+                          (37, 1000, 300, 0), (130, 136, 257, 0),
+                          (4, 7168, 300, 1)):
+        xq = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (N * K + skew,), generator=gen,
+                           device="cuda", dtype=torch.int8)[skew:] \
+            .view(N, K).t()
         xs_, ws_ = (torch.rand(n, generator=gen, device="cuda") + 0.1
                     for n in (M, N))
+        p = int8_plan(M, K, N, n_sms, aligned=wq.data_ptr() % 16 == 0)
         mm_err = max(mm_err, exact(int8_matmul_cuda(xq, xs_, wq, ws_),
                                    int8_matmul_ref(xq, xs_, wq, ws_),
-                                   f"int8_matmul ragged ({M},{K},{N})"))
+                                   f"int8_matmul ragged ({M},{K},{N}) "
+                                   f"{p.path}"))
+        log(f"int8: int8_matmul ({M},{K},{N}), weight base +{skew}: "
+            f"bit-identical ({p.path} variant)")
     log("int8: quant_dispatch bit-identical at every input of the pipeline, "
-        "a zero row, .5 quotients and (7, 32); int8_matmul at the ragged "
-        "(100,300,50) and (1,64,17)")
+        "a zero row, .5 quotients and (7, 32)")
 
     # -- times at the path's shapes ----------------------------------------
     xt = acts["x"][512]
@@ -1355,47 +1412,54 @@ def int8_stage(engine, reqs) -> dict:
               plain_ms=time_ms(lambda: quant_dispatch_ref(xt)),
               library_ms=None, library="none", bound_ms=bnd, bound_by=by)
     qw = qws["wi_gate"]
+    K, N = qw.values.shape
+    check(qw.values.t().is_contiguous(), "QTensor keeps wi_gate K-major")
     mm = {}
-    for M in (4, 512):
+    for M in INT8_M:
         xq, xs_ = quant_dispatch_cuda(acts["x"][M])
-        K, N = qw.values.shape
-        out = int8_matmul_cuda(xq, xs_, qw.values, qw.scale)
-        bnd, by = bound_ms(nbytes(xq, xs_, qw.values, qw.scale, out),
-                           2 * M * K * N, INT8_OP_PER_S)
-        r = dict(shape=[M, K, N],
-                 ms=time_ms(lambda: int8_matmul_cuda(xq, xs_, qw.values,
-                                                     qw.scale)),
-                 device_ms=device_ms(lambda: int8_matmul_cuda(
-                     xq, xs_, qw.values, qw.scale)),
+
+        def kernel():
+            return int8_matmul_cuda(xq, xs_, qw.values, qw.scale)
+        out = kernel()
+        ops = 2 * M * K * N
+        bnd, by = bound_ms(nbytes(xq, xs_, qw.values, qw.scale, out), ops,
+                           INT8_OP_PER_S)
+        prof = profile_calls(kernel)
+        one_launch(prof, "int8_matmul", f"int8_matmul M={M}")
+        r = dict(shape=[M, K, N], plan=list(int8_plan(M, K, N, n_sms)),
+                 device_ms=prof["device_ms"],
+                 kernels_per_call=prof["per_call"],
+                 int8_peak_share=ops / INT8_OP_PER_S * 1e3
+                 / prof["device_ms"],
                  plain_ms=time_ms(lambda: int8_matmul_ref(
                      xq, xs_, qw.values, qw.scale)),
-                 library_ms=None, library="none at this shape (torch._int_mm "
-                                          "takes M > 16)",
                  bound_ms=bnd, bound_by=by)
-        if M > 16 and K % 8 == 0 and N % 8 == 0:
+        if M > 16:                # torch._int_mm takes M > 16
             def lib():
                 return (torch._int_mm(xq, qw.values).float() * xs_[:, None]
                         * qw.scale[None, :])
-            # the same call on a column-major copy of the weight, the
-            # layout cuBLASLt's int8 kernels prefer (another input, so a
-            # datum beside library_ms, not library_ms)
-            w_cm = qw.values.t().contiguous().t()
-
-            def lib_cm():
-                return (torch._int_mm(xq, w_cm).float() * xs_[:, None]
-                        * qw.scale[None, :])
-            r.update(library_ms=time_ms(lib),
-                     library="torch._int_mm + the same epilogue",
-                     library_max_abs_err=(lib() - out).abs().max().item(),
-                     library_col_major_weight_ms=time_ms(lib_cm),
-                     library_col_major_max_abs_err=(lib_cm() - out).abs()
-                     .max().item())
-            del w_cm
+            ms, lib_ms = time_pair(kernel, lib)
+            r.update(ms=ms, library_ms=lib_ms, library_ratio=ms / lib_ms,
+                     library="torch._int_mm + the same epilogue, on the "
+                             "same K-major weight",
+                     library_device_ms=device_ms(lib),
+                     library_max_abs_err=(lib() - out).abs().max().item())
+        else:
+            r.update(ms=time_ms(kernel), library_ms=None,
+                     library="none at this shape (torch._int_mm takes "
+                             "M > 16)")
         mm[M] = r
-    mm4 = dict(mm[4], max_abs_err=mm_err, m512=mm[512])
+        log(f"  int8_matmul M={M} {r['plan']}: {r['ms']:.4f} ms, device "
+            f"{r['device_ms']:.4f} ms ({r['int8_peak_share']:.1%} of the "
+            f"int8 peak; bound {bnd:.4f} ms by {by}), library "
+            f"{r['library_ms']} (kernel/library "
+            f"{r.get('library_ratio')})")
+    check(mm[512]["ms"] < mm[512]["library_ms"],
+          f"int8_matmul M=512: {mm[512]['ms']} ms faster than torch._int_mm "
+          f"+ the epilogue's {mm[512]['library_ms']} ms, called in turn")
+    mm4 = dict(mm[4], max_abs_err=mm_err, by_m=mm)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    for n, r in (("quant_dispatch", qd), ("int8_matmul M=4", mm[4]),
-                 ("int8_matmul M=512", mm[512])):
+    for n, r in (("quant_dispatch", qd),):
         log(f"  {n}: {r['ms']:.4f} ms, device {r['device_ms']} ms "
             f"(plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")

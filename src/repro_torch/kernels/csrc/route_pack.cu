@@ -7,76 +7,40 @@
 // to INT8 per token, and scatters kept rows x[r / k] into
 // [n_dest, C, d] buckets together with their scale and expert id.
 //
-// What bounds it on the H100: bytes. The work is one read of the kept
-// payload rows and one write of the bucket rows (at decode 32 rows of
-// 7168 bf16, ~0.5 MB) — far below a microsecond of HBM time — so in
-// practice the bound is launch latency and the serial rank scan.
+// What bounds it on the H100: bytes. Every byte of the outputs is written
+// once — at decode mostly the zeros of empty slots (DeepSeek-V3: 256 x 4
+// x 7168 bf16, 14.7 MB, 4.4 us at 3.35 TB/s) — and the kept rows are read
+// once.
 //
-// Design.
-//  * Rank comes from an ordered scan, never from atomics, so it equals
-//    the reference cumsum exactly: ONE block walks the assignments in
-//    order, in tiles of RP_TILE. Inside a tile each thread counts the
-//    earlier tile entries with its destination (its rank offset) and
-//    the later ones (the last occurrence carries the tile's count into
-//    the running per-destination counts kept in shared memory). On the
-//    serving path N <= 2048 (a 256-token prompt at top-8), i.e. at most
-//    8 tiles, so the single-SM scan costs a few microseconds — less
-//    than the launch of the multi-block histogram + exclusive-prefix
-//    design that training-size N would need.
-//  * Padding rows (dest == n_dest) take no rank and are never kept;
-//    masked rows (valid == 0) take a rank but are not kept.
-//  * The scatter is a second launch with one block per assignment; the
-//    block copies (or quantizes) its row with scalar accesses that are
-//    coalesced across the block's threads. Quantization:
-//    scale = fmaxf(amax, 1e-8f) * (float)(1.0/127.0), q = rintf(x/scale)
-//    (a true IEEE divide and round-half-to-even, like jnp.round), clipped
-//    to +-127.
-//  * Buckets/scales are zero-filled and eids filled with -1 by the
-//    caller's allocation (torch.zeros / torch.full), so the kernel writes
-//    only kept rows.
+// Design: one launch, one block per destination, plus one block for the
+// rows that have none.
+//  * Block e walks dest in order, 256 entries a tile, one per thread;
+//    each warp's __ballot_sync of (dest == e) and the popcount of the
+//    lanes below give every assignment with destination e its FIFO rank
+//    (the same count as the reference's cumsum, with no atomics). The
+//    block writes rank and keep for those assignments; masked rows
+//    (valid == 0) still take a rank but are not kept.
+//  * Slots of e: slot c < min(count, C) belongs to e's c-th assignment
+//    and holds its row if that one is valid; every other slot holds
+//    zeros, scale 0 and expert id -1. The block writes them all, one warp
+//    a slot, with 16-byte accesses where d allows: a copy, or the per-row
+//    INT8 quantization (scale = fmaxf(amax, 1e-8f) * (float)(1.0/127.0),
+//    q = rintf(x / scale) with a true IEEE divide and round-half-to-even,
+//    like jnp.round, clipped to +-127). So every output byte is written
+//    exactly once, by this kernel: no fill or memset comes before it.
+//  * The slot -> assignment map lives in shared memory for 256 slots at a
+//    time; a capacity beyond that takes one more walk of dest per 256.
+//  * Block n_dest writes rank 0 and keep 0 for padding rows (dest ==
+//    n_dest) and ids outside [0, n_dest).
+//  * Each block reads all N ids: N <= 2048 on the serving path, 8 KB
+//    from L2 a block.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#define RP_TILE 256
-#define RP_MAX_DEST 4096
-
-__global__ void rank_kernel(const int* __restrict__ dest,
-                            const int* __restrict__ valid, int N,
-                            int n_dest, int capacity,
-                            int* __restrict__ rank,
-                            unsigned char* __restrict__ keep) {
-  __shared__ int counts[RP_MAX_DEST];
-  __shared__ int tile[RP_TILE];
-  for (int i = threadIdx.x; i < n_dest; i += blockDim.x) counts[i] = 0;
-  __syncthreads();
-  for (int base = 0; base < N; base += RP_TILE) {
-    const int r = base + threadIdx.x;
-    const int my = r < N ? dest[r] : -1;
-    tile[threadIdx.x] = my;
-    __syncthreads();
-    const int n_in = min(RP_TILE, N - base);
-    int before = 0, after = 0;
-    if (my >= 0 && my < n_dest) {
-      for (int j = 0; j < n_in; ++j) {
-        const int o = tile[j];
-        before += (j < (int)threadIdx.x) & (o == my);
-        after += (j > (int)threadIdx.x) & (o == my);
-      }
-    }
-    int rk = 0;
-    if (my >= 0 && my < n_dest) rk = counts[my] + before;
-    __syncthreads();   // every thread has read counts before any update
-    if (r < N) {
-      rank[r] = rk;
-      const bool real = my >= 0 && my < n_dest;
-      const bool ok = valid == nullptr || valid[r] != 0;
-      keep[r] = (real && rk < capacity && ok) ? 1 : 0;
-      if (real && after == 0) counts[my] += before + 1;  // last occurrence
-    }
-    __syncthreads();
-  }
-}
+#define RP_THREADS 256
+#define RP_WARPS (RP_THREADS / 32)
+#define RP_WINDOW 256  // slots mapped in shared memory per walk of dest
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -87,83 +51,229 @@ __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename T, bool QUANT>
-__global__ void scatter_kernel(const T* __restrict__ x,
-                               const int* __restrict__ dest,
-                               const int* __restrict__ eid,
-                               const int* __restrict__ rank,
-                               const unsigned char* __restrict__ keep,
-                               int d, int k, int capacity,
-                               void* __restrict__ buckets,
-                               float* __restrict__ scales,
-                               int* __restrict__ eids) {
-  const int r = blockIdx.x;
-  if (!keep[r]) return;
-  const T* row = x + (size_t)(r / k) * d;
-  const size_t slot = (size_t)dest[r] * capacity + rank[r];
+template <typename T>
+__device__ __forceinline__ T zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+
+// Eight payload values at p (16-byte aligned) as floats.
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+// (a bfloat16 is the top half of its float: the widening is exact)
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ int8_t quant1(float v, float scale) {
+  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.f), 127.f);
+  return (int8_t)q;
+}
+
+// One bucket slot, written by one warp: row `src` of the assignments'
+// payload (x[src / k]), or zeros when src < 0.
+template <typename T, bool QUANT, bool VEC>
+__device__ __forceinline__ void write_slot(const T* __restrict__ x,
+                                           const int* __restrict__ eid, int d,
+                                           int k, int src, size_t slot,
+                                           void* __restrict__ buckets,
+                                           float* __restrict__ scales,
+                                           int* __restrict__ eids) {
+  const int lane = threadIdx.x & 31;
+  if (eids != nullptr && lane == 0) eids[slot] = src < 0 ? -1 : eid[src];
   if (QUANT) {
-    __shared__ float red[32];
+    int8_t* out = reinterpret_cast<int8_t*>(buckets) + slot * d;
+    if (src < 0) {
+      if (lane == 0) scales[slot] = 0.f;
+      if (VEC) {
+        for (int i = lane; i < d / 8; i += 32)
+          reinterpret_cast<uint2*>(out)[i] = make_uint2(0u, 0u);
+      } else {
+        for (int i = lane; i < d; i += 32) out[i] = 0;
+      }
+      return;
+    }
+    const T* row = x + (size_t)(src / k) * d;
     float amax = 0.f;
-    for (int i = threadIdx.x; i < d; i += blockDim.x)
-      amax = fmaxf(amax, fabsf(to_f32(row[i])));
+    if (VEC) {
+      for (int i = lane; i < d / 8; i += 32) {
+        float v[8];
+        load8(row + 8 * i, v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
+      }
+    } else {
+      for (int i = lane; i < d; i += 32)
+        amax = fmaxf(amax, fabsf(to_f32(row[i])));
+    }
+#pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
-    __syncthreads();
-    if (threadIdx.x < 32) {
-      float v = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : 0.f;
-      for (int o = 16; o > 0; o >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-      if (threadIdx.x == 0) red[0] = v;
+    const float scale = fmaxf(amax, 1e-8f) * (float)(1.0 / 127.0);
+    if (lane == 0) scales[slot] = scale;
+    if (VEC) {
+      for (int i = lane; i < d / 8; i += 32) {
+        float v[8];
+        load8(row + 8 * i, v);
+        uint32_t w[2] = {0u, 0u};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          w[j >> 2] |= (uint32_t)(uint8_t)quant1(v[j], scale) << (8 * (j & 3));
+        reinterpret_cast<uint2*>(out)[i] = make_uint2(w[0], w[1]);
+      }
+    } else {
+      for (int i = lane; i < d; i += 32) out[i] = quant1(to_f32(row[i]), scale);
     }
-    __syncthreads();
-    const float scale = fmaxf(red[0], 1e-8f) * (float)(1.0 / 127.0);
-    int8_t* out = reinterpret_cast<int8_t*>(buckets) + slot * d;
-    for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      float q = rintf(__fdiv_rn(to_f32(row[i]), scale));
-      q = fminf(fmaxf(q, -127.f), 127.f);
-      out[i] = (int8_t)q;
-    }
-    if (threadIdx.x == 0) scales[slot] = scale;
   } else {
     T* out = reinterpret_cast<T*>(buckets) + slot * d;
-    for (int i = threadIdx.x; i < d; i += blockDim.x) out[i] = row[i];
+    if (VEC) {
+      const int n16 = d * (int)sizeof(T) / 16;
+      uint4* o = reinterpret_cast<uint4*>(out);
+      if (src < 0) {
+        for (int i = lane; i < n16; i += 32) o[i] = make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        const uint4* in =
+            reinterpret_cast<const uint4*>(x + (size_t)(src / k) * d);
+        for (int i = lane; i < n16; i += 32) o[i] = in[i];
+      }
+    } else if (src < 0) {
+      for (int i = lane; i < d; i += 32) out[i] = zero_of<T>();
+    } else {
+      const T* row = x + (size_t)(src / k) * d;
+      for (int i = lane; i < d; i += 32) out[i] = row[i];
+    }
   }
-  if (eid != nullptr && threadIdx.x == 0) eids[slot] = eid[r];
+}
+
+template <typename T, bool QUANT, bool VEC>
+__global__ void __launch_bounds__(RP_THREADS)
+    route_pack_kernel(const T* __restrict__ x, const int* __restrict__ dest,
+                      const int* __restrict__ valid,
+                      const int* __restrict__ eid, int d, int N, int k,
+                      int n_dest, int capacity, void* __restrict__ buckets,
+                      float* __restrict__ scales, int* __restrict__ eids,
+                      int* __restrict__ rank,
+                      unsigned char* __restrict__ keep) {
+  __shared__ int warp_hits[RP_WARPS];
+  __shared__ int src_of[RP_WINDOW];  // slot w0 + i -> assignment, -1 masked
+  const int e = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  if (e == n_dest) {  // rows with no destination
+    for (int r = tid; r < N; r += RP_THREADS) {
+      const int dd = dest[r];
+      if (dd < 0 || dd >= n_dest) {
+        rank[r] = 0;
+        keep[r] = 0;
+      }
+    }
+    return;
+  }
+  const unsigned below = (1u << lane) - 1u;
+  int count = 0;  // assignments with destination e (known after walk 0)
+  for (int w0 = 0; w0 < capacity; w0 += RP_WINDOW) {
+    // walk dest in order: FIFO ranks; the first walk writes rank and
+    // keep, every walk maps the window's slots to their assignments
+    if (w0 == 0 || w0 < count) {
+      int base = 0;
+      for (int t0 = 0; t0 < N; t0 += RP_THREADS) {
+        const int r = t0 + tid;
+        const bool hit = r < N && dest[r] == e;
+        const unsigned bal = __ballot_sync(0xffffffffu, hit);
+        if (lane == 0) warp_hits[warp] = __popc(bal);
+        __syncthreads();
+        int before = base, total = 0;
+#pragma unroll
+        for (int w = 0; w < RP_WARPS; ++w) {
+          const int c = warp_hits[w];
+          before += w < warp ? c : 0;
+          total += c;
+        }
+        if (hit) {
+          const int rk = before + __popc(bal & below);
+          const bool ok = valid == nullptr || valid[r] != 0;
+          if (w0 == 0) {
+            rank[r] = rk;
+            keep[r] = (rk < capacity && ok) ? 1 : 0;
+          }
+          if (rk >= w0 && rk < w0 + RP_WINDOW && rk < capacity)
+            src_of[rk - w0] = ok ? r : -1;
+        }
+        base += total;
+        __syncthreads();  // warp_hits is rewritten by the next tile
+      }
+      count = base;
+    }
+    __syncthreads();
+    const int w1 = min(capacity, w0 + RP_WINDOW);
+    for (int s = w0 + warp; s < w1; s += RP_WARPS)
+      write_slot<T, QUANT, VEC>(x, eid, d, k, s < count ? src_of[s - w0] : -1,
+                                (size_t)e * capacity + s, buckets, scales,
+                                eids);
+    __syncthreads();  // src_of is rewritten by the next window
+  }
+}
+
+template <typename T, bool QUANT, bool VEC>
+static int launch(const void* x, const int* dest, const int* valid,
+                  const int* eid, int d, int N, int k, int n_dest,
+                  int capacity, void* buckets, float* scales, int* eids,
+                  int* rank, unsigned char* keep, cudaStream_t stream) {
+  route_pack_kernel<T, QUANT, VEC><<<n_dest + 1, RP_THREADS, 0, stream>>>(
+      reinterpret_cast<const T*>(x), dest, valid, eid, d, N, k, n_dest,
+      capacity, buckets, scales, eids, rank, keep);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_t(const void* x, const int* dest, const int* valid,
+                    const int* eid, int d, int N, int k, int n_dest,
+                    int capacity, int quantize, void* buckets, float* scales,
+                    int* eids, int* rank, unsigned char* keep,
+                    cudaStream_t stream) {
+  // 16-byte payload loads and bucket stores: 8 values a group
+  const bool vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(buckets) % 16 == 0;
+#define RP_ARGS x, dest, valid, eid, d, N, k, n_dest, capacity, buckets, \
+                scales, eids, rank, keep, stream
+  if (quantize)
+    return vec ? launch<T, true, true>(RP_ARGS)
+               : launch<T, true, false>(RP_ARGS);
+  return vec ? launch<T, false, true>(RP_ARGS)
+             : launch<T, false, false>(RP_ARGS);
+#undef RP_ARGS
 }
 
 // dtype: 0 = float32 payload, 1 = bfloat16 payload. valid and eid may be
-// null (all valid; no expert-id payload).
+// null (all valid; no expert-id payload). Every output is written by the
+// kernel: the caller allocates them uninitialised. Returns a cudaError_t.
 extern "C" int route_pack_launch(const void* x, int dtype, const int* dest,
                                  const int* valid, const int* eid, int d,
                                  int N, int k, int n_dest, int capacity,
                                  int quantize, void* buckets, float* scales,
                                  int* eids, int* rank, unsigned char* keep,
                                  cudaStream_t stream) {
-  if (n_dest > RP_MAX_DEST || n_dest <= 0 || k <= 0)
+  if (n_dest <= 0 || k <= 0 || capacity <= 0 || d < 0 || N < 0)
     return (int)cudaErrorInvalidValue;
-  if (N == 0) return (int)cudaSuccess;
-  rank_kernel<<<1, RP_TILE, 0, stream>>>(dest, valid, N, n_dest, capacity,
-                                         rank, keep);
-  const int threads = 256;
-  if (dtype == 1) {
-    const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
-    if (quantize)
-      scatter_kernel<__nv_bfloat16, true><<<N, threads, 0, stream>>>(
-          xb, dest, eid, rank, keep, d, k, capacity, buckets, scales, eids);
-    else
-      scatter_kernel<__nv_bfloat16, false><<<N, threads, 0, stream>>>(
-          xb, dest, eid, rank, keep, d, k, capacity, buckets, scales, eids);
-  } else if (dtype == 0) {
-    const float* xf = reinterpret_cast<const float*>(x);
-    if (quantize)
-      scatter_kernel<float, true><<<N, threads, 0, stream>>>(
-          xf, dest, eid, rank, keep, d, k, capacity, buckets, scales, eids);
-    else
-      scatter_kernel<float, false><<<N, threads, 0, stream>>>(
-          xf, dest, eid, rank, keep, d, k, capacity, buckets, scales, eids);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 1)
+    return launch_t<__nv_bfloat16>(x, dest, valid, eid, d, N, k, n_dest,
+                                   capacity, quantize, buckets, scales, eids,
+                                   rank, keep, stream);
+  if (dtype == 0)
+    return launch_t<float>(x, dest, valid, eid, d, N, k, n_dest, capacity,
+                           quantize, buckets, scales, eids, rank, keep,
+                           stream);
+  return (int)cudaErrorInvalidValue;
 }

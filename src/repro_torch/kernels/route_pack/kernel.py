@@ -12,7 +12,6 @@ from repro_torch.kernels.route_pack.ref import RoutePack
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_DEST = 4096          # RP_MAX_DEST in the source
 
 
 @functools.cache
@@ -24,30 +23,37 @@ def _fn():
     return fn
 
 
+def _int32(t):
+    """``t`` as contiguous int32, converted only when it is not already."""
+    if t is None or (t.dtype == torch.int32 and t.is_contiguous()):
+        return t
+    return t.to(torch.int32).contiguous()
+
+
 def route_pack_cuda(x, dest, valid, eid, *, k: int, n_dest: int,
                     capacity: int, quantize: bool) -> RoutePack:
     """Launch the fused route-pack kernel. x [T, d] bf16/f32; dest/valid/
-    eid [N = T*k] int32 (``valid``/``eid`` may be None)."""
+    eid [N = T*k] int32 (``valid``/``eid`` may be None). One launch: the
+    kernel writes every byte of every output, so they are allocated
+    uninitialised."""
     T, d = x.shape
     N = dest.shape[0]
     if x.dtype not in _DTYPES:
         raise TypeError(f"route_pack: payload dtype {x.dtype} unsupported")
     if N != T * k:
         raise ValueError(f"route_pack: N={N} != T*k={T * k}")
-    if not 0 < n_dest <= _MAX_DEST or capacity < 1:
+    if n_dest < 1 or capacity < 1:
         raise ValueError(f"route_pack: n_dest={n_dest}, capacity={capacity}")
     dev = x.device
-    dest = dest.to(torch.int32).contiguous()
-    valid = None if valid is None else valid.to(torch.int32).contiguous()
-    eid_t = None if eid is None else eid.to(torch.int32).contiguous()
+    dest, valid, eid_t = _int32(dest), _int32(valid), _int32(eid)
     x = x.contiguous()
     runtime.require_cuda("route_pack", x, dest,
                          *(t for t in (valid, eid_t) if t is not None))
     out_dtype = torch.int8 if quantize else x.dtype
-    buckets = torch.zeros((n_dest, capacity, d), dtype=out_dtype, device=dev)
-    scales = (torch.zeros((n_dest, capacity), dtype=torch.float32, device=dev)
+    buckets = torch.empty((n_dest, capacity, d), dtype=out_dtype, device=dev)
+    scales = (torch.empty((n_dest, capacity), dtype=torch.float32, device=dev)
               if quantize else None)
-    eids = (torch.full((n_dest, capacity), -1, dtype=torch.int32, device=dev)
+    eids = (torch.empty((n_dest, capacity), dtype=torch.int32, device=dev)
             if eid_t is not None else None)
     rank = torch.empty((N,), dtype=torch.int32, device=dev)
     keep = torch.empty((N,), dtype=torch.bool, device=dev)

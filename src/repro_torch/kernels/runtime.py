@@ -109,8 +109,10 @@ def library(name: str) -> ctypes.CDLL:
 
 def stream_handle(t: torch.Tensor) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s
-    device (a Python int, passed as ``c_void_p``)."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    device (a Python int, passed as ``c_void_p``). Read without making a
+    ``torch.cuda.Stream`` object, whose host cost is of the order of a
+    launch-bound kernel's whole device time."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check_status(name: str, status: int) -> None:

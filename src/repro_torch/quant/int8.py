@@ -22,9 +22,23 @@ from repro_torch.kernels.quant_dispatch.ops import fused_quantize
 @dataclasses.dataclass
 class QTensor:
     """Channel-wise quantized weight: values int8 [in, out], scale f32
-    [out] (one per output channel)."""
+    [out] (one per output channel).
+
+    ``values`` is stored K-major: the [in, out] view of an [out, in]
+    row-major tensor (for stacked expert weights [E, in, out], of
+    [E, out, in]), made once here, whatever layout it was given in. The
+    INT8-matmul kernel reads the weight in that layout, the one the card's
+    8-bit tensor-core instructions take; shape and values are those
+    given, and no second copy is kept."""
     values: torch.Tensor
     scale: torch.Tensor
+
+    def __post_init__(self):
+        if self.values.dim() >= 2:
+            kmajor = self.values.transpose(-1, -2)
+            if not kmajor.is_contiguous():
+                kmajor = kmajor.contiguous()
+            self.values = kmajor.transpose(-1, -2)
 
     @property
     def shape(self):

@@ -182,7 +182,8 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_bad_arguments():
         quant_dispatch_cuda(torch.zeros((2, 4), dtype=torch.float16))
     with pytest.raises(ValueError):
         quant_dispatch_cuda(torch.zeros((2, 0)))
-    args = tuple(map(torch.from_numpy, _mm_inputs(1, 3, 32, 8)))
+    args = list(map(torch.from_numpy, _mm_inputs(1, 3, 32, 8)))
+    args[2] = args[2].t().contiguous().t()      # the K-major weight
     with pytest.raises(ValueError, match="CUDA device"):
         int8_matmul_cuda(*args)
     with pytest.raises(TypeError):
