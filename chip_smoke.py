@@ -18,10 +18,13 @@ DeepSeek-V3 (MLA + top-8 MoE):
    capacity 4; the token counts T the path packs: decode T=4, the
    prompts' padded prefill buckets 32 and 64, and the unpadded 37-token
    prompt): route-pack exactly (bf16, spread and hot routing, with and
-   without INT8 quantize and expert ids, and with masked rows, over the
-   256 experts and the EPLB table's 258 slots; and on padding rows,
-   payload rows off the 16-byte vector, a capacity past 256 slots and a
-   call with no rows), Collect exactly at every
+   without INT8 quantize and expert ids, with masked rows, and with the
+   EPLB Collect count block — logical ids counted, int32 dest without a
+   placement and the router's int64 ids with one, counts equal to
+   ``collect_ref`` — over the 256 experts and the EPLB table's 258
+   slots; and on padding rows, payload rows off the 16-byte vector, a
+   capacity past 256 slots and a call with no rows, counting ids with -1
+   and ids >= E mixed in), the standalone Collect kernel exactly at every
    N = T·8 (routed int64 ids, and int32 ids with -1 and ids >= E mixed
    in), the grouped expert FFN within 3e-2 (bf16), and the owner-indexed
    FFN within 3e-2 of its plain version and bit-identical to the plain
@@ -31,7 +34,10 @@ DeepSeek-V3 (MLA + top-8 MoE):
    held on an all-empty call (all +0), one live slot, partly filled rows
    and in float32 (2e-4, 16 experts' weights); route-pack must be one
    device kernel per call under the profiler, with no memset or fill
-   beside it; time kernel (CUDA events, median of 20 after warm-up, and
+   beside it, with and without the count block, its device time with the
+   block within 10% of its time without (in turn in one profiler window)
+   and its event time below route-pack + the standalone Collect's (in
+   turn); time kernel (CUDA events, median of 20 after warm-up, and
    device time under the profiler), plain version and one PyTorch
    library call, gmm also on one live slot
    and at the largest T of each capacity, each beside its live-slot
@@ -41,10 +47,12 @@ DeepSeek-V3 (MLA + top-8 MoE):
    ``FlowServeEngine`` (2 DP groups × 4 slots): 4 prompts × 16 greedy
    tokens, then a skewed EPLB pass, then 4 more prompts; every kernel's
    launch count over this stage must be above 0 (route-pack, gmm,
-   placement_gmm, and Collect under every MoE layer call), and the
-   owner-indexed FFN must run after EPLB; the first route-pack and the
-   first Collect of each shape the path makes are replayed on the kernel
-   and the plain version, exactly; then profile full-batch decode steps
+   placement_gmm), the owner-indexed FFN must run after EPLB, and EPLB
+   Collect must have run inside every route-pack launch (68 of them, one
+   per MoE layer call) and never on its own; the first route-pack of
+   each shape the path makes is replayed on the kernel and the plain
+   version, exactly, its counts equal to ``collect_ref`` on its logical
+   ids, with and without a placement; then profile full-batch decode steps
    (host clock per engine step, device time by kernel with
    ``torch.profiler``, and the device's idle share within the same
    profiled steps), and run one full-batch decode step of a DP group
@@ -62,15 +70,23 @@ DeepSeek-V3 (MLA + top-8 MoE):
    with its error against the bf16 product logged; GPTQ of ``wkv_a`` in
    float64 on the card (timed, error against naive rounding); the served
    MLA caches quantized. Then quant-dispatch bit-identical at every
-   input, a zero row, .5 quotients and (7, 32); INT8 matmul on K-major
+   input, a zero row, .5 quotients, (7, 32), (5, 1000), the ragged
+   (4, 7170), an unaligned (4, 7168) and all-zero rows (+0 and -0) on
+   the cluster and block paths; INT8 matmul on K-major
    weights at (100,300,50), (1,64,17), (37,1000,300), (130,136,257) (K
    not a multiple of 16 but at (1,64,17)) and on a weight 1 byte off a
    16-byte boundary; the caches bit-identical; and both kernels timed
-   (quant-dispatch at [512, 7168] bf16; INT8 matmul on ``wi_gate`` at
-   every M, one device kernel per call, its share of the int8 peak
-   logged, and called in turn with ``torch._int_mm`` + the same epilogue
-   on the same K-major weight where that takes the shape (M > 16): the
-   kernel must be faster at M 512);
+   (quant-dispatch at widths 1536, 7168 and 18432 x M 4, 37, 64 and 512
+   in bf16 and f32 and on the MLA cache rows, each bit-identical, one
+   device kernel per call, beside its plan and bound, and at M 4 called
+   in turn with the two-pass launch of the same function — the plan's
+   scalar path, a block per row — which it must beat on the device, and
+   with the one of one block a row and a cluster of blocks that the plan
+   did not pick; INT8 matmul on ``wi_gate`` at every M, one
+   device kernel per call, its share of the int8 peak logged, and called
+   in turn with ``torch._int_mm`` + the same epilogue on the same K-major
+   weight where that takes the shape (M > 16): the kernel must be faster
+   at M 512);
 6. check the output by the repository's own means: every request
    finished with its tokens, the logits are finite, and on the smoke
    DeepSeek-V3 (float32) the engine on the card gives the same greedy
@@ -106,8 +122,9 @@ DeepSeek-V3 engine is freed:
    bound on the device;
 9. serve 4 prompts x 16 greedy tokens (one of 825 bytes, prefilled in
    two 512-token chunks), a skewed EPLB pass on the MoE layer, 4 more
-   prompts; every kernel of the path launches, the path's first pack
-   and Collect of each shape are replayed exactly, the logits are
+   prompts; every kernel of the path launches, Collect inside each of
+   the 70 route-packs and never alone, the path's first pack of each
+   shape is replayed exactly with its counts, the logits are
    finite; profile decode steps and repeat a decode step as for
    DeepSeek-V3;
 10. the INT8 KV cache on that engine, launch counts set to 0 just
@@ -115,13 +132,15 @@ DeepSeek-V3 engine is freed:
     quantized per (position, head) through quant-dispatch, bit-identical
     to the plain version; INT8 attention scores at the path's shape (one
     query row per KV head, [4, 8, 128] against [4, 1024, 8, 128]) equal
-    on the card and the CPU;
+    on the card and the CPU; quant-dispatch timed on the cache rows
+    [32768, 128] and on each head's whole cache as a row [32, 131072];
 11. the smoke Llama-4 with G = 5 (float32): the engine on the card gives
     the CPU's greedy tokens, before and after EPLB;
 
 12. print the card's name and power limit, one JSON line with every
-    kernel's launches per path, error, times and bound, then the final
-    ``{"ok": true, ...}`` line.
+    kernel's launches per path, error, times and bound (Collect's
+    launches are the route-pack launches that ran its body), then the
+    final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -157,6 +176,9 @@ KERNELS = ("route_pack", "gmm", "placement_gmm", "decode_attention",
            "quant_dispatch", "int8_matmul", "collect")
 SOURCES = {n: f"src/repro_torch/kernels/csrc/{n}.cu" for n in KERNELS}
 SOURCES["placement_gmm"] = SOURCES["gmm"]
+#: Collect's body: run by route-pack's count block on the path, and by
+#: the standalone launch of csrc/collect.cu
+SOURCES["collect"] = "src/repro_torch/kernels/csrc/collect.cuh"
 REPLACES = {"route_pack": "src/repro/kernels/route_pack/kernel.py:105",
             "gmm": "src/repro/kernels/gmm/kernel.py:56",
             "placement_gmm": "src/repro/kernels/gmm/kernel.py:91",
@@ -171,6 +193,8 @@ TIMED_ON = {"quant_dispatch": DEEPSEEK_INT8, "int8_matmul": DEEPSEEK_INT8}
 #: the INT8 stage's token counts M: a DP group's decode batch, the
 #: unpadded first prompt, its padded prefill bucket, and a 512 bucket
 INT8_M = (4, 37, 64, 512)
+#: route-pack launches (one per MoE layer call) over each served path
+PATH_PACKS = {DEEPSEEK: 68, LLAMA: 70}
 
 
 def log(msg: str) -> None:
@@ -247,6 +271,37 @@ def one_launch(prof: dict, name: str, what: str) -> None:
           f"{prof['names']}")
 
 
+def profile_turns(fa, fb, reps: int = 20, warm: int = 3,
+                  tries: int = 3) -> tuple:
+    """Device ms per call of ``fa`` and of ``fb`` called in turn (a, b,
+    b, a, ...) in one ``torch.profiler`` window, each the sum of its own
+    kernels' mean times (:func:`profile_calls` names them in a window of
+    its own first: the two must launch kernels of different names). A
+    window that misses a kernel is profiled again, up to ``tries``
+    times. Returns (a ms, b ms, a's window, b's window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pa, pb = profile_calls(fa, warm=warm), profile_calls(fb, warm=warm)
+    na, nb = set(pa["names"]), set(pb["names"])
+    check(bool(na) and bool(nb) and not na & nb,
+          f"profile_turns: kernels told apart by name ({na} and {nb})")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(2 * reps):
+                (fa, fb)[(i + i // 2) % 2]()
+            torch.cuda.synchronize()
+        ev = {e.key: e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and e.count}
+        if na | nb <= set(ev):
+            break
+    check(na | nb <= set(ev), f"profile_turns: {na | nb} recorded")
+
+    def per_call(names):
+        return sum(ev[n].self_device_time_total / ev[n].count
+                   * max(1, round(ev[n].count / reps)) for n in names) / 1e3
+    return per_call(na), per_call(nb), pa, pb
+
+
 def time_pair(fa, fb, reps: int = 50, warm: int = 3):
     """Median CUDA-event times of ``fa`` and ``fb`` (ms per call, as
     :func:`time_ms`), called in turn (a, b, b, a, ...) so that both
@@ -292,7 +347,7 @@ def pack_err(a, b, what: str) -> float:
     """Hold two RoutePacks field by field: exact, or the check fails.
     Returns the largest absolute difference over all fields."""
     err = 0.0
-    for name in ("buckets", "scales", "eids", "rank", "keep"):
+    for name in ("buckets", "scales", "eids", "rank", "keep", "counts"):
         ta, tb = getattr(a, name), getattr(b, name)
         check((ta is None) == (tb is None), f"{what}: {name} in both")
         if ta is None:
@@ -359,6 +414,8 @@ def check_moe_kernels(cfg, counts, max_batch: int, weights=None) -> dict:
     placement_gmm as :func:`check_gmm` says, on the path's packs. Times
     are taken at the decode shape (T = ``max_batch``), and gmm's also at
     the shapes :func:`check_gmm` names."""
+    from repro_torch.kernels.collect.kernel import collect_cuda
+    from repro_torch.kernels.collect.ref import collect_ref
     from repro_torch.kernels.route_pack.kernel import route_pack_cuda
     from repro_torch.kernels.route_pack.ops import placement_route
     from repro_torch.kernels.route_pack.ref import route_pack_ref
@@ -388,7 +445,19 @@ def check_moe_kernels(cfg, counts, max_batch: int, weights=None) -> dict:
                                table.phys_owner))
     S = owner.shape[0]
 
-    # -- route-pack: exact at every token count, over E and S slots -----
+    def held_pack(x, dst, valid, ei, what, **kw):
+        """One route-pack held to its plain version (the counts too, and
+        those to Collect's plain version)."""
+        got = route_pack_cuda(x, dst, valid, ei, **kw)
+        err = pack_err(got, route_pack_ref(x, dst, valid, ei, **kw), what)
+        if kw.get("count_ids") is not None:
+            exact(got.counts, collect_ref(kw["count_ids"], kw["n_count"]),
+                  f"{what}: counts against collect_ref")
+        return err
+
+    # -- route-pack: exact at every token count, over E and S slots, with
+    # and without the count block (the path's form: logical ids counted,
+    # as int32 dest without a placement and the router's int64 ids with)
     rp_err, packs = 0.0, {}
     for T in counts:
         N, cap = T * k, cap_of(T)
@@ -397,26 +466,31 @@ def check_moe_kernels(cfg, counts, max_batch: int, weights=None) -> dict:
                             dtype=torch.int32)
         mask = torch.rand((N,), generator=gen, device="cuda") > 0.2
         tok_of = torch.arange(T, device="cuda").repeat_interleave(k)
-        variants = [(q, ei, None) for q in (False, True)
-                    for ei in (None, eid)] + [(True, eid, mask)]
+        variants = ([(q, ei, None, False) for q in (False, True)
+                     for ei in (None, eid)]
+                    + [(True, eid, mask, False), (False, None, None, True),
+                       (True, eid, mask, True)])
         for hot_n in (0, 12):
             dest = routed_dest(T, k, E, gen, hot_n)
             pdest = placement_route(dest, tok_of, rs, nr)
-            for n_dest, dst in ((E, dest), (S, pdest)):
-                for quant, ei, valid in variants:
+            for n_dest, dst, ids in ((E, dest, dest), (S, pdest, dest.long())):
+                for quant, ei, valid, counted in variants:
                     kw = dict(k=k, n_dest=n_dest, capacity=cap,
                               quantize=quant)
-                    rp_err = max(rp_err, pack_err(
-                        route_pack_cuda(x, dst, valid, ei, **kw),
-                        route_pack_ref(x, dst, valid, ei, **kw),
+                    if counted:
+                        kw.update(count_ids=ids, n_count=E)
+                    rp_err = max(rp_err, held_pack(
+                        x, dst, valid, ei,
                         f"route_pack T={T} n_dest={n_dest} hot={hot_n} "
                         f"quantize={quant} eid={ei is not None} "
-                        f"masked={valid is not None}"))
+                        f"masked={valid is not None} counted={counted}",
+                        **kw))
             if not hot_n:
                 packs[T] = x, dest, pdest
         log(f"route_pack T={T} N={N} C={cap}: exact in "
             f"{4 * len(variants)} variants (n_dest {E} and {S}, spread and "
-            f"hot routing x quantize x eid, and masked)")
+            f"hot routing x quantize x eid, masked, and with the count "
+            f"block: counts equal to collect_ref)")
     # edge cases: padding rows (dest == n_dest, valid or masked), payload
     # rows off the 16-byte vector (f32 and bf16), a capacity past one
     # 256-slot window, and a call with no rows
@@ -433,33 +507,65 @@ def check_moe_kernels(cfg, counts, max_batch: int, weights=None) -> dict:
         eid = torch.randint(0, E, (N,), generator=gen, device="cuda",
                             dtype=torch.int32)
         mask = torch.rand((N,), generator=gen, device="cuda") > 0.2
+        # count ids with padding (-1) and ids at E or above mixed in
+        wild = torch.randint(-1, E + 5, (N,), generator=gen, device="cuda")
         for quant in (False, True):
-            for ei, valid in ((None, None), (eid, mask), (eid, None)):
+            for ei, valid, ids in ((None, None, None), (eid, mask, None),
+                                   (eid, None, None), (None, None, wild),
+                                   (eid, mask, wild.int())):
                 kw = dict(k=kk, n_dest=n_dest, capacity=cap, quantize=quant)
-                rp_err = max(rp_err, pack_err(
-                    route_pack_cuda(x, dest, valid, ei, **kw),
-                    route_pack_ref(x, dest, valid, ei, **kw),
+                if ids is not None:
+                    kw.update(count_ids=ids, n_count=E)
+                rp_err = max(rp_err, held_pack(
+                    x, dest, valid, ei,
                     f"route_pack edge T={T} d={dd} {dt} n_dest={n_dest} "
                     f"C={cap} quantize={quant} eid={ei is not None} "
-                    f"masked={valid is not None}"))
+                    f"masked={valid is not None} counted={ids is not None}",
+                    **kw))
         log(f"route_pack edge T={T} d={dd} {dt} n_dest={n_dest} C={cap}, "
-            f"padding rows: exact with and without quantize, eid, mask")
+            f"padding rows: exact with and without quantize, eid, mask and "
+            f"the count block (int64 and int32 ids, -1 and ids >= E)")
+    # -- timed at decode, in the path's form: the pack counts the logical
+    # ids (here dest itself: no placement) in the same launch
     x, dest, pdest = packs[max_batch]
     kw = dict(k=k, n_dest=E, capacity=cap_of(max_batch), quantize=False)
+    cw = dict(kw, count_ids=dest, n_count=E)
 
     def rp():
+        return route_pack_cuda(x, dest, None, None, **cw)
+
+    def rp_alone():
         return route_pack_cuda(x, dest, None, None, **kw)
+
+    def rp_then_collect():               # the two launches it replaces
+        return rp_alone(), collect_cuda(dest, E)
     res = rp()
-    bnd, by = bound_ms(nbytes(x, dest, res.buckets, res.rank, res.keep), 0)
-    prof = profile_calls(rp)
-    one_launch(prof, "route_pack", f"route_pack T={max_batch}")
+    bnd, by = bound_ms(nbytes(x, dest, res.buckets, res.rank, res.keep,
+                              res.counts), 0)
+    with_ms, alone_ms, prof, prof_alone = profile_turns(rp, rp_alone)
+    one_launch(prof, "route_pack", f"route_pack T={max_batch} with counts")
+    one_launch(prof_alone, "route_pack", f"route_pack T={max_batch}")
+    check(with_ms <= 1.10 * alone_ms,
+          f"route_pack T={max_batch}: device {with_ms} ms with the count "
+          f"block within 10% of {alone_ms} ms without it, in turn")
+    fused_ms, two_ms = time_pair(rp, rp_then_collect)
+    check(fused_ms < two_ms,
+          f"route_pack with counts: {fused_ms} ms below route_pack + "
+          f"collect_cuda's {two_ms} ms, in turn")
     out = {"route_pack": dict(
-        max_abs_err=rp_err, ms=time_ms(rp), device_ms=prof["device_ms"],
+        max_abs_err=rp_err, ms=time_ms(rp), device_ms=with_ms,
+        device_ms_without_counts=alone_ms,
         kernels_per_call=prof["per_call"],
-        plain_ms=time_ms(lambda: route_pack_ref(x, dest, None, None, **kw)),
+        plain_ms=time_ms(lambda: route_pack_ref(x, dest, None, None, **cw)),
         library_ms=None, bound_ms=bnd, bound_by=by)}
+    log(f"route_pack T={max_batch}: device {with_ms:.4f} ms with the count "
+        f"block, {alone_ms:.4f} without (in turn); events {fused_ms:.4f} ms "
+        f"against {two_ms:.4f} for route_pack + collect_cuda (in turn)")
 
     out["collect"] = check_collect(counts, k, E, gen)
+    out["collect"]["in_route_pack"] = dict(
+        events_ms=fused_ms, events_ms_route_pack_then_collect=two_ms,
+        device_ms=with_ms, device_ms_route_pack_alone=alone_ms)
 
     # -- gmm and placement_gmm at each capacity the path's packs have ----
     def pack(T, dst, n_dest):
@@ -903,70 +1009,72 @@ def skewed_counts(cfg, gen_seed: int = 7):
 
 
 class PackRecorder:
-    """Stands in for the MoE layer's route-pack entry point and keeps a
+    """Stands in for the MoE layer's route-pack entry point, counts its
+    calls and those that asked for EPLB Collect's counts, and keeps a
     copy of the inputs of the first call of each shape, so that the
-    path's own packs can be held against the plain version afterwards."""
+    path's own packs (and their counts) can be held against the plain
+    versions afterwards."""
 
     def __init__(self, fn):
         self.fn, self.calls = fn, {}
+        self.n_calls = self.n_counted = 0
 
     def __call__(self, x, dest, valid=None, eid=None, **kw):
         kw = {"k": 1, "quantize": False, **kw}     # the entry's defaults
+        ids = kw.get("count_ids")
+        self.n_calls += 1
+        self.n_counted += ids is not None
         key = (x.shape[0], kw["n_dest"], kw["capacity"], x.dtype,
-               kw["quantize"], valid is not None, eid is not None)
+               kw["quantize"], valid is not None, eid is not None,
+               None if ids is None else ids.dtype)
         if key not in self.calls:
+            if ids is not None:
+                kw["count_ids"] = ids.clone()
             self.calls[key] = (x.clone(), dest.clone(),
                                None if valid is None else valid.clone(),
                                None if eid is None else eid.clone(), kw)
         return self.fn(x, dest, valid, eid, **kw)
 
 
-def replay_packs(rec: PackRecorder, cfg) -> float:
+def replay_packs(rec: PackRecorder, cfg) -> tuple:
     """The path's own route-packs, one of each shape, on the kernel and
-    on the plain version: exact. Returns the largest difference."""
+    on the plain version: exact, their counts too, and those equal to
+    Collect's plain version on the pack's count ids: logical expert ids,
+    which under a placement are not the physical slots the pack routes
+    to. Every pack of the path must have counted. Returns the largest
+    differences of the packs and of the counts."""
+    from repro_torch.kernels.collect.ref import collect_ref
     from repro_torch.kernels.route_pack.kernel import route_pack_cuda
     from repro_torch.kernels.route_pack.ref import route_pack_ref
 
-    E, err = cfg.moe.num_experts, 0.0
+    E, err, c_err = cfg.moe.num_experts, 0.0, 0.0
+    check(rec.n_counted == rec.n_calls,
+          f"every MoE layer call's pack counted its ids "
+          f"({rec.n_counted} of {rec.n_calls})")
+    placed = plain = 0
     for (T, n_dest, cap, *_), (x, dest, valid, eid, kw) in rec.calls.items():
-        err = max(err, pack_err(route_pack_cuda(x, dest, valid, eid, **kw),
-                                route_pack_ref(x, dest, valid, eid, **kw),
-                                f"path route_pack T={T} n_dest={n_dest}"))
+        what = f"path route_pack T={T} n_dest={n_dest}"
+        got = route_pack_cuda(x, dest, valid, eid, **kw)
+        err = max(err, pack_err(got, route_pack_ref(x, dest, valid, eid,
+                                                    **kw), what))
+        ids = kw["count_ids"]
+        check(kw["n_count"] == E, f"{what}: counts over the {E} experts")
+        c_err = max(c_err, exact(got.counts, collect_ref(ids, E),
+                                 f"{what}: counts against collect_ref"))
+        if n_dest > E:           # physical slots routed, logical counted
+            placed += 1
+            check(ids.dtype == torch.int64 and bool((ids < E).all()),
+                  f"{what}: the router's logical ids counted")
+        else:
+            plain += 1
     shapes = sorted((T, n, c) for T, n, c, *_ in rec.calls)
-    check(any(n > E for _, n, _ in shapes), "a post-EPLB pack was replayed")
+    check(placed > 0 and plain > 0,
+          "packs with and without a placement were replayed")
     check(any(T * cfg.moe.top_k > 256 for T, _, _ in shapes),
           "a pack spanning more than one rank-scan tile was replayed")
-    log(f"path route_pack replayed exactly at (T, n_dest, C) {shapes}")
-    return err
-
-
-class CollectRecorder:
-    """Stands in for the MoE layer's Collect entry point and keeps a copy
-    of the ids of the first call of each shape, to be replayed on the
-    kernel and the plain version afterwards."""
-
-    def __init__(self, fn):
-        self.fn, self.calls = fn, {}
-
-    def __call__(self, ids, *, n_experts):
-        key = (ids.shape[0], ids.dtype, n_experts)
-        if key not in self.calls:
-            self.calls[key] = ids.clone()
-        return self.fn(ids, n_experts=n_experts)
-
-
-def replay_collect(rec: CollectRecorder) -> float:
-    """The path's own Collect calls, one of each shape: exact."""
-    from repro_torch.kernels.collect.kernel import collect_cuda
-    from repro_torch.kernels.collect.ref import collect_ref
-
-    err = 0.0
-    for (N, _, E), ids in rec.calls.items():
-        err = max(err, exact(collect_cuda(ids, E), collect_ref(ids, E),
-                             f"path collect N={N} E={E}"))
-    log(f"path collect replayed exactly at (N, E) "
-        f"{sorted((N, E) for N, _, E in rec.calls)}")
-    return err
+    log(f"path route_pack replayed exactly at (T, n_dest, C) {shapes}, "
+        f"counts equal to collect_ref ({placed} with a placement)")
+    return err, c_err
 
 
 def make_engine(cfg, **kw):
@@ -999,9 +1107,7 @@ def run_path(engine, prompts, prompts_eplb, kernels,
     cfg = engine.cfg
     torch.cuda.reset_peak_memory_stats()
     rec = PackRecorder(ffn.fused_route_pack)
-    crec = CollectRecorder(ffn.expert_counts)
-    with mock.patch.object(ffn, "fused_route_pack", rec), \
-            mock.patch.object(ffn, "expert_counts", crec):
+    with mock.patch.object(ffn, "fused_route_pack", rec):
         runtime.reset_launch_counts()
         reqs, wall = serve(engine, prompts, 16)
         before = dict(runtime.LAUNCHES)
@@ -1011,11 +1117,18 @@ def run_path(engine, prompts, prompts_eplb, kernels,
                   for i in moe_layers(cfg)),
               "EPLB installed redundant replicas in every MoE layer")
         reqs2, wall2 = serve(engine, prompts_eplb, 16)
-        launches = dict(runtime.LAUNCHES)
+        launches, fused = dict(runtime.LAUNCHES), dict(runtime.FUSED)
         check(all(launches.get(n, 0) > 0 for n in kernels),
               f"every kernel launched on the path: {launches}")
         check(launches["placement_gmm"] > before.get("placement_gmm", 0),
               "placement_gmm ran after EPLB")
+        # EPLB Collect: in every route-pack launch, never on its own
+        check(launches.get("collect", 0) == 0
+              and fused.get("collect", 0) == launches["route_pack"]
+              == rec.n_calls == PATH_PACKS[cfg.name],
+              f"Collect ran in each of the path's {PATH_PACKS[cfg.name]} "
+              f"route-pack launches and never alone: launches {launches}, "
+              f"fused {fused}, MoE layer calls {rec.n_calls}")
 
         # the output is finite: logits of one prompt through the model
         tok = torch.tensor([engine.tokenizer.encode(prompts[0])],
@@ -1023,9 +1136,8 @@ def run_path(engine, prompts, prompts_eplb, kernels,
         with torch.no_grad():
             logits, _ = engine.model.prefill(engine.params, tok)
         check(bool(torch.isfinite(logits).all()), "finite logits")
-    replay_err = replay_packs(rec, cfg)
-    collect_err = replay_collect(crec)
-    del rec, crec
+    replay_err, collect_err = replay_packs(rec, cfg)
+    del rec
     profile = profile_decode(engine)
     check_decode_repeat(engine)
     everyone = reqs + reqs2
@@ -1033,7 +1145,7 @@ def run_path(engine, prompts, prompts_eplb, kernels,
     stage = before_close(engine, everyone) if before_close else None
     ttft = [r.ttft for r in everyone]
     tpot = [r.tpot for r in everyone]
-    res = dict(launches=launches, launches_before_eplb=before,
+    res = dict(launches=launches, fused=fused, launches_before_eplb=before,
                route_pack_replay_err=replay_err,
                collect_replay_err=collect_err,
                ttft_ms_mean=1e3 * statistics.mean(ttft),
@@ -1230,6 +1342,68 @@ def hold_quant_dispatch(x, what: str) -> float:
                exact(sc, rsc, f"quant_dispatch {what} scales"))
 
 
+def time_quant_dispatch(x, n_sms: int, rivals: bool = False) -> dict:
+    """quant-dispatch on ``x`` [T, d] at one path shape: bit-identical to
+    the plain version, its plan, one device kernel per call, device time
+    and events, the plain version's events and the bound. With
+    ``rivals``, also two other launches of the same function on the same
+    input, each bit-identical to it and called in turn with it (events
+    and device time): the two-pass launch — the plan's scalar path, what
+    it gives an unaligned input: a warp or a block per row, the row read
+    twice with scalar loads — and the launch the plan did not pick
+    between one block a row and a cluster of blocks (``one_block`` where
+    the plan splits the row, ``cluster_2`` where it does not)."""
+    from repro_torch.kernels.quant_dispatch import kernel as qk
+    from repro_torch.kernels.quant_dispatch.ref import quant_dispatch_ref
+
+    T, d = x.shape
+    shape = f"[{T}, {d}] {str(x.dtype)[6:]}"
+    what = f"quant_dispatch {shape}"
+    aligned = x.data_ptr() % 16 == 0
+    p = qk.plan(T, d, n_sms, aligned=aligned)
+    err = hold_quant_dispatch(x, shape)
+    q, sc = qk.quant_dispatch_cuda(x)
+    bnd, by = bound_ms(nbytes(x, q, sc), 0)
+
+    def kernel():
+        return qk.quant_dispatch_cuda(x)
+    r = dict(shape=[T, d], dtype=str(x.dtype), plan=list(p),
+             max_abs_err=err,
+             plain_ms=time_ms(lambda: quant_dispatch_ref(x)),
+             library_ms=None, bound_ms=bnd, bound_by=by)
+    prof = profile_calls(kernel)
+    one_launch(prof, "quant_dispatch", what)
+    dev, ms = prof["device_ms"], time_ms(kernel)
+    line = ""
+    if rivals:
+        others = {"two_pass": qk.plan(T, d, n_sms, aligned=False)}
+        if p.path in ("block", "cluster"):
+            others["one_block" if p.cluster > 1 else "cluster_2"] = \
+                qk.plan(T, d, n_sms, aligned=aligned,
+                        cluster=1 if p.cluster > 1 else 2)
+        q2, s2 = torch.empty_like(q), torch.empty_like(sc)
+        for name, other in others.items():
+            def rival(other=other):
+                qk.launch(x, other, q2, s2)
+            rival()
+            exact(q2, q, f"{what}: the {name} launch, values")
+            exact(s2, sc, f"{what}: the {name} launch, scales")
+            p_dev, o_dev, _, _ = profile_turns(kernel, rival)
+            p_ms, o_ms = time_pair(kernel, rival)
+            r[name] = dict(plan=list(other), ms=o_ms, device_ms=o_dev,
+                           plan_ms=p_ms, plan_device_ms=p_dev)
+            line += (f"; {name} {other.path} x{other.cluster} in turn "
+                     f"{o_ms:.4f} ms, device {o_dev:.4f} ms (the plan's "
+                     f"{p_ms:.4f}, device {p_dev:.4f})")
+    r.update(ms=ms, device_ms=dev, kernels_per_call=prof["per_call"],
+             bound_share=bnd / dev)
+    log(f"  {what} {p.path} (group {p.group}, vec {p.vec}, cluster "
+        f"{p.cluster}, {p.blocks} blocks): {ms:.4f} ms, device {dev:.4f} ms "
+        f"({bnd / dev:.0%} of the bound {bnd:.4f} ms by {by}), plain "
+        f"{r['plain_ms']:.4f} ms" + line)
+    return r
+
+
 def rel_err(y, ref) -> float:
     return float(torch.linalg.norm(y.float() - ref.float())
                  / torch.linalg.norm(ref.float()))
@@ -1376,6 +1550,27 @@ def int8_stage(engine, reqs) -> dict:
         qd_err = max(qd_err, hold_quant_dispatch(
             torch.randn((7, 32), generator=gen, device="cuda").to(dt),
             f"(7, 32) {dt}"))
+        # a row that ends mid-group (warp path), ragged d (scalar), an
+        # input 2 or 4 bytes off a 16-byte boundary (scalar)
+        for T, d in ((5, 1000), (4, 7170)):
+            qd_err = max(qd_err, hold_quant_dispatch(
+                torch.randn((T, d), generator=gen, device="cuda").to(dt),
+                f"({T}, {d}) {dt}"))
+        off = torch.randn((4 * 7168 + 1,), generator=gen,
+                          device="cuda").to(dt)[1:].view(4, 7168)
+        qd_err = max(qd_err, hold_quant_dispatch(off, f"unaligned (4, 7168) "
+                                                      f"{dt}"))
+        # all-zero rows (+0 and -0) on the cluster and block paths, which
+        # store them without the divide
+        for T in (6, 300):
+            z = torch.randn((T, 7168), generator=gen, device="cuda")
+            z[1], z[T - 1] = 0.0, -0.0
+            z[2, ::3] = -0.0
+            z[2, 1::3] = 0.0
+            z[2, 2::3] = 0.0
+            qd_err = max(qd_err, hold_quant_dispatch(z.to(dt), f"zero rows "
+                                                               f"({T}, 7168) "
+                                                               f"{dt}"))
     mm_err, n_sms = lin_err, torch.cuda.get_device_properties(0) \
         .multi_processor_count
     # K-major weights ([N, K] row-major, viewed [K, N]); K not a multiple
@@ -1399,18 +1594,39 @@ def int8_stage(engine, reqs) -> dict:
         log(f"int8: int8_matmul ({M},{K},{N}), weight base +{skew}: "
             f"bit-identical ({p.path} variant)")
     log("int8: quant_dispatch bit-identical at every input of the pipeline, "
-        "a zero row, .5 quotients and (7, 32)")
+        "a zero row, .5 quotients, (7, 32), (5, 1000), (4, 7170), an "
+        "unaligned (4, 7168) and zero rows of +0 and -0 at (6, 7168) and "
+        "(300, 7168)")
 
     # -- times at the path's shapes ----------------------------------------
-    xt = acts["x"][512]
-    xq, xs_ = quant_dispatch_cuda(xt)
-    bnd, by = bound_ms(nbytes(xt, xq, xs_), 0)
-    qd = dict(max_abs_err=qd_err, kv_max_abs_err=kv_err,
-              kv_round_trip_max_abs_err=kv_rt, shape=list(xt.shape),
-              ms=time_ms(lambda: quant_dispatch_cuda(xt)),
-              device_ms=device_ms(lambda: quant_dispatch_cuda(xt)),
-              plain_ms=time_ms(lambda: quant_dispatch_ref(xt)),
-              library_ms=None, library="none", bound_ms=bnd, bound_by=by)
+    # quant-dispatch at every activation width (q latent 1536, d_model
+    # 7168, d_ff 18432) and M, bf16 (as served) and f32 (after
+    # SmoothQuant), other launches of it in turn at M 4, and the MLA
+    # cache rows
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    by_shape = {}
+    for kind in ("cq", "x", "h"):
+        for M in INT8_M:
+            for dt in (torch.bfloat16, torch.float32):
+                xt = acts[kind][M].to(dt).contiguous()
+                r = time_quant_dispatch(xt, n_sms, rivals=M == 4)
+                by_shape[f"[{M}, {xt.shape[1]}] {str(dt)[6:]}"] = r
+                if M == 4:
+                    t = r["two_pass"]
+                    check(t["plan_device_ms"] < t["device_ms"],
+                          f"quant_dispatch [4, {xt.shape[1]}] {dt}: device "
+                          f"{t['plan_device_ms']} ms below the two-pass "
+                          f"launch's {t['device_ms']} ms, in turn")
+    rows = caches[0][1]["ckv"].reshape(-1, caches[0][1]["ckv"].shape[-1])
+    by_shape[f"MLA cache rows {list(rows.shape)} bfloat16"] = \
+        time_quant_dispatch(rows, n_sms)
+    big = by_shape[f"[512, {cfg.d_model}] bfloat16"]
+    qd = dict(big, max_abs_err=max([qd_err] + [r["max_abs_err"] for r in
+                                               by_shape.values()]),
+              kv_max_abs_err=kv_err,
+              kv_round_trip_max_abs_err=kv_rt, library="none",
+              target_device_ms=0.0066,
+              target_met=big["device_ms"] <= 0.0066, by_shape=by_shape)
     qw = qws["wi_gate"]
     K, N = qw.values.shape
     check(qw.values.t().is_contiguous(), "QTensor keeps wi_gate K-major")
@@ -1459,10 +1675,9 @@ def int8_stage(engine, reqs) -> dict:
           f"+ the epilogue's {mm[512]['library_ms']} ms, called in turn")
     mm4 = dict(mm[4], max_abs_err=mm_err, by_m=mm)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    for n, r in (("quant_dispatch", qd),):
-        log(f"  {n}: {r['ms']:.4f} ms, device {r['device_ms']} ms "
-            f"(plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
-            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+    log(f"  quant_dispatch [512, 7168] bf16: device {qd['device_ms']:.4f} "
+        f"ms against the target 0.0066 ms: "
+        f"{'met' if qd['target_met'] else 'missed'}")
     return dict(kernels={"quant_dispatch": qd, "int8_matmul": mm4},
                 launches=launches, output_rel_err=errs, gptq=gptq,
                 pipeline_s=pipeline_s, peak_mem_gib=peak,
@@ -1509,8 +1724,8 @@ def int8_kv_stage(engine, reqs) -> dict:
     qq, qs = Q.quantize_act_tokenwise(q)
     kh, ks = Q.quantize_act_tokenwise(
         k.permute(0, 2, 1, 3).reshape(B, KV, L * hd))
-    err = max(err, hold_quant_dispatch(
-        k.permute(0, 2, 1, 3).reshape(B * KV, L * hd), "k per head"))
+    per_head = k.permute(0, 2, 1, 3).reshape(B * KV, L * hd)
+    err = max(err, hold_quant_dispatch(per_head, "k per head"))
     kq = kh.reshape(B, KV, L, hd).permute(0, 2, 1, 3)
     got = Q.int8_attention_scores(qq, qs, kq, ks)
     want = Q.int8_attention_scores(qq.cpu(), qs.cpu(), kq.cpu(), ks.cpu())
@@ -1519,7 +1734,15 @@ def int8_kv_stage(engine, reqs) -> dict:
         f"bit-identically to the plain version (round-trip max abs err "
         f"{rt:.4g}); launches {launches}; int8_attention_scores "
         f"[{B},{KV},{hd}] x [{B},{L},{KV},{hd}] on the card equal the CPU's")
-    return dict(kernels={"quant_dispatch": dict(max_abs_err=err)},
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = layers[0][1]["k"].reshape(-1, hd)
+    by_shape = {
+        f"GQA cache rows {list(rows.shape)} bfloat16":
+            time_quant_dispatch(rows, n_sms),
+        f"k per head {list(per_head.shape)} bfloat16":
+            time_quant_dispatch(per_head.contiguous(), n_sms)}
+    return dict(kernels={"quant_dispatch": dict(max_abs_err=err,
+                                                by_shape=by_shape)},
                 launches=launches, round_trip_max_abs_err=rt,
                 scores_max_abs_err=sc_err)
 
@@ -1545,8 +1768,8 @@ def deepseek_stages(get_config) -> dict:
 
     t0 = time.monotonic()
     path = run_path(make_engine(cfg, max_batch=max_batch), PROMPTS,
-                    PROMPTS_EPLB, ("route_pack", "gmm", "placement_gmm",
-                                   "collect"), before_close=int8_stage)
+                    PROMPTS_EPLB, ("route_pack", "gmm", "placement_gmm"),
+                    before_close=int8_stage)
     fold_replays(kern, path)
     int8 = path.pop("stage")
     free(f"path: {time.monotonic() - t0:.1f} s (the INT8 stage "
@@ -1560,7 +1783,7 @@ def deepseek_stages(get_config) -> dict:
 
 
 def fold_replays(kern: dict, path: dict) -> None:
-    """The path's replayed route-packs and Collect calls count in the
+    """The path's replayed route-packs and their counts count in the
     kernels' errors."""
     for n in ("route_pack", "collect"):
         kern[n]["max_abs_err"] = max(kern[n]["max_abs_err"],
@@ -1592,7 +1815,7 @@ def llama_stages(get_config) -> dict:
     t0 = time.monotonic()
     path = run_path(engine, LLAMA_PROMPTS, LLAMA_PROMPTS_EPLB,
                     ("route_pack", "gmm", "placement_gmm",
-                     "decode_attention", "collect"),
+                     "decode_attention"),
                     before_close=int8_kv_stage)
     del engine
     fold_replays(kern, path)
@@ -1610,13 +1833,25 @@ def kernel_line(results: dict) -> dict:
     """One entry per kernel: launches per path (and their sum), the
     largest error of any path, and the times and bound of the path named
     in ``TIMED_ON`` (Llama-4 by default; each path's own measurements in
-    full under ``by_path``)."""
+    full under ``by_path``). Collect runs on the paths inside route-pack's
+    launches: its launches are those (``runtime.FUSED``), its own
+    standalone launches on the paths (none) are listed beside them, and
+    its times are the standalone kernel's (``check_collect``), with the
+    fused launch's under ``in_route_pack``."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     kernels = []
     for n in KERNELS:
         meas = {p: k[n] for p, (k, _) in results.items() if n in k}
-        launches = {p: r["launches"].get(n, 0)
-                    for p, (_, r) in results.items()}
+        own = {p: r["launches"].get(n, 0) for p, (_, r) in results.items()}
+        launches = own
+        extra = {}
+        if n == "collect":
+            launches = {p: r.get("fused", {}).get(n, 0)
+                        for p, (_, r) in results.items()}
+            extra = dict(fused_into="route_pack",
+                         standalone_source=f"src/repro_torch/kernels/csrc/"
+                                           f"{n}.cu",
+                         standalone_launches_by_path=own)
         check(sum(launches.values()) > 0, f"{n} launched on a path")
         top = meas[TIMED_ON.get(n, LLAMA)]
         kernels.append(dict(
@@ -1624,7 +1859,7 @@ def kernel_line(results: dict) -> dict:
             launches=sum(launches.values()), launches_by_path=launches,
             **{k: top[k] for k in keys},
             max_abs_err=max(m["max_abs_err"] for m in meas.values()),
-            by_path=meas))
+            **extra, by_path=meas))
     return kernels
 
 

@@ -3,37 +3,30 @@
 // Replaces the TPU kernel src/repro/kernels/collect/kernel.py (collect,
 // body _kernel): counts[e] = #{i : ids[i] == e} for e in [0, E); ids below
 // 0 (padding) and at E or above match no expert and are ignored, as the
-// reference's one-hot compare ignores them. Every MoE layer call of the
-// serving paths runs it on its top-k ids (§4.5 step 1).
+// reference's one-hot compare ignores them.
+//
+// Where it runs: this standalone launch is the counterpart of the
+// reference's collect / expert_counts API, for a caller that has ids but
+// no pack. The serving path's MoE layer does not launch it: route_pack.cu
+// runs the same body (collect.cuh) in one more block of the route-pack
+// launch, on the layer's logical top-k ids (§4.5 step 1).
 //
 // What bounds it on the H100: the launch. N = T * k ids (32 at DeepSeek-V3
 // decode, 4096 for a 512-token prompt at top-8) and E <= 256 counters are
 // a few KB.
 //
-// Design: one block. Its threads zero a shared-memory histogram of E
-// counters, add each id with a shared-memory integer atomic (exact in any
-// order), and write the histogram out once, so no output needs zeroing
-// beforehand and nothing is written outside [0, E). The ids may be int32
-// or int64 (the router's top-k indices), so the caller needs no cast.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Design: one block of collect_block (collect.cuh): a shared-memory
+// histogram with integer atomics, every counter written once.
+#include "collect.cuh"
 
 #define CO_THREADS 1024
-#define CO_MAX_E 12288  // 48 KB of shared counters
 
 template <typename I>
 __global__ void __launch_bounds__(CO_THREADS)
 collect_kernel(const I* __restrict__ ids, int n, int n_experts,
                int* __restrict__ counts) {
   extern __shared__ int hist[];
-  for (int e = threadIdx.x; e < n_experts; e += blockDim.x) hist[e] = 0;
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const I e = ids[i];
-    if (e >= 0 && e < (I)n_experts) atomicAdd(&hist[(int)e], 1);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < n_experts; e += blockDim.x) counts[e] = hist[e];
+  collect_block<I>(ids, n, n_experts, hist, counts);
 }
 
 // id_bytes: 4 (int32 ids) or 8 (int64 ids). Returns a cudaError_t.

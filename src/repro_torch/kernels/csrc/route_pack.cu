@@ -34,13 +34,27 @@
 //    n_dest) and ids outside [0, n_dest).
 //  * Each block reads all N ids: N <= 2048 on the serving path, 8 KB
 //    from L2 a block.
+//  * EPLB Collect in the same launch (optional): given count ids, block
+//    n_dest + 1 histograms them into counts[n_count] with collect.cuh's
+//    body (the one collect.cu launches alone) and writes every counter
+//    once. The MoE layer passes its logical top-k ids, which under an
+//    EPLB placement differ from dest (physical slots): Collect counts
+//    logical experts, as the reference does. The count block runs beside
+//    the destination blocks (the grid fits the card at once), so the
+//    layer's Collect costs no launch of its own; it changes nothing the
+//    other blocks write. The ids' width (none, int32, int64) is a
+//    template argument, so a pack without counts runs the kernel as it
+//    was.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "collect.cuh"
+
 #define RP_THREADS 256
 #define RP_WARPS (RP_THREADS / 32)
 #define RP_WINDOW 256  // slots mapped in shared memory per walk of dest
+#define RP_MAX_COUNT 8192  // count block's shared counters: 32 KB
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -158,7 +172,8 @@ __device__ __forceinline__ void write_slot(const T* __restrict__ x,
   }
 }
 
-template <typename T, bool QUANT, bool VEC>
+// CB: bytes of a count id (4 or 8), or 0 for a pack without counts.
+template <typename T, bool QUANT, bool VEC, int CB>
 __global__ void __launch_bounds__(RP_THREADS)
     route_pack_kernel(const T* __restrict__ x, const int* __restrict__ dest,
                       const int* __restrict__ valid,
@@ -166,11 +181,23 @@ __global__ void __launch_bounds__(RP_THREADS)
                       int n_dest, int capacity, void* __restrict__ buckets,
                       float* __restrict__ scales, int* __restrict__ eids,
                       int* __restrict__ rank,
-                      unsigned char* __restrict__ keep) {
+                      unsigned char* __restrict__ keep,
+                      const void* __restrict__ count_ids, int n_count,
+                      int* __restrict__ counts) {
   __shared__ int warp_hits[RP_WARPS];
   __shared__ int src_of[RP_WINDOW];  // slot w0 + i -> assignment, -1 masked
   const int e = blockIdx.x, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
+  if (CB != 0 && e == n_dest + 1) {  // EPLB Collect of the count ids
+    extern __shared__ int hist[];
+    if (CB == 4)
+      collect_block<int32_t>(reinterpret_cast<const int32_t*>(count_ids), N,
+                             n_count, hist, counts);
+    else
+      collect_block<int64_t>(reinterpret_cast<const int64_t*>(count_ids), N,
+                             n_count, hist, counts);
+    return;
+  }
   if (e == n_dest) {  // rows with no destination
     for (int r = tid; r < N; r += RP_THREADS) {
       const int dd = dest[r];
@@ -226,54 +253,77 @@ __global__ void __launch_bounds__(RP_THREADS)
   }
 }
 
-template <typename T, bool QUANT, bool VEC>
-static int launch(const void* x, const int* dest, const int* valid,
-                  const int* eid, int d, int N, int k, int n_dest,
-                  int capacity, void* buckets, float* scales, int* eids,
-                  int* rank, unsigned char* keep, cudaStream_t stream) {
-  route_pack_kernel<T, QUANT, VEC><<<n_dest + 1, RP_THREADS, 0, stream>>>(
-      reinterpret_cast<const T*>(x), dest, valid, eid, d, N, k, n_dest,
-      capacity, buckets, scales, eids, rank, keep);
+struct RpArgs {
+  const void* x;
+  const int *dest, *valid, *eid;
+  int d, N, k, n_dest, capacity;
+  void* buckets;
+  float* scales;
+  int *eids, *rank;
+  unsigned char* keep;
+  const void* count_ids;
+  int n_count;
+  int* counts;
+  cudaStream_t stream;
+};
+
+template <typename T, bool QUANT, bool VEC, int CB>
+static int launch(const RpArgs& a) {
+  // one block per destination, one for rows with none, and the count block
+  const int grid = a.n_dest + (CB != 0 ? 2 : 1);
+  const size_t smem = CB != 0 ? (size_t)a.n_count * sizeof(int) : 0;
+  route_pack_kernel<T, QUANT, VEC, CB><<<grid, RP_THREADS, smem, a.stream>>>(
+      reinterpret_cast<const T*>(a.x), a.dest, a.valid, a.eid, a.d, a.N, a.k,
+      a.n_dest, a.capacity, a.buckets, a.scales, a.eids, a.rank, a.keep,
+      a.count_ids, a.n_count, a.counts);
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool QUANT, bool VEC>
+static int launch_cb(const RpArgs& a, int count_bytes) {
+  if (count_bytes == 4) return launch<T, QUANT, VEC, 4>(a);
+  if (count_bytes == 8) return launch<T, QUANT, VEC, 8>(a);
+  return launch<T, QUANT, VEC, 0>(a);
+}
+
 template <typename T>
-static int launch_t(const void* x, const int* dest, const int* valid,
-                    const int* eid, int d, int N, int k, int n_dest,
-                    int capacity, int quantize, void* buckets, float* scales,
-                    int* eids, int* rank, unsigned char* keep,
-                    cudaStream_t stream) {
+static int launch_t(const RpArgs& a, int quantize, int count_bytes) {
   // 16-byte payload loads and bucket stores: 8 values a group
-  const bool vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(buckets) % 16 == 0;
-#define RP_ARGS x, dest, valid, eid, d, N, k, n_dest, capacity, buckets, \
-                scales, eids, rank, keep, stream
+  const bool vec = a.d % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.buckets) % 16 == 0;
   if (quantize)
-    return vec ? launch<T, true, true>(RP_ARGS)
-               : launch<T, true, false>(RP_ARGS);
-  return vec ? launch<T, false, true>(RP_ARGS)
-             : launch<T, false, false>(RP_ARGS);
-#undef RP_ARGS
+    return vec ? launch_cb<T, true, true>(a, count_bytes)
+               : launch_cb<T, true, false>(a, count_bytes);
+  return vec ? launch_cb<T, false, true>(a, count_bytes)
+             : launch_cb<T, false, false>(a, count_bytes);
 }
 
 // dtype: 0 = float32 payload, 1 = bfloat16 payload. valid and eid may be
-// null (all valid; no expert-id payload). Every output is written by the
-// kernel: the caller allocates them uninitialised. Returns a cudaError_t.
+// null (all valid; no expert-id payload). count_bytes 0: no counts;
+// else count_ids holds N ids of count_bytes (4: int32, 8: int64) each
+// (null only when N is 0), and counts receives their histogram over
+// [0, n_count). Every output is
+// written by the kernel: the caller allocates them uninitialised. Returns
+// a cudaError_t.
 extern "C" int route_pack_launch(const void* x, int dtype, const int* dest,
                                  const int* valid, const int* eid, int d,
                                  int N, int k, int n_dest, int capacity,
                                  int quantize, void* buckets, float* scales,
                                  int* eids, int* rank, unsigned char* keep,
+                                 const void* count_ids, int count_bytes,
+                                 int n_count, int* counts,
                                  cudaStream_t stream) {
   if (n_dest <= 0 || k <= 0 || capacity <= 0 || d < 0 || N < 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1)
-    return launch_t<__nv_bfloat16>(x, dest, valid, eid, d, N, k, n_dest,
-                                   capacity, quantize, buckets, scales, eids,
-                                   rank, keep, stream);
-  if (dtype == 0)
-    return launch_t<float>(x, dest, valid, eid, d, N, k, n_dest, capacity,
-                           quantize, buckets, scales, eids, rank, keep,
-                           stream);
+  if (count_bytes != 0 &&
+      ((count_bytes != 4 && count_bytes != 8) || counts == nullptr ||
+       n_count <= 0 || n_count > RP_MAX_COUNT))
+    return (int)cudaErrorInvalidValue;
+  const RpArgs a{x,       dest,   valid, eid,  d,    N,
+                 k,       n_dest, capacity, buckets, scales, eids,
+                 rank,    keep,   count_ids, n_count, counts, stream};
+  if (dtype == 1) return launch_t<__nv_bfloat16>(a, quantize, count_bytes);
+  if (dtype == 0) return launch_t<float>(a, quantize, count_bytes);
   return (int)cudaErrorInvalidValue;
 }

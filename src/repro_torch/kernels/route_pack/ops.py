@@ -42,20 +42,23 @@ def placement_route_local(dest, positions, replica_slots, n_replicas,
 
 
 def fused_route_pack(x, dest, valid=None, eid=None, *, k: int = 1,
-                     n_dest: int, capacity: int,
-                     quantize: bool = False) -> RoutePack:
-    """Fused capacity rank + INT8 quantize + bucket scatter.
+                     n_dest: int, capacity: int, quantize: bool = False,
+                     count_ids=None, n_count: int = 0) -> RoutePack:
+    """Fused capacity rank + INT8 quantize + bucket scatter, and
+    optionally EPLB Collect in the same launch.
 
     x [T, d] payload rows (assignment ``r`` carries row ``r // k``);
     dest [N = T*k] int32 destinations in [0, n_dest) (``n_dest`` marks
     a padding row); valid [N] optional mask — masked rows still take a
     rank slot; eid [N] optional int32 side payload bucketed with fill
     −1. Under EPLB placement ``dest`` carries physical slot ids and
-    ``n_dest`` is the physical slot count."""
+    ``n_dest`` is the physical slot count. count_ids [N] int32/int64
+    (optional): ids whose histogram over ``[0, n_count)`` the pack
+    returns as ``counts`` — the MoE layer's logical top-k ids."""
+    kw = dict(k=k, n_dest=n_dest, capacity=capacity, quantize=quantize,
+              count_ids=count_ids, n_count=n_count)
     if x.device.type == "cuda":
-        return route_pack_cuda(x, dest, valid, eid, k=k, n_dest=n_dest,
-                               capacity=capacity, quantize=quantize)
+        return route_pack_cuda(x, dest, valid, eid, **kw)
     if x.device.type == "cpu":
-        return route_pack_ref(x, dest, valid, eid, k=k, n_dest=n_dest,
-                              capacity=capacity, quantize=quantize)
+        return route_pack_ref(x, dest, valid, eid, **kw)
     raise ValueError(f"route_pack: no kernel for device {x.device}")

@@ -6,13 +6,16 @@ assignment within its destination by a cumulative sum over a one-hot,
 scatter of the kept rows. Rows whose destination equals ``n_dest`` are
 padding: they take no rank (rank 0) and are never kept, exactly like
 the padded rows of the TPU kernel. Masked rows (``valid == 0``) still
-take a rank slot of their destination.
+take a rank slot of their destination. Given ``count_ids``, the pack also
+carries their EPLB Collect histogram, computed by Collect's plain version.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+
+from repro_torch.kernels.collect.ref import collect_ref
 
 
 class RoutePack(NamedTuple):
@@ -21,6 +24,7 @@ class RoutePack(NamedTuple):
     eids: Optional[torch.Tensor]      # [n_dest, C] int32 (fill -1)
     rank: torch.Tensor                # [N] int32 FIFO rank within dest
     keep: torch.Tensor                # [N] bool  (rank < capacity & valid)
+    counts: Optional[torch.Tensor] = None  # [n_count] int32, if asked for
 
 
 def _capacity_rank(dest, n_dest):
@@ -52,10 +56,12 @@ def _scatter(values, dest, rank, keep, n_dest, capacity, fill=0):
 
 
 def route_pack_ref(x, dest, valid=None, eid=None, *, k: int = 1,
-                   n_dest: int, capacity: int,
-                   quantize: bool = False) -> RoutePack:
+                   n_dest: int, capacity: int, quantize: bool = False,
+                   count_ids=None, n_count: int = 0) -> RoutePack:
     """x [T, d]; dest [N=T*k] int32 in [0, n_dest] (n_dest = padding);
-    valid [N] bool (None ⇒ all valid); eid [N] int32 payload or None."""
+    valid [N] bool (None ⇒ all valid); eid [N] int32 payload or None;
+    count_ids [N] int32/int64 ids to count over ``[0, n_count)`` (ids
+    outside count nowhere), or None."""
     N = dest.shape[0]
     dest = dest.to(torch.int32)
     if valid is None:
@@ -75,4 +81,6 @@ def route_pack_ref(x, dest, valid=None, eid=None, *, k: int = 1,
     if eid is not None:
         eids = _scatter(eid.to(torch.int32), dest, rank, keep, n_dest,
                         capacity, fill=-1)
-    return RoutePack(buckets, scales, eids, rank.to(torch.int32), keep)
+    counts = None if count_ids is None else collect_ref(count_ids, n_count)
+    return RoutePack(buckets, scales, eids, rank.to(torch.int32), keep,
+                     counts)

@@ -4,13 +4,16 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds), loaded with :mod:`ctypes`. All sources of a build
 compile in parallel, one ``nvcc`` each. Libraries are named by a hash of
-their source and flags, so an unchanged source is never rebuilt within
-a build directory, and a failed build or load raises — there is no
-fallback to the plain version.
+their source, the shared headers (``csrc/*.cuh``) and the flags, so an
+unchanged build is never redone within a build directory, and a failed
+build or load raises — there is no fallback to the plain version.
 
 Every kernel wrapper (``kernels/*/kernel.py``) adds one to
 ``LAUNCHES[name]`` where it launches its kernel, and nowhere else, so a
-run can show which kernels its path went through.
+run can show which kernels its path went through. A launch that also
+runs another kernel's body (route-pack's EPLB Collect block) counts once
+in ``LAUNCHES``, under its own name, and once in ``FUSED`` under the
+body's.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel name → launches since the last reset
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
+#: kernel body → launches of another kernel that ran it since the reset
+FUSED: "collections.Counter[str]" = collections.Counter()
 #: source name → nvcc's output of the build that produced the library
 BUILD_LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -40,10 +45,15 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+    FUSED.clear()
 
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+def count_fused(body: str) -> None:
+    FUSED[body] += 1
 
 
 def _nvcc() -> str:
@@ -57,9 +67,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str, build_dir: Path) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir / f"lib{name}-{tag[:12]}.so"
+    """The library of ``csrc/<name>.cu``, tagged by a hash of that
+    source, of every shared header (``*.cuh``, by name and content: a
+    source may include any of them) and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def sources() -> list:

@@ -1,11 +1,11 @@
 """FFN blocks: dense SwiGLU MLP and Mixture-of-Experts.
 
 The MoE layer runs the pull-based gather strategy of the reference on
-one device (experts replicated): route in f32, count the routed ids
-per expert through the EPLB Collect kernel, pack capacity buckets
-through the fused route-pack kernel, run the grouped expert FFN kernel
-over the buckets, then combine with the routing weights in f32 and add
-the shared expert. Decode, chunked prefill and prefill all take it, as
+one device (experts replicated): route in f32, pack capacity buckets
+through the fused route-pack kernel, which counts the routed logical ids
+per expert (EPLB Collect) in the same launch, run the grouped expert FFN
+kernel over the buckets, then combine with the routing weights in f32
+and add the shared expert. Decode, chunked prefill and prefill all take it, as
 they do in the reference whenever the EP degree is 1.
 
 EPLB placement (§4.5): ``moe_apply`` optionally takes a per-layer
@@ -24,7 +24,6 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.collect.ops import expert_counts
 from repro_torch.kernels.gmm.ops import expert_ffn
 from repro_torch.kernels.route_pack.ops import (fused_route_pack,
                                                 placement_route)
@@ -63,10 +62,11 @@ def _route(x_flat: torch.Tensor, router_w: torch.Tensor, top_k: int):
     return idx, w, probs, logits
 
 
-def _aux_stats(probs, idx, n_experts: int, logits):
-    """Load-balance + router-z losses (Switch-style) and the per-expert
-    assignment counts, made by the EPLB Collect kernel (§4.5 step 1)."""
-    counts = expert_counts(idx.reshape(-1), n_experts=n_experts).float()
+def _aux_stats(probs, counts, n_experts: int, logits):
+    """Load-balance + router-z losses (Switch-style) from ``counts``
+    [n_experts] int32, the per-expert assignment counts that route-pack's
+    EPLB Collect block made (§4.5 step 1); returns them as float32."""
+    counts = counts.float()
     f = counts / torch.clamp(counts.sum(), min=1.0)
     p = probs.mean(dim=0)
     lb = n_experts * torch.sum(f * p)
@@ -101,7 +101,6 @@ def _moe_gather_local(x: torch.Tensor, params: Params, cfg: ModelConfig,
         k, E = e.top_k, e.num_experts
         xf = x.reshape(T, d)
         idx, w, probs, logits = _route(xf, params["router"], k)
-        lb, z, counts = _aux_stats(probs, idx, E, logits)
 
         N = T * k
         flat_idx = idx.reshape(N)
@@ -115,10 +114,14 @@ def _moe_gather_local(x: torch.Tensor, params: Params, cfg: ModelConfig,
         if placement is not None:
             rep_slots, n_rep, owner = placement
             dest = placement_route(flat_idx, tok_of, rep_slots, n_rep)
-            n_slots = owner.shape[0]
+            n_slots, logical = owner.shape[0], flat_idx
         else:
             dest, n_slots = flat_idx.to(torch.int32), E
-        pack = fused_route_pack(xf, dest, k=k, n_dest=n_slots, capacity=cap)
+            logical = dest
+        # Collect counts logical experts, whatever slots dest names
+        pack = fused_route_pack(xf, dest, k=k, n_dest=n_slots, capacity=cap,
+                                count_ids=logical, n_count=E)
+        lb, z, counts = _aux_stats(probs, pack.counts, E, logits)
         out_b = expert_ffn(pack.buckets, params["we_gate"], params["we_up"],
                            params["we_down"],
                            phys_owner=owner).to(pack.buckets.dtype)

@@ -204,12 +204,12 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_bad_arguments():
 
 
 # ---------------------------------------------------------------------------
-# the MoE layer's counts: the Collect op under _aux_stats
+# the MoE layer's counts: route-pack's Collect block, fed to _aux_stats
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("config", ["deepseek-v3", "llama4-gqa"])
 @pytest.mark.parametrize("mode", ["decode", "prefill"])
 def test_moe_expert_counts_match_the_reference(config, mode):
-    """The port's ``expert_counts`` aux (now from the Collect op) equals
+    """The port's ``expert_counts`` aux (from the pack's Collect) equals
     the reference's one-hot sum on each smoke model's MoE layer, as
     float32, with the load-balance loss built from it."""
     jcfg, _, params, tcfg, tparams = reference("float32", config=config)
