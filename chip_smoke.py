@@ -42,8 +42,9 @@ DeepSeek-V3 (MLA + top-8 MoE):
    library call, gmm also on one live slot
    and at the largest T of each capacity, each beside its live-slot
    count, its bound and its dense-walk bound;
-4. serve full-width DeepSeek-V3 cut to 4 layers (3 dense + 1 MoE, random
-   bf16 weights made on the card from a seed) through the port's
+4. serve full-width DeepSeek-V3 cut to 4 layers (3 dense + 1 MoE, and
+   its MTP head; random bf16 weights made on the card from a seed)
+   through the port's
    ``FlowServeEngine`` (2 DP groups × 4 slots): 4 prompts × 16 greedy
    tokens, then a skewed EPLB pass, then 4 more prompts; every kernel's
    launch count over this stage must be above 0 (route-pack, gmm,
@@ -87,20 +88,46 @@ DeepSeek-V3 (MLA + top-8 MoE):
    in turn with ``torch._int_mm`` + the same epilogue on the same K-major
    weight where that takes the shape (M > 16): the kernel must be faster
    at M 512);
-6. check the output by the repository's own means: every request
+6. MTP speculative decoding (§4.6) on that engine's weights, with its
+   MTP head (a [14336, 7168] projection and one MLA + dense-MLP block,
+   0.69 B parameters): a ``FlowServeEngine`` with ``mtp_k`` 1, then 2,
+   serves the plain path's prompts with the same EPLB pass, and every
+   request's tokens must equal the plain engine's; every iteration of
+   every DP group must launch route-pack (with Collect's count block),
+   and gmm before EPLB or placement_gmm after it, ``k + 1`` times per MoE
+   layer and nothing else, call ``_logits`` ``2k + 1`` times and never in
+   the draft-cache fill pass; 4 requests at temperature 0.7 (the
+   residual and bonus draws); the second wave again with an oracle head
+   (its logits peaked at the token the plain engine emitted next: every
+   draft accepted, as a well-trained head's would be) and once more with
+   one of its drafts per request wrong (a rejection mid-block, junk left
+   in both caches), the tokens unchanged each time; one rolled-back
+   iteration (``inject_fault``)
+   at a full batch of greedy and sampled slots must give the fault-free
+   iteration's blocks and accepted counts; then the acceptance rate,
+   tokens per iteration, TPOT per emitted token (host clock; and at the
+   oracle's full acceptance), one DP
+   group's device time per iteration split into draft chain, verify
+   chain and fill pass beside the plain ``decode_sample`` from the same
+   state (``torch.profiler``), and a decode profile of the engine, each
+   printed beside the plain path's;
+7. check the output by the repository's own means: every request
    finished with its tokens, the logits are finite, and on the smoke
    DeepSeek-V3 (float32) the engine on the card gives the same greedy
    tokens as the engine on the CPU with the plain versions, before and
-   after EPLB;
+   after EPLB, and with its MTP head at ``mtp_k`` 2 the same tokens and,
+   iteration by iteration, the CPU's blocks and accepted counts (with a
+   wave under the oracle head, so full and partial blocks are among
+   them);
 
 Llama-4 Maverick (GQA + top-1 MoE with a shared expert), after the
 DeepSeek-V3 engine is freed:
 
-7. make full-width Llama-4 cut to 2 layers (one dense GQA+MLP layer, one
+8. make full-width Llama-4 cut to 2 layers (one dense GQA+MLP layer, one
    GQA+MoE layer; random bf16 weights made on the card from a seed) in
    a ``FlowServeEngine`` (2 DP groups x 4 slots, ``max_len`` 1024,
    512-token prefill chunks);
-8. hold the kernels against their plain versions at Llama-4's shapes:
+9. hold the kernels against their plain versions at Llama-4's shapes:
    the MoE kernels and Collect as in stage 3, at top-1 of 128 experts
    and 130 slots, on the engine's own MoE weights, at every capacity
    the path's packs have (4 at decode, 5 for a 512-token chunk, 8 for
@@ -120,24 +147,24 @@ DeepSeek-V3 engine is freed:
    needs; one call must be one launch under the profiler, no slower
    than SDPA at L 1024, 8192 and 32768, and at L 32768 within 2x the
    bound on the device;
-9. serve 4 prompts x 16 greedy tokens (one of 825 bytes, prefilled in
+10. serve 4 prompts x 16 greedy tokens (one of 825 bytes, prefilled in
    two 512-token chunks), a skewed EPLB pass on the MoE layer, 4 more
    prompts; every kernel of the path launches, Collect inside each of
    the 70 route-packs and never alone, the path's first pack of each
    shape is replayed exactly with its counts, the logits are
    finite; profile decode steps and repeat a decode step as for
    DeepSeek-V3;
-10. the INT8 KV cache on that engine, launch counts set to 0 just
+11. the INT8 KV cache on that engine, launch counts set to 0 just
     before and read just after: every layer's k/v of both DP groups
     quantized per (position, head) through quant-dispatch, bit-identical
     to the plain version; INT8 attention scores at the path's shape (one
     query row per KV head, [4, 8, 128] against [4, 1024, 8, 128]) equal
     on the card and the CPU; quant-dispatch timed on the cache rows
     [32768, 128] and on each head's whole cache as a row [32, 131072];
-11. the smoke Llama-4 with G = 5 (float32): the engine on the card gives
+12. the smoke Llama-4 with G = 5 (float32): the engine on the card gives
     the CPU's greedy tokens, before and after EPLB;
 
-12. print the card's name and power limit, one JSON line with every
+13. print the card's name and power limit, one JSON line with every
     kernel's launches per path, error, times and bound (Collect's
     launches are the route-pack launches that ran its body), then the
     final ``{"ok": true, ...}`` line.
@@ -232,13 +259,16 @@ def profile_calls(fn, reps: int = 20, warm: int = 3, tries: int = 3) -> dict:
     its launch cost. The profiler drops a single event now and then, so
     each kernel counts as its mean time times its launches per call (its
     count over ``reps``, rounded); more rarely it records nothing in a
-    window, which is then profiled again, up to ``tries`` times. After
-    that every figure is None: "not measured", never 0."""
+    window, or drops most of one kernel's events (seen in fewer than
+    half the calls), and the window is then profiled again, up to
+    ``tries`` times. After that the last window that recorded anything
+    is returned, or every figure is None: "not measured", never 0."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
+    got = dict(device_ms=None, per_call=None, names=[])
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -249,10 +279,12 @@ def profile_calls(fn, reps: int = 20, warm: int = 3, tries: int = 3) -> dict:
         total = sum(e.self_device_time_total / e.count
                     * max(1, round(e.count / reps)) for e in ev)
         if total > 0:
-            return dict(device_ms=total / 1e3,
-                        per_call=round(sum(e.count for e in ev) / reps, 2),
-                        names=sorted(e.key for e in ev))
-    return dict(device_ms=None, per_call=None, names=[])
+            got = dict(device_ms=total / 1e3,
+                       per_call=round(sum(e.count for e in ev) / reps, 2),
+                       names=sorted(e.key for e in ev))
+            if all(2 * e.count >= reps for e in ev):
+                return got
+    return got
 
 
 def device_ms(fn, reps: int = 20, warm: int = 3):
@@ -393,7 +425,7 @@ def path_token_counts(prompts, max_batch: int, max_len: int = 256,
 
 
 # ---------------------------------------------------------------------------
-# stages 3 and 8: kernels against their plain versions
+# stages 3 and 9: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def bmm_chain(xb, g, u, dn):
     """The grouped SwiGLU FFN as PyTorch batched products (the library
@@ -793,7 +825,7 @@ def check_collect(counts, k: int, E: int, gen) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# stage 8: decode attention against its plain version
+# stage 9: decode attention against its plain version
 # ---------------------------------------------------------------------------
 def attention_err(got, want) -> tuple:
     """(max abs err, scaled err) of decode attention's output [B, H, hd]
@@ -972,10 +1004,10 @@ def check_decode_attention(cfg, max_batch: int, max_len: int) -> dict:
 # ---------------------------------------------------------------------------
 # stage 4: the main path at full width
 # ---------------------------------------------------------------------------
-def serve(engine, prompts, n_new: int):
+def serve(engine, prompts, n_new: int, **kw):
     from repro_torch.serving.request import Request
 
-    reqs = [Request(prompt=p, max_new_tokens=n_new, ignore_eos=True)
+    reqs = [Request(prompt=p, max_new_tokens=n_new, ignore_eos=True, **kw)
             for p in prompts]
     for r in reqs:
         engine.submit(r)
@@ -1159,6 +1191,7 @@ def run_path(engine, prompts, prompts_eplb, kernels,
                serve_s=[wall, wall2],
                peak_mem_gib=peak,
                decode_profile=profile, stage=stage,
+               tokens={r.prompt: list(r.output_tokens) for r in everyone},
                text=engine.tokenizer.decode(reqs[0].output_tokens))
     engine.close()
     log(f"path: {len(everyone)} requests x 16 tokens served in {wall:.2f} "
@@ -1264,12 +1297,385 @@ def profile_decode(engine, steps: int = 4) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# stages 6 and 11: the card against the CPU on a small input
+# stage 6: MTP speculative decoding (§4.6) on the served DeepSeek-V3
+# ---------------------------------------------------------------------------
+class MTPRecorder:
+    """Stands in for a DP group's ``decode_sample_mtp`` and checks each
+    iteration as it runs: route-pack (with Collect's count block), and
+    gmm before EPLB or placement_gmm after it, launch ``k + 1`` times per
+    MoE layer, Collect never alone, ``_logits`` ``2k + 1`` times and
+    never in the draft-cache fill pass. Keeps every iteration's block
+    and accepted counts and which slots were busy."""
+
+    def __init__(self, dp, logits_calls: dict, n_moe: int):
+        self.dp, self.real = dp, dp.backend.decode_sample_mtp
+        self.logits_calls, self.n_moe = logits_calls, n_moe
+        self.iters = []
+        dp.backend.decode_sample_mtp = self
+
+    def __call__(self, *a, **kw):
+        from repro_torch.kernels import runtime
+
+        be, k = self.dp.backend, self.dp.mtp_k
+        busy = [not s.free for s in self.dp.slots]
+        before = (dict(runtime.LAUNCHES), dict(runtime.FUSED),
+                  dict(self.logits_calls))
+        out = self.real(*a, **kw)
+        after = (runtime.LAUNCHES, runtime.FUSED, self.logits_calls)
+        d = [{n: c.get(n, 0) - b.get(n, 0) for n in c}
+             for b, c in zip(before, after)]
+        moe = (k + 1) * self.n_moe
+        ffn = "gmm" if be._placement is None else "placement_gmm"
+        check(d[0].get("route_pack", 0) == d[0].get(ffn, 0) == moe
+              and d[0].get("collect", 0) == 0
+              and d[1].get("collect", 0) == moe
+              and sum(d[0].values()) == 2 * moe,
+              f"MTP k={k} iteration: route-pack (with Collect) and {ffn} "
+              f"{moe} times each, nothing else: launches {d[0]}, fused "
+              f"{d[1]}")
+        check(d[2].get("all", 0) == 2 * k + 1 and d[2].get("fill", 0) == 0,
+              f"MTP k={k} iteration: _logits {2 * k + 1} times, none in "
+              f"the fill pass: {d[2]}")
+        self.iters.append(dict(block=out[0].cpu(), n_acc=out[1].cpu(),
+                               busy=torch.tensor(busy)))
+        return out
+
+    def restore(self) -> None:
+        self.dp.backend.decode_sample_mtp = self.real
+
+
+def mtp_counters(engine, n_moe: int) -> tuple:
+    """Count ``_logits`` calls on the engine's model (and those made in
+    a backend's fill pass) and install an :class:`MTPRecorder` on each
+    DP group. Returns the counts, the recorders and a function that
+    takes all of it off again."""
+    calls = {"all": 0, "fill": 0, "in_fill": False}
+    model = engine.model
+    logits = model._logits
+
+    def counted(*a, **kw):
+        calls["all"] += 1
+        calls["fill"] += calls["in_fill"]
+        return logits(*a, **kw)
+    model._logits = counted
+    for dp in engine.dps:
+        fill = dp.backend._mtp_fill
+
+        def flagged(*a, _fill=fill, **kw):
+            calls["in_fill"] = True
+            try:
+                return _fill(*a, **kw)
+            finally:
+                calls["in_fill"] = False
+        dp.backend._mtp_fill = flagged
+    recs = [MTPRecorder(dp, calls, n_moe) for dp in engine.dps]
+
+    def undo():
+        del model._logits
+        for dp, rec in zip(engine.dps, recs):
+            del dp.backend._mtp_fill
+            rec.restore()
+    return calls, recs, undo
+
+
+def acceptance(iters) -> dict:
+    """Acceptance over the busy slots of recorded iterations."""
+    n = torch.cat([it["n_acc"][it["busy"]] for it in iters])
+    k = iters[0]["block"].shape[1] - 1
+    return dict(iterations=len(iters), slot_iterations=int(n.numel()),
+                acceptance=float(n.sum()) / max(k * n.numel(), 1),
+                tokens_per_iteration=float((n + 1).float().mean()),
+                full_blocks=int((n == k).sum()),
+                rejected_blocks=int((n < k).sum()))
+
+
+def mtp_split(engine) -> dict:
+    """Device time of one DP group's MTP iteration at a full batch, split
+    into the draft chain, the verify chain and the fill pass, beside the
+    whole iteration and the plain one-token ``decode_sample`` from the
+    same state (``profile_calls``: each phase called alone on copies of
+    the group's caches)."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving.backend import TorchBackend
+    from repro_torch.serving.request import Request
+
+    dp = engine.dps[0]
+    be = dp.backend
+    for i in range(sum(d.max_batch for d in engine.dps)):
+        engine.submit(Request(prompt=f"split prompt {i}", max_new_tokens=24,
+                              ignore_eos=True))
+    for _ in range(3):
+        engine.step()
+    check(dp.active == dp.max_batch, "every slot decoding while split")
+    tokens, positions, temps, _ = dp._gather_step_inputs()
+    cache = tree_map(torch.clone, dp.cache)
+    mtp = tree_map(torch.clone, dp.mtp_cache)
+    toks, pos = be._ints(tokens), be._ints(positions)
+    t = torch.as_tensor(temps, device=be.device)
+    with torch.no_grad():
+        drafts, _ = be._mtp_draft(mtp, toks, pos, t, 0, False)
+        _, hiddens = be._mtp_verify(cache, toks, pos, drafts)
+        phases = {
+            "draft": lambda: be._mtp_draft(mtp, toks, pos, t, 0, False),
+            "verify": lambda: be._mtp_verify(cache, toks, pos, drafts),
+            "fill": lambda: be._mtp_fill(mtp, hiddens, drafts, pos),
+            "iteration": lambda: TorchBackend.decode_sample_mtp(
+                be, cache, mtp, tokens, positions, temps, 0),
+            "plain_decode_sample": lambda: TorchBackend.decode_sample(
+                be, cache, tokens, positions, temps, 0)}
+        res = {f"{n}_ms": profile_calls(fn, reps=5, warm=1)["device_ms"]
+               for n, fn in phases.items()}
+    engine.run_until_done()
+    return res
+
+
+def mtp_rollback(engine, rec: MTPRecorder) -> dict:
+    """One ``inject_fault=True`` iteration of DP group 0 at a full batch,
+    half the slots greedy and half at temperature 0.7: the faulted run
+    and its replay each give the blocks and accepted counts of the
+    fault-free iteration from the same state (``donate=False`` keeps
+    it)."""
+    from repro_torch.serving.request import Request
+
+    dp = engine.dps[0]
+    for i in range(sum(d.max_batch for d in engine.dps)):
+        engine.submit(Request(prompt=f"rollback prompt {i}",
+                              max_new_tokens=16, ignore_eos=True,
+                              temperature=0.7 * ((i // 2) % 2)))
+    for _ in range(3):
+        engine.step()
+    check(dp.active == dp.max_batch, "every slot decoding at the rollback")
+    tokens, positions, temps, _ = dp._gather_step_inputs()
+    check(bool((temps > 0).any() and (temps == 0).any()),
+          "greedy and sampled slots at the rollback")
+    n = len(rec.iters)
+    dp.backend.decode_sample_mtp(dp.cache, dp.mtp_cache, tokens, positions,
+                                 temps, dp.steps, donate=False)
+    dp.decode_step_all(inject_fault=True)
+    want, *runs = rec.iters[n:]
+    check(len(runs) == 2 and all(
+        torch.equal(r["block"], want["block"])
+        and torch.equal(r["n_acc"], want["n_acc"]) for r in runs),
+        "MTP rollback: the faulted iteration and its replay give the "
+        "fault-free blocks and accepted counts")
+    engine.run_until_done()
+    return dict(block=want["block"].tolist(), n_acc=want["n_acc"].tolist())
+
+
+class OracleHead:
+    """Stands in for a DP group's model: the MTP head's logits get a
+    peak at the token the plain engine emitted at the next position of
+    each slot's request, so drafts are accepted as a well-trained head's
+    would be; ``wrong`` names output indices whose draft is made wrong
+    (a rejection in the middle of a block, leaving junk in both caches).
+    The table of targets lives on the card and changes only when a
+    slot's request does, so the head adds no host sync."""
+
+    PEAK = 1e4
+
+    def __init__(self, model, dp, plain: dict, wrong=()):
+        self.model, self.dp, self.plain, self.wrong = model, dp, plain, wrong
+        self.table = torch.zeros((dp.max_batch, dp.max_len),
+                                 dtype=torch.long, device=dp.backend.device)
+        self.owner = [None] * dp.max_batch
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def mtp_step(self, params, idx, hidden, tokens, positions, cache=None):
+        for b, s in enumerate(self.dp.slots):
+            if s.req is not None and s.req is not self.owner[b]:
+                row = [0] * self.dp.max_len
+                for i, t in enumerate(self.plain[s.req.prompt]):
+                    if s.req.prompt_len + i < self.dp.max_len:
+                        row[s.req.prompt_len + i] = (
+                            t + 1 if i in self.wrong else t)
+                self.table[b] = torch.tensor(row, device=self.table.device)
+                self.owner[b] = s.req
+        logits, h, cache = self.model.mtp_step(params, idx, hidden, tokens,
+                                               positions, cache)
+        rows = torch.arange(self.table.shape[0], device=self.table.device)
+        tgt = self.table[rows, torch.clamp(positions.long() + 1,
+                                           max=self.table.shape[1] - 1)]
+        logits = logits.index_put((rows, tgt), torch.full_like(
+            tgt, self.PEAK, dtype=logits.dtype), accumulate=True)
+        return logits, h, cache
+
+
+def oracle_wave(engine, plain: dict, prompts, n_new: int,
+                wrong=()) -> tuple:
+    """Serve ``prompts`` with every DP group's head replaced by an
+    :class:`OracleHead`: the tokens must still equal the plain engine's.
+    Returns the requests and the host-clock wall time."""
+    models = [dp.backend.model for dp in engine.dps]
+    for dp in engine.dps:
+        dp.backend.model = OracleHead(dp.backend.model, dp, plain, wrong)
+    try:
+        reqs, wall = serve(engine, prompts, n_new)
+    finally:
+        for dp, m in zip(engine.dps, models):
+            dp.backend.model = m
+    differ = [r.prompt for r in reqs if r.output_tokens != plain[r.prompt]]
+    check(not differ, f"mtp_k={engine.dps[0].mtp_k}, oracle head (wrong "
+                      f"drafts at output indices {sorted(wrong)}): tokens "
+                      f"equal the plain engine's; differ: {differ}")
+    return reqs, wall
+
+
+def mtp_path(cfg, params, k: int, plain: dict, placement) -> dict:
+    """Serve the plain path's greedy prompts with ``mtp_k=k`` on the
+    plain engine's weights, with the same EPLB pass: every request's
+    tokens equal the plain engine's, with the random head and, before
+    EPLB and after it, with an oracle head. Then 4 requests at
+    temperature 0.7 and one rolled-back iteration, all with the launch
+    counts set to 0 just before and read just after. With the recorders
+    taken off (each syncs the host once per iteration): the greedy
+    waves again, for TPOT, an oracle wave, the device split and a decode
+    profile."""
+    import numpy as np
+
+    from repro_torch.kernels import runtime
+    from repro_torch.serving.flowserve import FlowServeEngine
+
+    engine = FlowServeEngine(cfg, params=params, device="cuda",
+                             n_dp_groups=2, seed=0, max_batch=4, mtp_k=k)
+    calls, recs, undo = mtp_counters(engine, len(moe_layers(cfg)))
+
+    def since(marks):
+        return [it for rec, n in zip(recs, marks) for it in rec.iters[n:]]
+
+    def equal_plain(reqs, what):
+        differ = [(r.prompt, next(i for i, (a, b) in enumerate(
+            zip(r.output_tokens, plain[r.prompt])) if a != b),
+            r.output_tokens, plain[r.prompt]) for r in reqs
+            if r.output_tokens != plain[r.prompt]]
+        check(not differ, f"MTP k={k}, {what}: every request gives the "
+                          f"plain engine's tokens; differ (prompt, first "
+                          f"index, MTP, plain): {differ}")
+
+    runtime.reset_launch_counts()
+    reqs, wall = serve(engine, PROMPTS, 16)
+    greedy = [it for rec in recs for it in rec.iters]
+    # full and partial blocks on gmm (no placement yet)
+    marks = [len(rec.iters) for rec in recs]
+    oracle_wave(engine, plain, PROMPTS, 16, wrong={5})
+    before_eplb = acceptance(since(marks))
+    check(before_eplb["full_blocks"] > 0
+          and before_eplb["rejected_blocks"] >= len(PROMPTS),
+          f"MTP k={k}, oracle head before EPLB: full blocks and the wrong "
+          f"drafts rejected: {before_eplb}")
+    engine.record_expert_counts(skewed_counts(cfg))
+    engine.run_eplb()
+    got = engine.dps[0].backend._placement
+    check(all(np.array_equal(getattr(got, f).cpu(), getattr(placement, f)
+                             .cpu()) for f in ("replica_slots", "n_replicas",
+                                               "phys_owner")),
+          "the MTP engine's EPLB pass installed the plain path's placement")
+    marks = [len(rec.iters) for rec in recs]
+    reqs2, wall2 = serve(engine, PROMPTS_EPLB, 16)
+    greedy += since(marks)
+    equal_plain(reqs + reqs2, "random head")
+    marks = [len(rec.iters) for rec in recs]
+    sampled, wall3 = serve(engine, PROMPTS, 16, temperature=0.7)
+    temp = since(marks)
+    marks = [len(rec.iters) for rec in recs]
+    oracle_wave(engine, plain, PROMPTS_EPLB, 16)
+    full = since(marks)
+    marks = [len(rec.iters) for rec in recs]
+    oracle_wave(engine, plain, PROMPTS_EPLB, 16, wrong={5})
+    rejected = acceptance(since(marks))
+    check(rejected["rejected_blocks"] >= len(PROMPTS_EPLB),
+          f"MTP k={k}, oracle head: the wrong drafts were rejected")
+    rollback = mtp_rollback(engine, recs[0])
+    launches, fused = dict(runtime.LAUNCHES), dict(runtime.FUSED)
+    check(launches.get("collect", 0) == 0 and fused.get("collect", 0)
+          == launches.get("route_pack", 0) > 0,
+          f"MTP k={k}: Collect in every route-pack, never alone: "
+          f"{launches}, {fused}")
+    undo()
+    timed, wall4 = serve(engine, PROMPTS, 16)
+    timed2, wall5 = serve(engine, PROMPTS_EPLB, 16)
+    equal_plain(timed + timed2, "unrecorded")
+    oracle, wall6 = oracle_wave(engine, plain, PROMPTS_EPLB, 16)
+    split = mtp_split(engine)
+    profile = profile_decode(engine)
+    engine.close()
+    everyone = timed + timed2
+    res = dict(k=k, launches=launches, fused=fused,
+               greedy=acceptance(greedy), temperature_0_7=acceptance(temp),
+               tpot_ms_mean=1e3 * statistics.mean(r.tpot for r in everyone),
+               tpot_ms_max=1e3 * max(r.tpot for r in everyone),
+               ttft_ms_mean=1e3 * statistics.mean(r.ttft for r in everyone),
+               # the same prompts served earlier under the recorders
+               tpot_ms_mean_recorded=1e3 * statistics.mean(
+                   r.tpot for r in reqs + reqs2),
+               oracle=acceptance(full), oracle_before_eplb=before_eplb,
+               oracle_with_rejections=rejected,
+               tpot_ms_mean_oracle=1e3 * statistics.mean(
+                   r.tpot for r in oracle),
+               serve_s=[wall, wall2, wall3, wall4, wall5, wall6],
+               logits_calls=calls["all"],
+               rollback=rollback, device_split=split,
+               decode_profile=profile)
+    g = res["greedy"]
+    log(f"MTP k={k}: {len(reqs + reqs2)} greedy requests equal the "
+        f"plain engine's tokens, {len(everyone)} more unrecorded; "
+        f"acceptance {g['acceptance']:.4f}, "
+        f"{g['tokens_per_iteration']:.4f} tokens per iteration over "
+        f"{g['iterations']} DP-group iterations, TPOT per emitted token "
+        f"{res['tpot_ms_mean']:.2f} ms (host clock, unrecorded waves; "
+        f"{res['tpot_ms_mean_recorded']:.2f} ms recorded); at "
+        f"temperature 0.7: "
+        f"acceptance {res['temperature_0_7']['acceptance']:.4f}, "
+        f"{res['temperature_0_7']['full_blocks']} full blocks (bonus "
+        f"token) and {res['temperature_0_7']['rejected_blocks']} with a "
+        f"rejection (residual resample); oracle head: "
+        f"{res['oracle']['tokens_per_iteration']:.4f} tokens per "
+        f"iteration, TPOT per emitted token {res['tpot_ms_mean_oracle']:.2f}"
+        f" ms, lossless with a wrong draft per request too, before EPLB "
+        f"({res['oracle_before_eplb']['full_blocks']} full blocks, "
+        f"{res['oracle_before_eplb']['rejected_blocks']} with a rejection)"
+        f" and after it")
+    log(f"MTP k={k} device ms per DP-group iteration (B 4): draft "
+        f"{split['draft_ms']:.3f}, verify {split['verify_ms']:.3f}, fill "
+        f"{split['fill_ms']:.3f}, whole iteration "
+        f"{split['iteration_ms']:.3f}; plain decode_sample "
+        f"{split['plain_decode_sample_ms']:.3f}; engine step device busy "
+        f"{profile['device_busy_ms']:.3f} ms")
+    return res
+
+
+def mtp_stage(cfg, params, path: dict) -> dict:
+    """MTP at k = 1 and 2 on the served DeepSeek-V3's weights, held to
+    the plain path's tokens."""
+    res = {}
+    for k in (1, 2):
+        res[f"{DEEPSEEK}/mtp-k{k}"] = ({}, mtp_path(
+            cfg, params, k, path["tokens"], path["placement"]))
+        free(f"MTP k={k}")
+    p = path["decode_profile"]["device_busy_ms"]
+    log(f"MTP against the plain path: engine-step device busy "
+        f"{p:.3f} ms plain, " + ", ".join(
+            f"{r['decode_profile']['device_busy_ms']:.3f} ms at k="
+            f"{r['k']}" for _, r in res.values())
+        + f"; TPOT {path['tpot_ms_mean']:.2f} ms plain, " + ", ".join(
+            f"{r['tpot_ms_mean']:.2f} ms at k={r['k']} (oracle head "
+            f"{r['tpot_ms_mean_oracle']:.2f})" for _, r in res.values()))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# stages 7 and 12: the card against the CPU on a small input
 # ---------------------------------------------------------------------------
 def check_small_reference(arch: str, **overrides):
     """The smoke variant of ``arch`` in float32: greedy tokens of the
     engine on the card equal the CPU plain versions', before and after
-    EPLB."""
+    EPLB; where it has an MTP head, also with ``mtp_k=2`` (and an oracle
+    head before EPLB and after it), whose tokens equal the plain
+    engine's and whose every iteration's block and accepted counts are
+    the CPU's."""
+    import numpy as np
+
     from repro_torch.configs import get_config
     from repro_torch.models.common import tree_map
     from repro_torch.models.transformer import Model
@@ -1278,21 +1684,53 @@ def check_small_reference(arch: str, **overrides):
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparison
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_config(arch + "-smoke"), dtype="float32",
-                              mtp_num_layers=0, **overrides)
-    outs = {}
+                              **overrides)
+    outs, blocks = {}, {}
     cpu_params = Model(cfg).init(0, device="cpu")
     for dev in ("cpu", "cuda"):
         params = tree_map(lambda t: t.to(dev), cpu_params)
-        eng = FlowServeEngine(cfg, params, device=dev, n_dp_groups=2,
-                              max_batch=2)
-        first = [r.output_tokens for r in serve_any(eng, PROMPTS[:3])]
-        eng.record_expert_counts(skewed_counts(cfg))
-        eng.run_eplb()
-        second = [r.output_tokens for r in serve_any(eng, PROMPTS[:3])]
-        eng.close()
-        outs[dev] = (first, second)
-    check(outs["cpu"] == outs["cuda"],
+        for k in (0, 2) if cfg.mtp_num_layers else (0,):
+            eng = FlowServeEngine(cfg, params, device=dev, n_dp_groups=2,
+                                  max_batch=2, mtp_k=k)
+            seen = []
+            for d in eng.dps if k else ():
+                real = d.backend.decode_sample_mtp
+
+                def spy(*a, _real=real, _dp=d, **kw):
+                    out = _real(*a, **kw)
+                    busy = [i for i, s in enumerate(_dp.slots) if not s.free]
+                    seen.append((_dp.dp_id, out[0][busy].tolist(),
+                                 out[1][busy].tolist()))
+                    return out
+                d.backend.decode_sample_mtp = spy
+            first = [r.output_tokens for r in serve_any(eng, PROMPTS[:3])]
+            if k:   # drafts accepted, and one rejected, on gmm
+                oracle_wave(eng, dict(zip(PROMPTS, outs[dev, 0][0])),
+                            PROMPTS[:3], 8, wrong={3})
+            eng.record_expert_counts(skewed_counts(cfg))
+            eng.run_eplb()
+            second = [r.output_tokens for r in serve_any(eng, PROMPTS[:3])]
+            if k:   # and on placement_gmm
+                oracle_wave(eng, dict(zip(PROMPTS, outs[dev, 0][1])),
+                            PROMPTS[:3], 8, wrong={3})
+            eng.close()
+            outs[dev, k], blocks[dev, k] = (first, second), seen
+    check(outs["cpu", 0] == outs["cuda", 0],
           "smoke engine: card tokens equal CPU tokens before and after EPLB")
+    if cfg.mtp_num_layers:
+        check(outs["cpu", 2] == outs["cpu", 0] == outs["cuda", 2],
+              "smoke engine, mtp_k=2: tokens equal the plain engine's")
+        check(blocks["cpu", 2] == blocks["cuda", 2] and blocks["cpu", 2],
+              f"smoke engine, mtp_k=2: every iteration's greedy block and "
+              f"accepted counts on the card equal the CPU's "
+              f"({len(blocks['cpu', 2])} iterations)")
+        n_acc = np.array([n for _, _, ns in blocks["cuda", 2] for n in ns])
+        check(n_acc.max() == 2 and n_acc.min() < 2,
+              "smoke engine, mtp_k=2: full and partial blocks accepted")
+        log(f"small reference: mtp_k=2 blocks and accepted counts equal "
+            f"on the card and the CPU over {len(blocks['cpu', 2])} "
+            f"iterations, the oracle head's among them (accepted drafts "
+            f"{int(n_acc.sum())})")
     log(f"small reference: {cfg.name} {overrides} (f32) greedy tokens on "
         f"the card equal the CPU plain versions', before and after EPLB")
 
@@ -1309,7 +1747,7 @@ def serve_any(engine, prompts):
 
 
 # ---------------------------------------------------------------------------
-# stages 5 and 10: the INT8 path of §4.7 on the served engines
+# stages 5 and 11: the INT8 path of §4.7 on the served engines
 # ---------------------------------------------------------------------------
 def int8_token_rows(engine, reqs) -> dict:
     """M → token ids of the INT8 stage: the last token of four served
@@ -1757,9 +2195,9 @@ def free(what: str) -> None:
 
 
 def deepseek_stages(get_config) -> dict:
-    """Stages 3-6 on DeepSeek-V3 cut to 4 layers."""
-    cfg = dataclasses.replace(get_config(DEEPSEEK), num_layers=4,
-                              mtp_num_layers=0)
+    """Stages 3-7 on DeepSeek-V3 cut to 4 layers, with its MTP head."""
+    cfg = dataclasses.replace(get_config(DEEPSEEK), num_layers=4)
+    check(cfg.mtp_num_layers == 1, "DeepSeek-V3 has its MTP head")
     max_batch = 4
     t0 = time.monotonic()
     kern = check_moe_kernels(
@@ -1767,8 +2205,9 @@ def deepseek_stages(get_config) -> dict:
     free(f"kernel checks: {time.monotonic() - t0:.1f} s")
 
     t0 = time.monotonic()
-    path = run_path(make_engine(cfg, max_batch=max_batch), PROMPTS,
-                    PROMPTS_EPLB, ("route_pack", "gmm", "placement_gmm"),
+    engine = make_engine(cfg, max_batch=max_batch)
+    path = run_path(engine, PROMPTS, PROMPTS_EPLB,
+                    ("route_pack", "gmm", "placement_gmm"),
                     before_close=int8_stage)
     fold_replays(kern, path)
     int8 = path.pop("stage")
@@ -1776,10 +2215,17 @@ def deepseek_stages(get_config) -> dict:
          f"{int8['stage_s']:.1f} s of it); sample output {path['text']!r}")
 
     t0 = time.monotonic()
+    mtp = mtp_stage(cfg, engine.params, dict(
+        path, placement=engine.dps[0].backend._placement))
+    path.pop("tokens")
+    del engine
+    free(f"MTP: {time.monotonic() - t0:.1f} s")
+
+    t0 = time.monotonic()
     check_small_reference(DEEPSEEK)
     log(f"small reference: {time.monotonic() - t0:.1f} s")
-    return {DEEPSEEK: (kern, path), DEEPSEEK_INT8: (int8.pop("kernels"),
-                                                    int8)}
+    return {DEEPSEEK: (kern, path), **mtp,
+            DEEPSEEK_INT8: (int8.pop("kernels"), int8)}
 
 
 def fold_replays(kern: dict, path: dict) -> None:
@@ -1791,7 +2237,7 @@ def fold_replays(kern: dict, path: dict) -> None:
 
 
 def llama_stages(get_config) -> dict:
-    """Stages 7-11 on Llama-4 Maverick cut to 2 layers."""
+    """Stages 8-12 on Llama-4 Maverick cut to 2 layers."""
     from repro_torch.configs.base import MOE
 
     cfg = dataclasses.replace(get_config(LLAMA), num_layers=2)
@@ -1820,6 +2266,7 @@ def llama_stages(get_config) -> dict:
     del engine
     fold_replays(kern, path)
     kv = path.pop("stage")
+    path.pop("tokens")
     free(f"path: {time.monotonic() - t0:.1f} s; sample output "
          f"{path['text']!r}")
 

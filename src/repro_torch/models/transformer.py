@@ -13,8 +13,10 @@ Parameters are nested dicts of tensors whose paths and shapes equal the
 JAX package's ``Model.init`` leaves, so ``models/weights.py`` can carry
 weights across one to one. The port runs global GQA (``ATTN``) and MLA
 mixers with MLP or MoE FFNs, decoder-only, with no unrolled tail after
-the superblocks; the MTP head, the encoder, the tail and the other
-mixers (sliding-window, cross-attention, SSM, RG-LRU) wait.
+the superblocks, and the §4.6 MTP draft head (``mtp``: one (mixer, MLP)
+block behind a projection of [norm(hidden); norm(embedding)]); the
+encoder, the tail and the other mixers (sliding-window, cross-attention,
+SSM, RG-LRU) wait.
 """
 from __future__ import annotations
 
@@ -129,6 +131,10 @@ class Model:
         self.prefix_kinds = kinds[:len(cfg.prefix_layers)]
         self.pattern = cfg.layer_pattern
         self.n_sb = cfg.num_superblocks
+        # the MTP head's block: the last pattern mixer with a dense MLP
+        # (the reference puts global attention in place of a
+        # cross-attention mixer, which the check above refuses)
+        self.mtp_kind = (self.pattern[-1][0], MLP)
 
     # ------------------------------------------------------------------
     # parameters
@@ -150,6 +156,14 @@ class Model:
                 f"pos{i}": tree_map(lambda s: s._replace(
                     shape=(self.n_sb,) + s.shape), block_spec(cfg, k, dt))
                 for i, k in enumerate(self.pattern)}
+        if cfg.mtp_num_layers:
+            d = cfg.d_model
+            norm = ParamSpec((d,), torch.float32, "zeros")
+            spec["mtp"] = tuple(
+                {"proj": ParamSpec((2 * d, d), dt, "dense", 2 * d),
+                 "norm_h": norm, "norm_e": norm,
+                 "block": block_spec(cfg, self.mtp_kind, dt)}
+                for _ in range(cfg.mtp_num_layers))
         return spec
 
     def init(self, seed: int = 0, *, device="cuda") -> PyTree:
@@ -187,6 +201,26 @@ class Model:
             cache["blocks"] = {f"pos{i}": zeros(k, (self.n_sb,))
                                for i, k in enumerate(self.pattern)}
         return cache
+
+    def mtp_cache_spec(self, batch: int, max_len: int) -> PyTree:
+        """Shapes of the MTP draft head's batched decode state (§4.6):
+        ``"kv"``, the head block's decode cache (batch-major leaves, as
+        the main cache's prefix layers), and ``"hidden"``, the ``[B, 1,
+        d]`` main-model final hidden carried across decode iterations as
+        the head's conditioning input."""
+        spec = (A.attn_cache_spec if self.mtp_kind[0] == ATTN
+                else A.mla_cache_spec)(self.cfg, batch, max_len)
+        return {"kv": spec, "hidden": (batch, 1, self.cfg.d_model)}
+
+    def init_mtp_cache(self, batch: int, max_len: int, *,
+                       device="cuda") -> PyTree:
+        dev = resolve_device(device)
+        spec = self.mtp_cache_spec(batch, max_len)
+
+        def zeros(shape):
+            return torch.zeros(shape, dtype=self.dtype, device=dev)
+        return {"kv": {n: zeros(s) for n, s in spec["kv"].items()},
+                "hidden": zeros(spec["hidden"])}
 
     # ------------------------------------------------------------------
     # core stack application
@@ -270,8 +304,49 @@ class Model:
         """tokens [B, 1]; positions [B] → (logits [B, V] f32, cache); the
         cache is updated in place. ``placement``: an optional
         :class:`~repro_torch.serving.eplb.PlacementTable` on the device."""
+        logits, _, cache = self.decode_step_hidden(params, cache, tokens,
+                                                   positions, placement)
+        return logits, cache
+
+    def decode_step_hidden(self, params, cache, tokens, positions,
+                           placement=None):
+        """:meth:`decode_step` that also returns the final hidden state
+        ``[B, 1, d]``, the MTP head's conditioning input. ``decode_step``
+        delegates here, so the two give bit-identical logits."""
         x = self._embed(params, tokens)
         x, cache = self._apply_stack(params, x, mode="decode", caches=cache,
                                      positions=positions,
                                      placement=placement)
-        return self._logits(params, x[:, -1]), cache
+        return self._logits(params, x[:, -1]), x[:, -1:], cache
+
+    # ------------------------------------------------------------------
+    # MTP draft head (§4.6): h' = Block(proj([norm(h); norm(e_next)]))
+    # ------------------------------------------------------------------
+    def mtp_hidden(self, params, mtp_index: int, hidden, next_tokens,
+                   positions, mtp_cache=None):
+        """The head without its logits: hidden [B, 1, d] (the main
+        model's final hidden), next_tokens [B, 1] → (new hidden [B, 1,
+        d], cache). With ``mtp_cache`` the block runs in decode mode at
+        ``positions`` [B] and writes the cache in place; without one it
+        runs the prefill mode on the single token and keeps no cache
+        (the reference's train mode). The draft-cache fill pass calls
+        only this: eager PyTorch would run a discarded ``_logits``."""
+        cfg = self.cfg
+        mp = params["mtp"][mtp_index]
+        e = self._embed(params, next_tokens)
+        h = torch.cat([rms_norm(hidden, mp["norm_h"], cfg.norm_eps),
+                       rms_norm(e, mp["norm_e"], cfg.norm_eps)], dim=-1)
+        h = torch.matmul(h, mp["proj"])
+        mode = "prefill" if mtp_cache is None else "decode"
+        h, cache = block_apply(mp["block"], h, cfg=cfg, kind=self.mtp_kind,
+                               mode=mode, cache=mtp_cache,
+                               positions=positions)
+        return h, (None if mtp_cache is None else cache)
+
+    def mtp_step(self, params, mtp_index: int, hidden, next_tokens,
+                 positions, mtp_cache=None):
+        """:meth:`mtp_hidden` and the draft logits: → (logits [B, V] f32,
+        new hidden [B, 1, d], cache)."""
+        h, cache = self.mtp_hidden(params, mtp_index, hidden, next_tokens,
+                                   positions, mtp_cache)
+        return self._logits(params, h[:, -1]), h, cache

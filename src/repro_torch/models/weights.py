@@ -5,13 +5,13 @@ The JAX tree is handed over as numpy arrays (``tree_map(np.asarray,
 params)`` on the JAX side), so this module needs neither JAX nor the JAX
 package. Paths are dotted (``prefix.0.mixer.wq_a``,
 ``blocks.pos0.ffn.we_gate`` stacked ``[n_sb, ...]``, ``embed``,
-``final_norm``, ``lm_head``). A missing or unexpected leaf, or a shape
-or dtype mismatch, raises. MTP leaves are accepted only through the
-explicit ``skip=("mtp",)`` until the MTP head is ported.
+``final_norm``, ``lm_head``, the MTP head's ``mtp.0.proj``,
+``mtp.0.block.mixer.wq_a``). A missing or unexpected leaf, or a shape or
+dtype mismatch, raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from typing import Dict
 
 import numpy as np
 import torch
@@ -19,10 +19,6 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import resolve_device
 from repro_torch.models.transformer import Model
-
-#: top-level subtrees the bridge may be told to skip (not ported yet)
-SKIPPABLE = ("mtp",)
-
 
 def flatten(tree, prefix: str = "") -> Dict[str, object]:
     """Dotted path → leaf for a tree of dicts and tuples/lists."""
@@ -56,19 +52,13 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
-def from_jax_params(tree, cfg: ModelConfig, device="cuda", *,
-                    skip: Iterable[str] = ()) -> Dict:
+def from_jax_params(tree, cfg: ModelConfig, device="cuda") -> Dict:
     """Map the JAX reference's parameter tree (numpy leaves) onto the
     port's parameter tree on ``device``."""
-    skip: Tuple[str, ...] = tuple(skip)
-    bad = [s for s in skip if s not in SKIPPABLE]
-    if bad:
-        raise ValueError(f"cannot skip {bad}; skippable: {SKIPPABLE}")
     dev = resolve_device(device)
     spec = Model(cfg).param_spec()
     want = flatten(spec)
-    got = {p: a for p, a in flatten(tree).items()
-           if p.split(".", 1)[0] not in skip}
+    got = flatten(tree)
     missing = sorted(set(want) - set(got))
     extra = sorted(set(got) - set(want))
     if missing or extra:

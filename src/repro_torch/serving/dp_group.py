@@ -15,11 +15,14 @@ issues the backend's decode+sample step (cache updated in place, kernels
 queued on the device without waiting) and ``decode_complete()`` fetches
 only the ``[B]`` int32 next-token vector — 4 bytes per slot crossing
 device→host per iteration, never a ``[B, V]`` logits plane (guarded by
-tests).
+tests). With MTP speculative decoding (§4.6, a backend with ``mtp_k >
+0``) one iteration is the backend's ``decode_sample_mtp``, and
+``4·B·(k+1) + 4·B`` bytes cross: the token block and the accepted
+counts.
 
-Not yet ported (later slices): prefix-KV seeding from the radix cache
-(the tree here keeps hit statistics only), the pod-pooled KV directory,
-and MTP speculative decoding.
+Not yet ported (a later slice): prefix-KV seeding from the radix cache
+(the tree here keeps hit statistics only) and the pod-pooled KV
+directory.
 """
 from __future__ import annotations
 
@@ -81,6 +84,12 @@ class DPGroup:
 
         self.slots = [Slot() for _ in range(max_batch)]
         self.cache = backend.init_cache(max_batch, max_len)
+        # §4.6 MTP: the backend's draft depth; the group owns the batched
+        # draft-head state beside the main cache (reset per slot at
+        # admission)
+        self.mtp_k = backend.mtp_k
+        self.mtp_cache = (backend.init_mtp_cache(max_batch, max_len)
+                          if self.mtp_k else None)
         self.steps = 0
         self.finished: List[Request] = []
 
@@ -178,6 +187,9 @@ class DPGroup:
         self.allocator.extend(req.req_id,
                               req.prompt_len + req.max_new_tokens)
         self.cache = self.backend.write_slot(self.cache, cache1, slot_id)
+        if self.mtp_k:
+            self.mtp_cache = self.backend.reset_mtp_slot(self.mtp_cache,
+                                                         slot_id)
         first = self._sample(last_logits, req.temperature)
         req.n_emitted += 1
         self._out_q.put((req, int(first)))
@@ -214,27 +226,33 @@ class DPGroup:
                 active.append((i, s.req))
         return tokens, positions, temps, active
 
-    def _apply_sampled(self, toks: np.ndarray,
-                       active: List[Tuple[int, Request]]) -> int:
-        """Host bookkeeping for one completed iteration: ``toks`` is the
-        ``[B]`` int32 next-token vector from ``decode_sample``."""
+    def _apply_sampled_mtp(self, blocks: np.ndarray, n_acc: np.ndarray,
+                           active: List[Tuple[int, Request]]) -> int:
+        """Host bookkeeping for one iteration: slot ``i`` emits
+        ``blocks[i, :n_acc[i] + 1]`` in order (one token without MTP),
+        each through the per-token done checks (EOS, budget, buffer
+        edge): a stop in the middle of a block drops the rest of it and
+        frees the slot, whose device-side junk the next admission
+        resets."""
         produced = 0
         for i, req_at_launch in active:
             s = self.slots[i]
             if s.free or s.req is not req_at_launch:
                 continue        # evicted/replaced between launch+complete
             req = s.req
-            tok = int(toks[i])
-            s.position += 1
-            s.next_token = tok
-            produced += 1
-            req.n_emitted += 1
-            done = (req.n_emitted >= req.max_new_tokens
-                    or (tok == req.eos_token and not req.ignore_eos)
-                    or s.position >= self.max_len - 1)
-            self._out_q.put((req, tok))
-            if done:
-                self._finish(i)
+            for j in range(int(n_acc[i]) + 1):
+                tok = int(blocks[i, j])
+                s.position += 1
+                s.next_token = tok
+                produced += 1
+                req.n_emitted += 1
+                done = (req.n_emitted >= req.max_new_tokens
+                        or (tok == req.eos_token and not req.ignore_eos)
+                        or s.position >= self.max_len - 1)
+                self._out_q.put((req, tok))
+                if done:
+                    self._finish(i)
+                    break
         self.steps += 1
         self.gc_ctl.step()
         return produced
@@ -242,28 +260,48 @@ class DPGroup:
     def decode_launch(self) -> bool:
         """Issue one decode iteration without waiting for its result.
 
-        The backend's ``decode_sample`` queues its kernels on the device
-        and returns a ``[B]`` int32 token tensor still on the device, so
-        the caller can launch other DP groups / do host work while the
-        device computes.
+        The backend's ``decode_sample`` (``decode_sample_mtp`` with MTP)
+        queues its kernels on the device and returns its token tensors
+        still on the device, so the caller can launch other DP groups /
+        do host work while the device computes.
         """
         if self.active == 0 or self._pending is not None:
             return False
         tokens, positions, temps, active = self._gather_step_inputs()
-        toks_dev, new_cache = self.backend.decode_sample(
-            self.cache, tokens, positions, temps, self.steps)
-        self.cache = new_cache
-        self._pending = (toks_dev, active)
+        self._pending = (self._launch(tokens, positions, temps), active)
         return True
 
+    def _launch(self, tokens, positions, temps, *, donate: bool = True):
+        """One decode or MTP iteration on the backend; adopts the caches
+        it returns and gives the device-side result."""
+        if self.mtp_k:
+            blocks, n_acc, self.cache, self.mtp_cache = \
+                self.backend.decode_sample_mtp(
+                    self.cache, self.mtp_cache, tokens, positions, temps,
+                    self.steps, donate=donate)
+            return blocks, n_acc
+        toks, self.cache = self.backend.decode_sample(
+            self.cache, tokens, positions, temps, self.steps, donate=donate)
+        return toks
+
+    def _apply(self, result, active) -> int:
+        """Fetch a launched iteration's result (4·B bytes device→host;
+        with MTP 4·B·(k+1) + 4·B) and run the bookkeeping."""
+        if self.mtp_k:
+            blocks, n_acc = (to_host(t) for t in result)
+        else:                   # a block of one token per slot
+            blocks = to_host(result)[:, None]
+            n_acc = np.zeros(len(blocks), np.int32)
+        return self._apply_sampled_mtp(blocks, n_acc, active)
+
     def decode_complete(self) -> int:
-        """Fetch the launched iteration's tokens (4·B bytes device→host)
-        and run the host-side bookkeeping."""
+        """Fetch the launched iteration's tokens and run the host-side
+        bookkeeping."""
         if self._pending is None:
             return 0
-        toks_dev, active = self._pending
+        result, active = self._pending
         self._pending = None
-        produced = self._apply_sampled(to_host(toks_dev), active)
+        produced = self._apply(result, active)
         if self._has_pending_placement:
             # deferred EPLB swap: the in-flight step has retired, so the
             # placement can change before the next launch (§4.5
@@ -300,21 +338,20 @@ class DPGroup:
             return self.decode_complete()
         tokens, positions, temps, active = self._gather_step_inputs()
         # save rollback state (previous iteration boundary); donation is
-        # off so the pre-step cache stays valid for re-execution
-        self._rollback = {"cache": self.cache,
+        # off so the pre-step caches stay valid for re-execution. With
+        # MTP the draft-head state rolls back beside the main cache: the
+        # same step replays the same draws.
+        self._rollback = {"cache": self.cache, "mtp_cache": self.mtp_cache,
                           "slots": [dataclasses.replace(s)
                                     for s in self.slots]}
-        self.backend.decode_sample(self.cache, tokens, positions,
-                                   temps, self.steps, donate=False)
+        self._launch(tokens, positions, temps, donate=False)
         # §6.2: transient network error detected → all DP groups roll
         # back to the previous iteration and re-execute.
         self.cache = self._rollback["cache"]
+        self.mtp_cache = self._rollback["mtp_cache"]
         self.slots = self._rollback["slots"]
-        toks, new_cache = self.backend.decode_sample(
-            self.cache, tokens, positions, temps, self.steps,
-            donate=False)
-        self.cache = new_cache
-        return self._apply_sampled(to_host(toks), active)
+        return self._apply(self._launch(tokens, positions, temps,
+                                        donate=False), active)
 
     def _finish(self, slot_id: int) -> None:
         s = self.slots[slot_id]

@@ -4,7 +4,9 @@ One :class:`~repro_torch.models.transformer.Model` and ONE parameter
 set serve every DP group: each group's
 :class:`~repro_torch.serving.backend.TorchBackend` holds a reference to
 the shared weights (a copy per group would be 28 GiB at DeepSeek-V3
-width cut to 4 layers) and its own decode cache.
+width cut to 4 layers) and its own decode cache. ``mtp_k > 0`` serves
+with §4.6 MTP speculative decoding: each decode iteration drafts
+``mtp_k`` tokens with the model's MTP head and verifies them.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ class FlowServeEngine:
                  *, device="cuda", n_dp_groups: int = 2, max_batch: int = 4,
                  max_len: int = 256, seed: int = 0,
                  token_budget: int = 8192,
-                 chunk_tokens: Optional[int] = None):
+                 chunk_tokens: Optional[int] = None, mtp_k: int = 0):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = Model(cfg)
@@ -41,7 +43,7 @@ class FlowServeEngine:
         # shared seed would draw identical Gumbel noise
         self.dps = [
             DPGroup(i, TorchBackend(self.model, params, max_len=max_len,
-                                    seed=seed * 1000 + i,
+                                    seed=seed * 1000 + i, mtp_k=mtp_k,
                                     device=self.device),
                     max_batch=max_batch, max_len=max_len)
             for i in range(n_dp_groups)

@@ -104,13 +104,20 @@ def test_two_chunk_prefill_equals_monolithic(num_layers):
 
 
 def test_bridge_rejects_missing_and_unexpected_leaves():
+    """The MTP head is carried like every other subtree: an extra leaf
+    beside it, a missing leaf of it or of the main stack, each raises."""
     from repro_torch.models.weights import from_jax_params
     jcfg, jmodel, jparams, tcfg, _ = reference("float32")
     tree = jax.tree_util.tree_map(np.asarray, jparams)
-    with pytest.raises(KeyError, match="unexpected"):
-        from_jax_params(tree, tcfg, "cpu")            # mtp not skipped
-    with pytest.raises(ValueError, match="cannot skip"):
-        from_jax_params(tree, tcfg, "cpu", skip=("mtp", "embed"))
+    assert "mtp" in tree
+    from_jax_params(tree, tcfg, "cpu")
+    extra = dict(tree, mtp=tree["mtp"] + (tree["mtp"][0],))
+    with pytest.raises(KeyError, match=r"unexpected \['mtp\.1\."):
+        from_jax_params(extra, tcfg, "cpu")
+    head = dict(tree["mtp"][0])
+    del head["proj"]
+    with pytest.raises(KeyError, match=r"missing \['mtp\.0\.proj'\]"):
+        from_jax_params(dict(tree, mtp=(head,)), tcfg, "cpu")
     del tree["final_norm"]
     with pytest.raises(KeyError, match="missing"):
-        from_jax_params(tree, tcfg, "cpu", skip=("mtp",))
+        from_jax_params(tree, tcfg, "cpu")

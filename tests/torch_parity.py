@@ -52,15 +52,13 @@ def configs(dtype: str = "float32", num_layers=None,
 @functools.lru_cache(maxsize=None)
 def reference(dtype: str = "float32", num_layers=None, seed: int = 0,
               config: str = "deepseek-v3"):
-    """(jax cfg, jax model, jax params, port cfg, port params on CPU).
-    The MTP head is the one subtree the bridge skips, where there is
-    one."""
+    """(jax cfg, jax model, jax params, port cfg, port params on CPU),
+    the MTP head included where the configuration has one."""
     jcfg, tcfg = configs(dtype, num_layers, config)
     model = jax_build_model(jcfg, auto_ctx())
     params = model.init(jax.random.PRNGKey(seed))
     tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, params),
-                              tcfg, "cpu",
-                              skip=("mtp",) if "mtp" in params else ())
+                              tcfg, "cpu")
     return jcfg, model, params, tcfg, tparams
 
 
