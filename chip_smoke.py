@@ -88,11 +88,45 @@ DeepSeek-V3 (MLA + top-8 MoE):
    in turn with ``torch._int_mm`` + the same epilogue on the same K-major
    weight where that takes the shape (M > 16): the kernel must be faster
    at M 512);
+A. the prefix-KV trio on that engine's first DP group (radix-cache
+   seeding, §4.2), launch counts set to 0 just before and read just
+   after: a 129-token chat turn prefilled cold in chunks ending at 32
+   and 64, its four block payloads, their ``read_remote_kv`` copies and
+   the seeded cache's first 64 positions bit-identical copies (fresh
+   storage); the suffix chunk run on the seeded cache gives the cold
+   run's logits and valid-region KV bit for bit (bf16); against a cold
+   prefill of the whole turn in one chunk (another split: MoE capacity
+   is set per call from the chunk's token count, and cuBLAS picks its
+   kernel by the row count) the logit error and how many greedy tokens
+   agree are reported; ``_cache_insert`` and ``seed_prefill_cache``
+   timed per block (host clock and device), ``read_remote_kv`` as a
+   device-to-device copy (GB/s, and its HBM traffic's share of
+   3.35 TB/s);
+B. disaggregated Prefill-Decode (§5.1, ``DisaggregatedPD``) on that
+   engine's weights: 2 prefill TEs x 2 DP groups and 1 decode TE x 2,
+   4 slots each, ``max_len`` 256, 32-token chunks, the pod-pooled
+   prefix directory on; chat sessions sharing a 64-byte system prompt
+   and a long unrelated prompt, in three waves, 16 greedy tokens each,
+   launch counts set to 0 just before and read just after: local hits,
+   remote (pod-directory) hits and skipped chunks must each occur; KV
+   streamed in at least 2 chunks, no stream left open; the KV each
+   decode group admits bit-identical to the prefill group's final cache
+   over the prompt; every pin released exactly once; route-pack and gmm
+   launched on both sides. TTFT and TPOT (host clock), peak memory, and
+   the follow-up turn's prefill device time cold against seeded. Then
+   with ``kv_pool=False`` against the colocated ``FlowServeEngine``
+   (same chunks and slots) on prompts that share no block: the same
+   greedy tokens (decode at B 4 with capacity 4 drops nothing);
 6. MTP speculative decoding (§4.6) on that engine's weights, with its
    MTP head (a [14336, 7168] projection and one MLA + dense-MLP block,
    0.69 B parameters): a ``FlowServeEngine`` with ``mtp_k`` 1, then 2,
    serves the plain path's prompts with the same EPLB pass, and every
-   request's tokens must equal the plain engine's; every iteration of
+   request's tokens must equal the plain engine's for the same prompt
+   seeded alike (a prompt served again is seeded from the radix cache
+   when it lands on a DP group that holds it, which at full width is
+   another function than its cold prefill: the plain tokens come from
+   the path and from a plain engine of one DP group that serves each
+   prompt twice, keyed by prompt and prefix hit); every iteration of
    every DP group must launch route-pack (with Collect's count block),
    and gmm before EPLB or placement_gmm after it, ``k + 1`` times per MoE
    layer and nothing else, call ``_logits`` ``2k + 1`` times and never in
@@ -118,7 +152,9 @@ DeepSeek-V3 (MLA + top-8 MoE):
    after EPLB, and with its MTP head at ``mtp_k`` 2 the same tokens and,
    iteration by iteration, the CPU's blocks and accepted counts (with a
    wave under the oracle head, so full and partial blocks are among
-   them);
+   them); and the smoke DeepSeek-V3 through ``DisaggregatedPD`` with
+   the pod directory (C) on the card and on the CPU: the same TE
+   choices, hits, skipped chunks, streams and greedy tokens;
 
 Llama-4 Maverick (GQA + top-1 MoE with a shared expert), after the
 DeepSeek-V3 engine is freed:
@@ -161,6 +197,14 @@ DeepSeek-V3 engine is freed:
     query row per KV head, [4, 8, 128] against [4, 1024, 8, 128]) equal
     on the card and the CPU; quant-dispatch timed on the cache rows
     [32768, 128] and on each head's whole cache as a row [32, 131072];
+D. prefix seeding on that engine, launch counts set to 0 just before
+   and read just after: the 826-token prompt served alone, then twice
+   with another 10-token tail (the second timed with its shapes warm):
+   816 tokens (51 blocks) seeded, the first 512-token chunk skipped and
+   only (816, 826) prefilled, and the slot decodes through decode
+   attention; on the backend, the same split
+   (0, 512), (512, 816), (816, 826) against a seed from its payloads:
+   logits and valid-region KV bit-identical;
 12. the smoke Llama-4 with G = 5 (float32): the engine on the card gives
     the CPU's greedy tokens, before and after EPLB;
 
@@ -1462,11 +1506,33 @@ def mtp_rollback(engine, rec: MTPRecorder) -> dict:
     return dict(block=want["block"].tolist(), n_acc=want["n_acc"].tolist())
 
 
+def plain_key(req) -> tuple:
+    """The key of a request's plain-engine tokens: its prompt and how
+    many of its tokens were seeded from the radix prefix cache. A seeded
+    prefill runs another chunk split than a cold one, which at full
+    width is another function (MoE capacity is set per call from the
+    chunk's token count; cuBLAS picks its kernel by the row count), so
+    seeded and cold requests are held to plain requests seeded alike."""
+    return req.prompt, req.prefix_hit_tokens
+
+
+def plain_tokens(plain: dict, req) -> list:
+    key = plain_key(req)
+    check(key in plain, f"plain-engine tokens for (prompt, prefix hit) "
+                        f"{key} (known: {sorted(plain)})")
+    return plain[key]
+
+
+def keyed(reqs) -> dict:
+    """:func:`plain_key` → tokens of served requests."""
+    return {plain_key(r): list(r.output_tokens) for r in reqs}
+
+
 class OracleHead:
     """Stands in for a DP group's model: the MTP head's logits get a
     peak at the token the plain engine emitted at the next position of
-    each slot's request, so drafts are accepted as a well-trained head's
-    would be; ``wrong`` names output indices whose draft is made wrong
+    each slot's request (``plain``: :func:`plain_key` → tokens), so
+    drafts are accepted as a well-trained head's would be; ``wrong`` names output indices whose draft is made wrong
     (a rejection in the middle of a block, leaving junk in both caches).
     The table of targets lives on the card and changes only when a
     slot's request does, so the head adds no host sync."""
@@ -1486,7 +1552,7 @@ class OracleHead:
         for b, s in enumerate(self.dp.slots):
             if s.req is not None and s.req is not self.owner[b]:
                 row = [0] * self.dp.max_len
-                for i, t in enumerate(self.plain[s.req.prompt]):
+                for i, t in enumerate(plain_tokens(self.plain, s.req)):
                     if s.req.prompt_len + i < self.dp.max_len:
                         row[s.req.prompt_len + i] = (
                             t + 1 if i in self.wrong else t)
@@ -1515,7 +1581,8 @@ def oracle_wave(engine, plain: dict, prompts, n_new: int,
     finally:
         for dp, m in zip(engine.dps, models):
             dp.backend.model = m
-    differ = [r.prompt for r in reqs if r.output_tokens != plain[r.prompt]]
+    differ = [r.prompt for r in reqs
+              if r.output_tokens != plain_tokens(plain, r)]
     check(not differ, f"mtp_k={engine.dps[0].mtp_k}, oracle head (wrong "
                       f"drafts at output indices {sorted(wrong)}): tokens "
                       f"equal the plain engine's; differ: {differ}")
@@ -1525,7 +1592,9 @@ def oracle_wave(engine, plain: dict, prompts, n_new: int,
 def mtp_path(cfg, params, k: int, plain: dict, placement) -> dict:
     """Serve the plain path's greedy prompts with ``mtp_k=k`` on the
     plain engine's weights, with the same EPLB pass: every request's
-    tokens equal the plain engine's, with the random head and, before
+    tokens equal the plain engine's for its prompt, seeded alike
+    (``plain``: :func:`plain_key` → tokens, from :func:`plain_table`),
+    with the random head and, before
     EPLB and after it, with an oracle head. Then 4 requests at
     temperature 0.7 and one rolled-back iteration, all with the launch
     counts set to 0 just before and read just after. With the recorders
@@ -1545,10 +1614,10 @@ def mtp_path(cfg, params, k: int, plain: dict, placement) -> dict:
         return [it for rec, n in zip(recs, marks) for it in rec.iters[n:]]
 
     def equal_plain(reqs, what):
-        differ = [(r.prompt, next(i for i, (a, b) in enumerate(
-            zip(r.output_tokens, plain[r.prompt])) if a != b),
-            r.output_tokens, plain[r.prompt]) for r in reqs
-            if r.output_tokens != plain[r.prompt]]
+        differ = [(plain_key(r), next(i for i, (a, b) in enumerate(
+            zip(r.output_tokens, plain_tokens(plain, r))) if a != b),
+            r.output_tokens, plain_tokens(plain, r)) for r in reqs
+            if r.output_tokens != plain_tokens(plain, r)]
         check(not differ, f"MTP k={k}, {what}: every request gives the "
                           f"plain engine's tokens; differ (prompt, first "
                           f"index, MTP, plain): {differ}")
@@ -1645,9 +1714,38 @@ def mtp_path(cfg, params, k: int, plain: dict, placement) -> dict:
     return res
 
 
+def plain_table(cfg, params, cold: dict) -> dict:
+    """The plain engine's greedy tokens for every (prompt, prefix hit)
+    the MTP engines can meet: the served path's cold requests (``cold``:
+    prompt → tokens), and each prompt served again on a plain engine of
+    one DP group, which seeds it from its radix cache. That engine's
+    cold requests must give the path's tokens (tokens do not depend on
+    the DP group or the batch, before EPLB or after it)."""
+    from repro_torch.serving.flowserve import FlowServeEngine
+
+    engine = FlowServeEngine(cfg, params=params, device="cuda",
+                             n_dp_groups=1, seed=0, max_batch=4)
+    table = {(p, 0): t for p, t in cold.items()}
+    for wave in (PROMPTS, PROMPTS, PROMPTS_EPLB, PROMPTS_EPLB):
+        reqs, _ = serve(engine, wave, 16)
+        for key, toks in keyed(reqs).items():
+            check(table.setdefault(key, toks) == toks,
+                  f"plain engines agree on (prompt, prefix hit) {key}")
+    engine.close()
+    seeded = {p: h for p, h in table if h}
+    check(set(seeded) == {p for p in PROMPTS + PROMPTS_EPLB
+                          if len(engine.tokenizer.encode(p)) > 16},
+          f"every prompt longer than a block was served seeded: {seeded}")
+    same = sum(table[p, h] == table[p, 0] for p, h in seeded.items())
+    log(f"plain table: {len(table)} (prompt, prefix hit) entries; "
+        f"{same} of {len(seeded)} seeded prompts give their cold tokens")
+    return table
+
+
 def mtp_stage(cfg, params, path: dict) -> dict:
     """MTP at k = 1 and 2 on the served DeepSeek-V3's weights, held to
-    the plain path's tokens."""
+    the plain engine's tokens (``path["tokens"]``: a
+    :func:`plain_table`)."""
     res = {}
     for k in (1, 2):
         res[f"{DEEPSEEK}/mtp-k{k}"] = ({}, mtp_path(
@@ -1661,6 +1759,530 @@ def mtp_stage(cfg, params, path: dict) -> dict:
         + f"; TPOT {path['tpot_ms_mean']:.2f} ms plain, " + ", ".join(
             f"{r['tpot_ms_mean']:.2f} ms at k={r['k']} (oracle head "
             f"{r['tpot_ms_mean_oracle']:.2f})" for _, r in res.values()))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# stages A-D: radix prefix KV, the pod-pooled directory, disaggregated PD
+# ---------------------------------------------------------------------------
+#: a 64-byte system prompt (with BOS 65 tokens: four full KV blocks and
+#: one more token) that chat sessions share, each with its own turn
+PD_SYSTEM = "System: you are the SuperPod's helper; answer briefly, kindly..."
+#: waves served to completion in turn: a first turn; three more sessions
+#: and a long unrelated prompt together (the pod directory routes them
+#: across TEs and DP groups); a follow-up turn and a short prompt
+PD_WAVES = [[PD_SYSTEM + " User: what is MLA?"],
+            [PD_SYSTEM + " User: what is EPLB?",
+             PD_SYSTEM + " User: what is MTP?",
+             PD_SYSTEM + " User: and the UB plane?",
+             "A long request with no shared prefix at all: it runs for more "
+             "than a hundred bytes, so it prefills in several chunks."],
+            [PD_SYSTEM + " User: what is MLA? Assistant: latent attention. "
+             "User: and then?", "Another distinct prompt"]]
+#: prompts that share no KV block (their first 16 tokens differ), most
+#: of them longer than one 32-token chunk
+PD_DISTINCT = ["Disaggregated prefill runs on its own task executors.",
+               "KV streams chunk by chunk to the decode side over DistFlow.",
+               "Backpressure defers the receive until a slot is free.",
+               "Each pair of TEs has an isolated DistFlow instance.",
+               "Short prompt", "Decode groups balance by KV usage."]
+PD_CHUNK = 32
+PD_KW = dict(n_prefill_te=2, n_decode_te=1, dp_per_te=2, max_batch=4,
+             max_len=256, chunk_tokens=PD_CHUNK)
+
+
+def kv_leaves(tree) -> list:
+    from repro_torch.xccl.pd_transfer import _leaves
+    return _leaves(tree)
+
+
+def kv_equal(a, b) -> bool:
+    la, lb = kv_leaves(a), kv_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def host_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Median host-clock ms of ``fn`` with the device synchronised after
+    each call (the host's work and the device's, end to end)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def chunked(be, toks, stops, cache=None, start: int = 0):
+    """Prefill ``toks`` from ``start`` in chunks ending at ``stops`` (the
+    last is ``len(toks)``) through ``be.prefill_chunk``; returns the
+    cache and the last chunk's logits."""
+    logits = None
+    for end in stops:
+        cache, logits = be.prefill_chunk(cache, toks[start:end], start,
+                                         len(toks))
+        start = end
+    return cache, logits
+
+
+def greedy_pair(be, caches, starts, n: int = 16) -> list:
+    """Decode ``n`` greedy tokens after each batch-1 cache (``starts``:
+    its prompt length and first token), all in one batch of 4 slots,
+    the decode shape of the path (rows do not meet): the tokens of
+    each."""
+    import numpy as np
+
+    B = 4
+    cache = be.init_cache(B, be.max_len)
+    for i, c in enumerate(caches):
+        be.write_slot(cache, c, i)
+    tok = np.zeros((B, 1), np.int32)
+    pos = np.zeros((B,), np.int32)
+    for i, (L, first) in enumerate(starts):
+        tok[i, 0], pos[i] = first, L
+    out = [[] for _ in caches]
+    for _ in range(n):
+        nxt, cache = be.decode_sample(cache, tok, pos,
+                                      np.zeros((B,), np.float32), 0)
+        nxt = nxt.cpu().numpy()
+        for i in range(len(caches)):
+            out[i].append(int(nxt[i]))
+        tok[:, 0] = nxt
+        pos += 1
+    return out
+
+
+def per(ms, n: int):
+    """``ms / n``, or None where the time was not measured."""
+    return None if ms is None else ms / n
+
+
+def prefix_trio(engine) -> dict:
+    """Stage A on the served DeepSeek-V3's first DP group, launch counts
+    set to 0 just before and read just after: payloads, seeded caches
+    and UB reads bit-identical copies; the same-split seeded prefill
+    bit-identical to the cold one; seeded against a cold one-chunk
+    prefill reported (logit error, greedy agreement); ``_cache_insert``,
+    ``seed_prefill_cache`` and ``read_remote_kv`` timed."""
+    from repro_torch.kernels import runtime
+    from repro_torch.serving.dp_group import DPGroup
+    from repro_torch.xccl.pd_transfer import pytree_bytes, slice_kv_chunk
+
+    be = engine.dps[0].backend
+    toks = engine.tokenizer.encode(PD_WAVES[2][0])
+    n, S = len(toks), 4 * 16
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    # the same split: a cold prefill whose chunk ends at the seed boundary
+    cold, log_c = chunked(be, toks, (32, S, n))
+    payloads = [be.slice_prefill_kv(cold, toks, b * 16, (b + 1) * 16)
+                for b in range(S // 16)]
+    for b, p in enumerate(payloads):
+        check(kv_equal(p, slice_kv_chunk(cold, b * 16, (b + 1) * 16)),
+              f"block {b} payload equals its source")
+    check(not {t.data_ptr() for t in kv_leaves(payloads)}
+          & {t.data_ptr() for t in kv_leaves(cold)},
+          "payloads are copies, not views of the prefill buffer")
+    pulled = be.read_remote_kv(payloads)
+    check(kv_equal(pulled, payloads) and not
+          {t.data_ptr() for t in kv_leaves(pulled)}
+          & {t.data_ptr() for t in kv_leaves(payloads)},
+          "read_remote_kv: fresh copies, bit-identical")
+    seeded = be.seed_prefill_cache(pulled, S, n)
+    check(kv_equal(slice_kv_chunk(seeded, 0, S),
+                   slice_kv_chunk(cold, 0, S)),
+          "the seeded region equals the cold cache's")
+    warm, log_s = be.prefill_chunk(seeded, toks[S:], S, n)
+    torch.cuda.synchronize()
+    launches, fused = dict(runtime.LAUNCHES), dict(runtime.FUSED)
+    check(bool((log_c == log_s).all()) and kv_equal(
+        slice_kv_chunk(warm, 0, n), slice_kv_chunk(cold, 0, n)),
+        "same-split seeded prefill: logits and valid-region KV "
+        "bit-identical to the cold prefill (bf16)")
+    check(launches.get("route_pack", 0) > 0 and launches.get("gmm", 0) > 0,
+          f"the prefills ran the MoE kernels: {launches}")
+    # seeded against a cold prefill of the whole prompt in one chunk:
+    # another split, so another function at full width (reported)
+    one, log_1 = be.prefill_chunk(None, toks, 0, n)
+    rel = float(abs(log_s - log_1).max() / abs(log_1).max())
+    first_s, first_1 = int(log_s.argmax()), int(log_1.argmax())
+    gs, g1 = greedy_pair(be, [warm, one], [(n, first_s), (n, first_1)])
+    # tokens agreeing from the first on, the prefill's own included
+    agree = 0 if first_s != first_1 else 1 + next(
+        (i for i, (a, b) in enumerate(zip(gs, g1)) if a != b), len(gs))
+    # costs: a block's payload slice (the radix insert), the seed, the read
+    dp = DPGroup(99, be, max_batch=1, max_len=be.max_len)
+
+    def insert():
+        dp.prefix_cache.clear()
+        dp._cache_insert(toks, cold)
+    n_blocks = n // 16
+    nbytes = pytree_bytes(payloads)
+    res = dict(
+        launches=launches, fused=fused, prompt_tokens=n, seed_tokens=S,
+        same_split_bit_identical=True,
+        one_chunk_logit_rel_err=rel, one_chunk_argmax_equal=first_s == first_1,
+        one_chunk_greedy_agree_tokens=agree,
+        insert_blocks=n_blocks,
+        insert_host_ms_per_block=host_ms(insert) / n_blocks,
+        insert_device_ms_per_block=per(device_ms(insert), n_blocks),
+        seed_host_ms_per_block=host_ms(
+            lambda: be.seed_prefill_cache(pulled, S, n)) / len(payloads),
+        seed_device_ms_per_block=per(device_ms(
+            lambda: be.seed_prefill_cache(pulled, S, n)), len(payloads)),
+        read_bytes=nbytes)
+    dp.close()
+    ms = time_ms(lambda: be.read_remote_kv(payloads))
+    dev = device_ms(lambda: be.read_remote_kv(payloads))
+    res.update(read_ms=ms, read_device_ms=dev,
+               read_gb_per_s=nbytes / ms / 1e6,
+               read_device_gb_per_s=None if not dev else nbytes / dev / 1e6,
+               # a copy reads and writes each byte
+               read_hbm_share=None if not dev
+               else 2 * nbytes / (dev * 1e-3) / HBM_BYTES_PER_S)
+    log(f"prefix trio ({engine.cfg.name}, {n} tokens, seed {S}): payloads, "
+        f"UB reads and the seeded region bit-identical copies; same-split "
+        f"seeded prefill bit-identical to cold; against one cold chunk: "
+        f"logit rel err {rel:.4g}, first token equal {first_s == first_1}, "
+        f"greedy agreement {res['one_chunk_greedy_agree_tokens']} of "
+        f"{len(gs) + 1} tokens; _cache_insert "
+        f"{res['insert_host_ms_per_block']:.4f} ms host / "
+        f"{res['insert_device_ms_per_block']} ms device per block, "
+        f"seed {res['seed_host_ms_per_block']:.4f} / "
+        f"{res['seed_device_ms_per_block']}; read_remote_kv of "
+        f"{nbytes} bytes {ms:.4f} ms ({res['read_gb_per_s']:.2f} GB/s "
+        f"events), device {dev} ms (HBM share {res['read_hbm_share']})")
+    return res
+
+
+class PDRecorder:
+    """Instruments a ``DisaggregatedPD``: each prefill group's final
+    cache (its valid region) and skipped first chunks, the KV each
+    decode group admits, and the launches made on each side (deltas of
+    the counts around each call)."""
+
+    def __init__(self, pd):
+        from repro_torch.kernels import runtime
+        from repro_torch.xccl.pd_transfer import slice_kv_chunk
+
+        self.finals, self.admitted, self.skips = {}, {}, []
+        self.side = {"prefill": {}, "decode": {}}
+
+        def counted(side, fn):
+            def call(*a, **kw):
+                before = dict(runtime.LAUNCHES)
+                out = fn(*a, **kw)
+                acc = self.side[side]
+                for k, v in runtime.LAUNCHES.items():
+                    acc[k] = acc.get(k, 0) + v - before.get(k, 0)
+                return out
+            return call
+
+        for te in pd.prefill_tes:
+            for dp in te.dps:
+                def run(work, _real=counted("prefill", dp.run_prefill_chunk)):
+                    out = _real(work)
+                    req = work.req
+                    if out is not None:
+                        self.finals[req.req_id] = slice_kv_chunk(
+                            out[0], 0, req.prompt_len)
+                    elif work.is_first and req.prefill_pos > work.end:
+                        self.skips.append(req.req_id)
+                    return out
+                dp.run_prefill_chunk = run
+        for te in pd.decode_tes:
+            for dp in te.dps:
+                def admit(req, kv, logits, _real=dp.admit):
+                    self.admitted[req.req_id] = kv
+                    return _real(req, kv, logits)
+                dp.admit = admit
+                dp.decode_step_all = counted("decode", dp.decode_step_all)
+
+
+def serve_pd(pd, waves, n_new: int) -> list:
+    """Serve each wave to completion before the next is submitted."""
+    from repro_torch.serving.request import Request
+
+    reqs = []
+    for wave in waves:
+        rs = [Request(prompt=p, max_new_tokens=n_new, ignore_eos=True)
+              for p in wave]
+        n0 = len(pd.finished)
+        for r in rs:
+            pd.submit(r)
+        steps = 0
+        while len(pd.finished) < n0 + len(rs):
+            pd.step()
+            steps += 1
+            check(steps < 2000, "disaggregated PD finishes its wave")
+        reqs += rs
+    for te in pd.decode_tes:
+        for d in te.dps:
+            d.drain()
+    for r in reqs:
+        check(r.state.value == "finished" and len(r.output_tokens) == n_new,
+              f"PD request {r.req_id} finished with {n_new} tokens")
+    return reqs
+
+
+def pd_summary(pd, reqs) -> dict:
+    """What two runs of the same traffic must agree on: each request's
+    TE choices, prefix hit, chunks and tokens; each prefill group's
+    remote and local hits; the pins; each DistFlow pair's streams."""
+    return dict(
+        requests=[(r.prefill_te, r.decode_te, r.prefix_hit_tokens,
+                   r.n_prefill_chunks, list(r.output_tokens)) for r in reqs],
+        groups=[(d.dp_id, d.n_remote_hits, d.remote_hit_blocks,
+                 d.prefix_cache.hit_blocks)
+                for te in pd.prefill_tes for d in te.dps],
+        pins=(None if pd.pod_dir is None else
+              (pd.pod_dir.n_remote_acquires, pd.pod_dir.n_releases)),
+        flows={k: (f.fabric, f.chunks_streamed, f.bytes_moved,
+                   len(f.streams)) for k, f in sorted(pd.distflow.items())})
+
+
+def pd_hits(pd, reqs, rec) -> dict:
+    remote = sum(d.n_remote_hits for te in pd.prefill_tes for d in te.dps)
+    seeded = sum(r.prefix_hit_tokens > 0 for r in reqs)
+    return dict(local=seeded - remote, remote=remote,
+                chunk_skips=len(rec.skips) if rec else None)
+
+
+def pd_stage(cfg, params) -> dict:
+    """Stage B: ``DisaggregatedPD`` on the served weights (2 prefill TEs
+    x 2 DP groups, 1 decode TE x 2, 4 slots each, 32-token chunks, the
+    pod directory on), launch counts set to 0 just before and read just
+    after. Then the prefill's device time cold and seeded, and the same
+    engine with ``kv_pool=False`` against the colocated engine on
+    prompts that share no block: equal greedy tokens."""
+    from repro_torch.core import DisaggregatedPD
+    from repro_torch.kernels import runtime
+    from repro_torch.serving.flowserve import FlowServeEngine
+
+    t0 = time.monotonic()
+    pd = DisaggregatedPD(cfg, params, device="cuda", kv_pool=True, **PD_KW)
+    check(all(d.backend.params is params for te in pd.prefill_tes
+              + pd.decode_tes for d in te.dps), "one parameter set")
+    rec = PDRecorder(pd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launch_counts()
+    t1 = time.monotonic()
+    reqs = serve_pd(pd, PD_WAVES, 16)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t1
+    launches, fused = dict(runtime.LAUNCHES), dict(runtime.FUSED)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    summary = pd_summary(pd, reqs)
+    hits = pd_hits(pd, reqs, rec)
+    check(hits["local"] > 0 and hits["remote"] > 0
+          and hits["chunk_skips"] > 0,
+          f"local hits, remote (pod directory) hits and chunk skips: {hits}")
+    flows = summary["flows"].values()
+    check(sum(f[1] for f in flows) >= 2 and not any(f[3] for f in flows),
+          f"KV streamed in chunks, no stream left open: {summary['flows']}")
+    check(set(rec.admitted) == set(rec.finals) == {r.req_id for r in reqs}
+          and all(kv_equal(rec.admitted[i], rec.finals[i])
+                  for i in rec.finals),
+          "the KV each decode group admits is the prefill group's "
+          "slice_kv_chunk(cache1, 0, L), bit for bit")
+    check(summary["pins"][0] == summary["pins"][1] > 0 and not any(
+        d._chunk_pins or d._chunk_locks
+        for te in pd.prefill_tes for d in te.dps),
+        f"every pin released exactly once: {summary['pins']}")
+    for side, got in rec.side.items():
+        check(got.get("route_pack", 0) > 0 and got.get("gmm", 0) > 0,
+              f"route-pack and gmm launch on the {side} side: {got}")
+    check(launches.get("collect", 0) == 0 and fused.get("collect", 0)
+          == launches.get("route_pack", 0),
+          f"Collect inside every route-pack: {launches}, {fused}")
+    ttft = [r.ttft for r in reqs]
+    tpot = [r.tpot for r in reqs]
+    # the prefill's device time, cold and seeded from the pod's blocks,
+    # for the follow-up turn as the prefill group runs it
+    be = pd.prefill_tes[0].dps[0].backend
+    toks = pd.tokenizer.encode(PD_WAVES[2][0])
+    n = len(toks)
+    hit = max(r.prefix_hit_tokens for r in reqs if r.prompt == PD_WAVES[2][0])
+    stops = list(range(PD_CHUNK, n, PD_CHUNK)) + [n]
+    cold, _ = chunked(be, toks, stops)
+    payloads = [be.slice_prefill_kv(cold, toks, b * 16, (b + 1) * 16)
+                for b in range(hit // 16)]
+    warm_stops = list(range(hit + PD_CHUNK, n, PD_CHUNK)) + [n]
+
+    def warm():
+        seeded = be.seed_prefill_cache(be.read_remote_kv(payloads), hit, n)
+        return chunked(be, toks, warm_stops, seeded, hit)
+    prefill = dict(prompt_tokens=n, hit_tokens=hit,
+                   cold_chunks=len(stops), warm_chunks=len(warm_stops),
+                   cold_device_ms=device_ms(lambda: chunked(be, toks, stops),
+                                            reps=5, warm=1),
+                   warm_device_ms=device_ms(warm, reps=5, warm=1),
+                   cold_ms=time_ms(lambda: chunked(be, toks, stops), reps=5,
+                                   warm=1),
+                   warm_ms=time_ms(warm, reps=5, warm=1))
+    side = rec.side
+    pd.close()
+    del pd, rec, be, cold, payloads
+    # kv_pool off, against the colocated engine, on prompts sharing no
+    # block: the same prefill splits, and decode at B 4 drops nothing
+    pd = DisaggregatedPD(cfg, params, device="cuda", kv_pool=False, **PD_KW)
+    plain = serve_pd(pd, [PD_DISTINCT], 16)
+    check(all(r.prefix_hit_tokens == 0 for r in plain),
+          "the distinct prompts share no block")
+    pd.close()
+    eng = FlowServeEngine(cfg, params=params, device="cuda", n_dp_groups=2,
+                          max_batch=PD_KW["max_batch"],
+                          max_len=PD_KW["max_len"], chunk_tokens=PD_CHUNK)
+    co, _ = serve(eng, PD_DISTINCT, 16)
+    eng.close()
+    differ = [r.prompt for r, c in zip(plain, co)
+              if r.output_tokens != c.output_tokens]
+    check(not differ, f"PD (kv_pool off) gives the colocated engine's "
+                      f"tokens; differ: {differ}")
+    del pd, eng
+    res = dict(launches=launches, fused=fused, side_launches=side,
+               hits=hits, flows=summary["flows"], pins=summary["pins"],
+               prefix_hit_tokens=[r.prefix_hit_tokens for r in reqs],
+               te=[(r.prefill_te, r.decode_te) for r in reqs],
+               ttft_ms_mean=1e3 * statistics.mean(ttft),
+               ttft_ms_max=1e3 * max(ttft),
+               tpot_ms_mean=1e3 * statistics.mean(tpot),
+               tpot_ms_max=1e3 * max(tpot), serve_s=wall,
+               peak_mem_gib=peak, prefill=prefill,
+               stage_s=time.monotonic() - t0)
+    log(f"PD ({cfg.name}, 2 prefill TEs x 2 + 1 decode TE x 2): "
+        f"{len(reqs)} requests x 16 tokens in {wall:.2f} s; hits {hits}, "
+        f"pins {summary['pins']}, streams {summary['flows']}; TTFT mean "
+        f"{res['ttft_ms_mean']:.1f} ms (max {res['ttft_ms_max']:.1f}), TPOT "
+        f"mean {res['tpot_ms_mean']:.2f} ms (host clock); prefill of "
+        f"{n} tokens: cold {prefill['cold_device_ms']} ms device "
+        f"({prefill['cold_chunks']} chunks), seeded from {hit} tokens "
+        f"{prefill['warm_device_ms']} ms ({prefill['warm_chunks']} "
+        f"chunks); peak memory {peak:.2f} GiB; launches by side {side}; "
+        f"kv_pool off: {len(plain)} requests give the colocated engine's "
+        f"tokens")
+    return res
+
+
+def pd_small_reference() -> None:
+    """Stage C: the smoke DeepSeek-V3 (float32) through
+    ``DisaggregatedPD`` with the pod directory, on the card and on the
+    CPU: the same TE choices, hits, chunk skips, pins, streams and
+    greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import DisaggregatedPD
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparison
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(DEEPSEEK + "-smoke"),
+                              dtype="float32")
+    cpu_params = Model(cfg).init(0, device="cpu")
+    out = []
+    for dev in ("cpu", "cuda"):
+        pd = DisaggregatedPD(cfg, tree_map(lambda t: t.to(dev), cpu_params),
+                             device=dev, kv_pool=True, **PD_KW)
+        rec = PDRecorder(pd)
+        reqs = serve_pd(pd, PD_WAVES, 8)
+        out.append((pd_summary(pd, reqs), pd_hits(pd, reqs, rec)))
+        pd.close()
+    cpu, card = out
+    hits = card[1]
+    check(cpu == card, f"smoke PD: the card's TE choices, hits, streams "
+                       f"and tokens equal the CPU's: {cpu} != {card}")
+    check(all(v > 0 for v in hits.values()),
+          f"smoke PD: local, remote hits and chunk skips: {hits}")
+    log(f"small reference: {cfg.name} (f32) DisaggregatedPD with the pod "
+        f"directory gives the CPU's greedy tokens, TE choices and hits "
+        f"{hits} on the card")
+
+
+def llama_prefix(engine) -> dict:
+    """Stage D on the served Llama-4 (GQA), launch counts set to 0 just
+    before and read just after: the 826-token prompt served alone, then
+    again with another tail: its first 512-token chunk is skipped, 816
+    tokens (51 blocks) seeded, only (816, 826) prefilled, and the seeded
+    slot decodes through decode attention. Then the same split on the
+    backend, (0, 512), (512, 816), (816, 826), against a seed from its
+    payloads: logits and valid-region KV bit-identical."""
+    from repro_torch.kernels import runtime
+    from repro_torch.xccl.pd_transfer import slice_kv_chunk
+
+    base = LLAMA_PROMPTS[0]
+    tails = ("A new tail", "Other tail")
+    check(all(t[0] != base[815] for t in tails),
+          "the tails differ at their first byte")
+    variants = [base[:815] + t for t in tails]
+    enc = engine.tokenizer.encode
+    n, S = len(enc(variants[0])), 816
+    check(n == len(enc(variants[1])) == len(enc(base)) == 826,
+          f"826-token prompts ({n})")
+    ran, skipped = [], []
+    for dp in engine.dps:
+        def run(work, _real=dp.run_prefill_chunk):
+            out = _real(work)
+            req = work.req
+            seeded = req.prompt in variants
+            if out is None and work.is_first and req.prefill_pos > work.end:
+                skipped.append((seeded, work.start, work.end))
+            else:
+                ran.append((seeded, work.start, work.end))
+            return out
+        dp.run_prefill_chunk = run
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    try:
+        (first,), _ = serve(engine, [base], 16)
+        # the first seeded turn meets new shapes (a 32-row chunk at
+        # offset 816); the second is timed warm
+        seeded = [serve(engine, [v], 16)[0][0] for v in variants]
+    finally:
+        for dp in engine.dps:
+            del dp.run_prefill_chunk
+    torch.cuda.synchronize()
+    launches, fused = dict(runtime.LAUNCHES), dict(runtime.FUSED)
+    check(all(r.prefix_hit_tokens == S for r in seeded)
+          and skipped == [(True, 0, 512)] * 2
+          and [r for r in ran if r[0]] == [(True, S, n)] * 2,
+          f"each variant seeded {S} tokens, skipped its first chunk and "
+          f"prefilled ({S}, {n}) only: hits "
+          f"{[r.prefix_hit_tokens for r in seeded]}, skipped {skipped}, "
+          f"ran {ran}")
+    check(launches.get("decode_attention", 0) > 0
+          and launches.get("route_pack", 0) > 0,
+          f"the seeded slot decoded through decode attention: {launches}")
+    be = engine.dps[0].backend
+    toks = enc(variants[0])
+    cold, log_c = chunked(be, toks, (512, S, n))
+    payloads = [slice_kv_chunk(cold, b * 16, (b + 1) * 16)
+                for b in range(S // 16)]
+    warm, log_s = be.prefill_chunk(
+        be.seed_prefill_cache(be.read_remote_kv(payloads), S, n), toks[S:],
+        S, n)
+    check(bool((log_c == log_s).all()) and kv_equal(
+        slice_kv_chunk(warm, 0, n), slice_kv_chunk(cold, 0, n)),
+        "Llama-4 same-split seeded prefill at (0,512), (512,816), (816,826):"
+        " logits and valid-region KV bit-identical (bf16)")
+    res = dict(launches=launches, fused=fused, prefix_hit_tokens=S,
+               skipped=skipped, ran=ran,
+               base_prefix_hit_tokens=first.prefix_hit_tokens,
+               seeded_ttft_ms=[1e3 * r.ttft for r in seeded],
+               base_ttft_ms=1e3 * first.ttft,
+               same_split_bit_identical=True)
+    log(f"Llama-4 prefix: the 826-token prompt again with two other tails, "
+        f"each seeded {S} tokens, skipped (0, 512), prefilled ({S}, {n}); "
+        f"TTFT {res['seeded_ttft_ms'][0]:.1f} ms (new shapes), "
+        f"{res['seeded_ttft_ms'][1]:.1f} ms (warm) against "
+        f"{res['base_ttft_ms']:.1f} ms for the base (its hit "
+        f"{first.prefix_hit_tokens}); launches {launches}; same split "
+        f"bit-identical")
     return res
 
 
@@ -1685,7 +2307,7 @@ def check_small_reference(arch: str, **overrides):
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_config(arch + "-smoke"), dtype="float32",
                               **overrides)
-    outs, blocks = {}, {}
+    outs, blocks, tables = {}, {}, {}
     cpu_params = Model(cfg).init(0, device="cpu")
     for dev in ("cpu", "cuda"):
         params = tree_map(lambda t: t.to(dev), cpu_params)
@@ -1703,17 +2325,21 @@ def check_small_reference(arch: str, **overrides):
                                  out[1][busy].tolist()))
                     return out
                 d.backend.decode_sample_mtp = spy
-            first = [r.output_tokens for r in serve_any(eng, PROMPTS[:3])]
+            # the plain engine's tokens by (prompt, prefix hit): the
+            # second wave's prompts are seeded from the first's blocks
+            first = serve_any(eng, PROMPTS[:3])
             if k:   # drafts accepted, and one rejected, on gmm
-                oracle_wave(eng, dict(zip(PROMPTS, outs[dev, 0][0])),
-                            PROMPTS[:3], 8, wrong={3})
+                oracle_wave(eng, tables[dev], PROMPTS[:3], 8, wrong={3})
             eng.record_expert_counts(skewed_counts(cfg))
             eng.run_eplb()
-            second = [r.output_tokens for r in serve_any(eng, PROMPTS[:3])]
+            second = serve_any(eng, PROMPTS[:3])
             if k:   # and on placement_gmm
-                oracle_wave(eng, dict(zip(PROMPTS, outs[dev, 0][1])),
-                            PROMPTS[:3], 8, wrong={3})
+                oracle_wave(eng, tables[dev], PROMPTS[:3], 8, wrong={3})
+            else:
+                tables[dev] = keyed(first + second)
             eng.close()
+            first, second = ([r.output_tokens for r in w]
+                             for w in (first, second))
             outs[dev, k], blocks[dev, k] = (first, second), seen
     check(outs["cpu", 0] == outs["cuda", 0],
           "smoke engine: card tokens equal CPU tokens before and after EPLB")
@@ -2215,16 +2841,23 @@ def deepseek_stages(get_config) -> dict:
          f"{int8['stage_s']:.1f} s of it); sample output {path['text']!r}")
 
     t0 = time.monotonic()
+    trio = prefix_trio(engine)
+    pd = pd_stage(cfg, engine.params)
+    free(f"prefix trio and PD: {time.monotonic() - t0:.1f} s")
+
+    t0 = time.monotonic()
+    table = plain_table(cfg, engine.params, path.pop("tokens"))
     mtp = mtp_stage(cfg, engine.params, dict(
-        path, placement=engine.dps[0].backend._placement))
-    path.pop("tokens")
+        path, tokens=table, placement=engine.dps[0].backend._placement))
     del engine
     free(f"MTP: {time.monotonic() - t0:.1f} s")
 
     t0 = time.monotonic()
     check_small_reference(DEEPSEEK)
+    pd_small_reference()
     log(f"small reference: {time.monotonic() - t0:.1f} s")
-    return {DEEPSEEK: (kern, path), **mtp,
+    return {DEEPSEEK: (kern, path), DEEPSEEK + "/prefix": ({}, trio),
+            DEEPSEEK + "/pd": ({}, pd), **mtp,
             DEEPSEEK_INT8: (int8.pop("kernels"), int8)}
 
 
@@ -2262,10 +2895,12 @@ def llama_stages(get_config) -> dict:
     path = run_path(engine, LLAMA_PROMPTS, LLAMA_PROMPTS_EPLB,
                     ("route_pack", "gmm", "placement_gmm",
                      "decode_attention"),
-                    before_close=int8_kv_stage)
+                    before_close=lambda e, reqs: dict(
+                        kv=int8_kv_stage(e, reqs), prefix=llama_prefix(e)))
     del engine
     fold_replays(kern, path)
-    kv = path.pop("stage")
+    kv, prefix = (path["stage"][n] for n in ("kv", "prefix"))
+    path.pop("stage")
     path.pop("tokens")
     free(f"path: {time.monotonic() - t0:.1f} s; sample output "
          f"{path['text']!r}")
@@ -2273,7 +2908,8 @@ def llama_stages(get_config) -> dict:
     t0 = time.monotonic()
     check_small_reference(LLAMA, num_heads=10, num_kv_heads=2, head_dim=32)
     log(f"small reference: {time.monotonic() - t0:.1f} s")
-    return {LLAMA: (kern, path), LLAMA_INT8_KV: (kv.pop("kernels"), kv)}
+    return {LLAMA: (kern, path), LLAMA + "/prefix": ({}, prefix),
+            LLAMA_INT8_KV: (kv.pop("kernels"), kv)}
 
 
 def kernel_line(results: dict) -> dict:

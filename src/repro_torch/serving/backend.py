@@ -78,9 +78,40 @@ Callers never invoke it while a decode step is in flight —
 ``decode_complete`` boundary. Prefill and chunked prefill always route
 logically, as in the reference.
 
-Not yet ported (a later slice): the prefix-KV trio
-(``slice_prefill_kv`` / ``seed_prefill_cache`` / ``read_remote_kv``);
-``supports_prefix_kv`` is False.
+The prefix-KV contract — radix-cache seeding
+--------------------------------------------
+
+``slice_prefill_kv(cache, tokens, start, end)`` copies the KV payload of
+token range ``[start, end)`` out of a batch-1 prefill cache, and
+``seed_prefill_cache(payloads, prefix_len, total_len)`` builds a fresh
+partial-prefill cache whose first ``prefix_len`` positions hold those
+payloads: the handle ``prefill_chunk`` accepts at ``offset ==
+prefix_len``. On insert the ``DPGroup`` slices one payload per KV block
+into its radix tree; on a hit it seeds from the stored blocks and runs
+only the suffix.
+
+* ``payloads`` are consecutive block slices covering ``[0,
+  prefix_len)`` in order.
+* The seeded cache has the buffer length ``prefill_chunk(None, …)``
+  allocates for ``total_len``, so the suffix chunk runs the programs a
+  cold chunk at that offset runs: with the same split (a cold chunk
+  ending at ``prefix_len``), its logits and valid-region KV are
+  bit-identical to the cold prefill's. Against a cold prefill split
+  elsewhere they are the same function only where no MoE capacity
+  drops a token (capacity is set per call from the chunk's token count)
+  and the products' kernels do not change with the row count.
+* Payloads and seeded buffers are fresh tensors, never views of a
+  prefill buffer that a later chunk writes in place.
+* ``supports_prefix_kv`` gates the path; it equals
+  ``supports_chunked_prefill``.
+* **Cross-DP reads (pod-pooled prefix KV).** With a
+  :class:`~repro_torch.serving.kv_cache.PodKVDirectory`, a DP group that
+  misses locally pins another group's cached prefix
+  (``PodKVDirectory.acquire``) and pulls the stored blocks through
+  ``read_remote_kv`` (``xccl/pd_transfer.ub_read``: on one card a
+  device-to-device copy), bit-identical to the owner's payloads. The
+  owner's blocks stay pinned until the borrower releases the pin, on
+  completion or on any cancel path, exactly once.
 """
 from __future__ import annotations
 
@@ -95,6 +126,8 @@ from repro_torch.serving.sampling import (DRAFT, greedy_verify,
                                           sample_tokens, speculative_verify,
                                           step_generator)
 from repro_torch.serving.tokenizer import PAD
+from repro_torch.xccl.pd_transfer import (assemble_chunks, slice_kv_chunk,
+                                          ub_read)
 
 PyTree = Any
 
@@ -117,7 +150,8 @@ class ExecutionBackend(abc.ABC):
     #: True when ``prefill_chunk`` executes incrementally; False ⇒ the
     #: buffering default below.
     supports_chunked_prefill: bool = False
-    #: prefix-KV seeding is not ported yet
+    #: True when the backend can slice per-block KV payloads and seed a
+    #: partial-prefill cache from them (the prefix-KV contract)
     supports_prefix_kv: bool = False
 
     def prefill_chunk(self, cache: Optional[PyTree], tokens: List[int],
@@ -138,6 +172,27 @@ class ExecutionBackend(abc.ABC):
         if len(buf) >= total_len:
             return self.prefill(buf)
         return cache, None
+
+    def slice_prefill_kv(self, cache: PyTree, tokens: List[int],
+                         start: int, end: int) -> PyTree:
+        """The KV payload of token range ``[start, end)`` of a batch-1
+        prefill cache (``tokens`` is the full prompt)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support prefix-KV slicing")
+
+    def seed_prefill_cache(self, payloads: List[PyTree], prefix_len: int,
+                           total_len: int) -> PyTree:
+        """A partial-prefill cache whose ``[0, prefix_len)`` holds the
+        given consecutive block payloads; valid ``prefill_chunk`` input
+        at ``offset == prefix_len``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support prefix-KV seeding")
+
+    def read_remote_kv(self, payloads: List[PyTree]) -> List[PyTree]:
+        """Pull another DP group's stored block payloads (the UB read of
+        the pod-pooled prefix cache, ``xccl/pd_transfer.ub_read``):
+        fresh tensors, bit-identical to the owner's."""
+        return [ub_read(p) for p in payloads]
 
     @abc.abstractmethod
     def write_slot(self, cache: PyTree, cache1: PyTree,
@@ -261,7 +316,7 @@ class TorchBackend(ExecutionBackend):
         """One chunk over the full-length cache buffer (written in place),
         padded to its bucket exactly as the reference pads it: the pad
         tokens go through the router too."""
-        Lc = min(_bucket_len(max(total_len, 1)), self.max_len)
+        Lc = self._chunk_buffer_len(total_len)
         if cache is None:
             if offset != 0:
                 raise ValueError("first chunk must start at offset 0")
@@ -273,6 +328,40 @@ class TorchBackend(ExecutionBackend):
             self.params, cache, self._ints(padded)[None], offset,
             self._ints([n - 1]))
         return cache, logits[0].float().cpu().numpy()
+
+    def _chunk_buffer_len(self, total_len: int) -> int:
+        """The cache length a prompt of ``total_len`` tokens prefills in:
+        ``prefill_chunk`` allocates it and ``seed_prefill_cache`` seeds
+        it, so a seeded suffix runs the shapes of a cold chunk."""
+        return min(_bucket_len(max(total_len, 1)), self.max_len)
+
+    @property
+    def supports_prefix_kv(self) -> bool:
+        """Seeding rides the incremental-prefill machinery."""
+        return self.supports_chunked_prefill
+
+    def slice_prefill_kv(self, cache: PyTree, tokens: List[int],
+                         start: int, end: int) -> PyTree:
+        # a copy: the radix tree keeps it past the prefill buffer's life
+        return slice_kv_chunk(cache, start, end)
+
+    @torch.no_grad()
+    def seed_prefill_cache(self, payloads: List[PyTree], prefix_len: int,
+                           total_len: int) -> PyTree:
+        """Copy the payloads into ``[0, prefix_len)`` of a fresh cache of
+        the buffer length a cold chunked prefill of ``total_len`` tokens
+        allocates; the chunks then write only positions past their
+        offset, so the seeded region survives bit-exactly."""
+        fresh = self.model.init_cache(1, self._chunk_buffer_len(total_len),
+                                      device=self.device)
+        kv = assemble_chunks(list(payloads))
+
+        def one(full, part, stacked):
+            ax = 2 if stacked else 1
+            full.narrow(ax, 0, prefix_len).copy_(part.narrow(ax, 0,
+                                                             prefix_len))
+        _map_pairs(one, fresh, kv)
+        return fresh
 
     @torch.no_grad()
     def write_slot(self, cache: PyTree, cache1: PyTree,

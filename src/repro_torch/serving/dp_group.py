@@ -20,9 +20,15 @@ tests). With MTP speculative decoding (§4.6, a backend with ``mtp_k >
 ``4·B·(k+1) + 4·B`` bytes cross: the token block and the accepted
 counts.
 
-Not yet ported (a later slice): prefix-KV seeding from the radix cache
-(the tree here keeps hit statistics only) and the pod-pooled KV
-directory.
+Prefill consults the radix prefix cache: when the backend supports the
+prefix-KV contract (``supports_prefix_kv``), a prompt's full KV blocks
+are stored as payloads on completion, and a later prompt that shares a
+block prefix is seeded from them so only its suffix runs (a chunk the
+cache covers entirely is skipped). With a
+:class:`~repro_torch.serving.kv_cache.PodKVDirectory` the group publishes
+its blocks pod-wide and, on a longer hit elsewhere, pins the owner's
+blocks and reads them through ``read_remote_kv``; the pin is released
+exactly once, on completion or on any cancel path.
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ import numpy as np
 
 from repro_torch.serving.backend import ExecutionBackend
 from repro_torch.serving.gc_control import ProactiveGC, pin_to_core
-from repro_torch.serving.kv_cache import BlockAllocator, RadixTree
+from repro_torch.serving.kv_cache import (BlockAllocator, PodKVDirectory,
+                                          RadixTree, RemotePin)
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.scheduler import DPStatus
 from repro_torch.serving.tokenizer import PAD, ByteTokenizer
@@ -65,20 +72,32 @@ class DPGroup:
                  max_batch: int = 4, max_len: int = 256,
                  n_kv_blocks: int = 512, block_size: int = 16,
                  n_cache_blocks: Optional[int] = None,
-                 gc_every: int = 200, pin_core: Optional[int] = None):
+                 gc_every: int = 200, pin_core: Optional[int] = None,
+                 pod_directory: Optional[PodKVDirectory] = None):
         self.dp_id = dp_id
         self.backend = backend
         self.max_batch = max_batch
         self.max_len = max_len
         self.tokenizer = ByteTokenizer()
         self.allocator = BlockAllocator(n_kv_blocks, block_size)
-        # the radix prefix cache keeps hit statistics for TE routing
-        # (its own block pool, so cached-but-unreferenced prefixes never
-        # count against live requests in the kv_usage balancing of §4.3)
+        # the radix prefix cache pages its stored KV out of its OWN block
+        # pool, so cached-but-unreferenced KV never counts against live
+        # requests in the kv_usage balancing of §4.3
         self.prefix_cache = RadixTree(
             capacity_blocks=(n_kv_blocks if n_cache_blocks is None
                              else n_cache_blocks),
             block_size=block_size)
+        # payload storage and seeding only when the backend can slice KV
+        # and resume mid-prompt; otherwise the tree keeps hit statistics
+        self._prefix_kv = bool(backend.supports_prefix_kv
+                               and backend.supports_chunked_prefill)
+        # pod-pooled prefix KV: publish this group's cached blocks and
+        # seed from other groups' blocks on a longer remote hit
+        self.pod_dir = pod_directory if self._prefix_kv else None
+        if self.pod_dir is not None:
+            self.pod_dir.register(dp_id, self.prefix_cache)
+        self.n_remote_hits = 0
+        self.remote_hit_blocks = 0
         self.gc_ctl = ProactiveGC(gc_every)
         pin_to_core(pin_core)
 
@@ -113,6 +132,12 @@ class DPGroup:
         # chunked prefill: req_id → backend-opaque partial-prefill cache
         # (dropped when the final chunk completes or the request leaves)
         self._chunk_caches: Dict[int, PyTree] = {}
+        # req_id → locked radix path while the request seeds from it
+        self._chunk_locks: Dict[int, List[Any]] = {}
+        # req_id → remote pin on another group's blocks while this
+        # request seeds from them (released exactly once, through
+        # _unlock_chunk, on completion or cancellation)
+        self._chunk_pins: Dict[int, RemotePin] = {}
 
     # ------------------------------------------------------------------
     # output shortcutting worker
@@ -128,44 +153,195 @@ class DPGroup:
     # ------------------------------------------------------------------
     # prefill path
     # ------------------------------------------------------------------
+    def _cache_insert(self, toks: List[int], cache: PyTree) -> None:
+        """Store the prompt's full KV blocks in the radix cache (the
+        slicer runs only for blocks not cached yet); without prefix-KV
+        support the tree keeps hit statistics only."""
+        if self._prefix_kv:
+            self.prefix_cache.insert(
+                toks,
+                lambda s, e: self.backend.slice_prefill_kv(
+                    cache, toks, s, e))
+        else:
+            self.prefix_cache.insert(toks)
+
+    def _clip(self, req: Request) -> List[int]:
+        """Context clipping: a prompt must leave room for generation
+        inside this group's cache, so keep its TAIL (engines clip at
+        submit; this is the safety net for direct callers)."""
+        toks = req.prompt_tokens
+        limit = max(self.max_len - req.max_new_tokens - 1, 16)
+        if len(toks) > limit:
+            toks = toks[-limit:]
+            req.prompt_tokens = toks
+            req.prefill_pos = min(req.prefill_pos, len(toks))
+        return toks
+
+    def run_prefill(self, req: Request) -> Tuple[PyTree, np.ndarray]:
+        """Prefill a whole prompt. Returns ``(batch-1 cache,
+        last-position logits [V])``.
+
+        A radix-cache hit (local, or a longer one elsewhere in the pod)
+        seeds a fresh prefill cache from the stored block payloads and
+        runs only the suffix through ``prefill_chunk`` (the match is
+        capped below the prompt length, so a real forward always gives
+        the last token's logits)."""
+        toks = self._clip(req)
+        m = self.prefix_cache.match_blocks(toks) if self._prefix_kv \
+            else None
+        local = m.n_tokens if (m is not None and m.n_blocks > 0
+                               and m.has_payloads) else 0
+        pin = self._acquire_remote(toks, local)
+        if pin is not None:
+            try:
+                payloads = self.backend.read_remote_kv(pin.payloads)
+                seeded = self.backend.seed_prefill_cache(
+                    payloads, pin.n_tokens, len(toks))
+                cache, logits = self.backend.prefill_chunk(
+                    seeded, toks[pin.n_tokens:], pin.n_tokens, len(toks))
+            finally:
+                self.pod_dir.release(pin)
+            req.prefix_hit_tokens = max(req.prefix_hit_tokens,
+                                        pin.n_tokens)
+        elif local > 0:
+            self.prefix_cache.lock(m.nodes)
+            try:
+                seeded = self.backend.seed_prefill_cache(
+                    m.payloads, m.n_tokens, len(toks))
+                cache, logits = self.backend.prefill_chunk(
+                    seeded, toks[m.n_tokens:], m.n_tokens, len(toks))
+            finally:
+                self.prefix_cache.unlock(m.nodes)
+            req.prefix_hit_tokens = max(req.prefix_hit_tokens, m.n_tokens)
+        else:
+            cache, logits = self.backend.prefill(toks)
+        logits = np.asarray(logits, np.float32)
+        self._cache_insert(toks, cache)
+        return cache, logits
+
+    def _seed_first_chunk(self, req: Request, toks: List[int],
+                          work) -> Optional[int]:
+        """On a request's first chunk, seed its partial cache from the
+        best cached prefix: a remote pin when it covers more than the
+        local hit, else the local path (locked). Returns the position
+        the chunk resumes at, or None when the cache covers the whole
+        chunk: it is skipped and ``prefill_pos`` jumps past the seed."""
+        m = self.prefix_cache.match_blocks(toks)
+        local = m.n_tokens if (m.n_blocks > 0 and m.has_payloads) else 0
+        pin = self._acquire_remote(toks, local)
+        if pin is not None:
+            # the pin stays held until the prefill completes or is
+            # dropped: both release it through _unlock_chunk
+            self._chunk_pins[req.req_id] = pin
+            payloads = self.backend.read_remote_kv(pin.payloads)
+            n = pin.n_tokens
+        elif local > 0:
+            self.prefix_cache.lock(m.nodes)
+            self._chunk_locks[req.req_id] = m.nodes
+            payloads, n = m.payloads, m.n_tokens
+        else:
+            return work.start
+        self._chunk_caches[req.req_id] = self.backend.seed_prefill_cache(
+            payloads, n, len(toks))
+        req.prefix_hit_tokens = n
+        self.allocator.extend(req.req_id, n)
+        if n >= work.end:
+            req.prefill_pos = max(req.prefill_pos, n)
+            return None
+        return n
+
     def run_prefill_chunk(self, work) -> Optional[Tuple[PyTree,
                                                         np.ndarray]]:
         """Execute one :class:`~repro_torch.serving.scheduler.ChunkWork`
-        via the backend's ``prefill_chunk`` contract. Blocks are
+        via the backend's ``prefill_chunk`` contract.
+
+        On the FIRST chunk the radix cache (and the pod directory) is
+        consulted: a matched block prefix seeds the partial cache from
+        stored KV, advances ``req.prefill_pos`` past fully cached chunks
+        (the scheduler then emits only suffix chunks) and stays locked
+        or pinned until the prefill completes or is dropped. Blocks are
         allocated chunk-granularly — the request only holds blocks for
         tokens prefilled so far.
 
         Returns ``(batch-1 cache, last-position logits [V])`` once the
         prompt's prefill COMPLETES (final chunk); ``None`` while chunks
-        are still outstanding."""
+        are still outstanding or when this chunk was skipped entirely
+        off a cache hit."""
         req = work.req
-        toks = req.prompt_tokens
-        # context clipping: a prompt must leave room for generation inside
-        # this DP's cache — keep the TAIL (engines clip at submit; this is
-        # the safety net for direct callers)
-        limit = max(self.max_len - req.max_new_tokens - 1, 16)
-        if len(toks) > limit and work.is_first:
-            toks = toks[-limit:]
-            req.prompt_tokens = toks
-            req.prefill_pos = min(req.prefill_pos, len(toks))
+        toks = self._clip(req) if work.is_first else req.prompt_tokens
+        start = work.start
         if work.is_first:
             self.drop_partial_prefill(req)
+            if self._prefix_kv:
+                start = self._seed_first_chunk(req, toks, work)
+                if start is None:
+                    return None
         end = min(work.end, len(toks))
         self.allocator.extend(req.req_id, end)
         cache, logits = self.backend.prefill_chunk(
-            self._chunk_caches.pop(req.req_id, None), toks[work.start:end],
-            work.start, len(toks))
+            self._chunk_caches.pop(req.req_id, None), toks[start:end],
+            start, len(toks))
         if work.end >= len(toks):             # prompt complete
-            self.prefix_cache.insert(toks)
-            return cache, np.asarray(logits, np.float32)
+            logits = np.asarray(logits, np.float32)
+            self._unlock_chunk(req)
+            self._cache_insert(toks, cache)
+            return cache, logits
         self._chunk_caches[req.req_id] = cache
         return None
 
+    def partial_prefill_cache(self, req: Request) -> Optional[PyTree]:
+        """The partial-prefill cache of an in-flight chunked request
+        (None once complete or absent): disaggregated PD slices finished
+        chunks out of it to stream KV while later chunks compute."""
+        return self._chunk_caches.get(req.req_id)
+
+    def _acquire_remote(self, toks: List[int],
+                        local_tokens: int) -> Optional[RemotePin]:
+        """Pin the best pod-directory prefix STRICTLY longer than the
+        local hit (a remote read is worth its traffic only when it skips
+        compute a local seed would not). Returns a held pin, whose
+        exactly-once release the caller owns, or None."""
+        if self.pod_dir is None:
+            return None
+        owner, n_blocks = self.pod_dir.match(toks, exclude=self.dp_id)
+        if owner is None or \
+                n_blocks * self.prefix_cache.block_size <= local_tokens:
+            return None
+        pin = self.pod_dir.acquire(owner, toks)
+        if pin is None:
+            return None
+        if pin.n_tokens <= local_tokens or not pin.has_payloads:
+            self.pod_dir.release(pin)
+            return None
+        self.n_remote_hits += 1
+        self.remote_hit_blocks += pin.n_blocks
+        return pin
+
+    @property
+    def pooled_hit_rate(self) -> float:
+        """Cache hit rate INCLUDING pod-directory remote hits: the stat
+        TE routing reads, so a group warm through the pod is not
+        counted cold (local only: ``prefix_cache.hit_rate``)."""
+        c = self.prefix_cache
+        return min((c.hit_blocks + self.remote_hit_blocks)
+                   / max(c.query_blocks, 1), 1.0)
+
+    def _unlock_chunk(self, req: Request) -> None:
+        nodes = self._chunk_locks.pop(req.req_id, None)
+        if nodes:
+            self.prefix_cache.unlock(nodes)
+        pin = self._chunk_pins.pop(req.req_id, None)
+        if pin is not None:
+            self.pod_dir.release(pin)
+
     def drop_partial_prefill(self, req: Request) -> None:
-        """Release a partially-prefilled request's chunk cache and
-        chunk-granular block allocation (failover or cancellation)."""
+        """Release a partially-prefilled request's chunk cache, radix
+        locks, remote pin and chunk-granular block allocation (failover
+        or cancellation)."""
         self._chunk_caches.pop(req.req_id, None)
-        # an admitted request's blocks are freed by _finish instead
+        self._unlock_chunk(req)
+        # chunk-granular blocks of an unfinished prefill go back to the
+        # pool (an admitted request's blocks are freed by _finish)
         if all(s.req is not req for s in self.slots):
             self.allocator.free(req.req_id, missing_ok=True)
 

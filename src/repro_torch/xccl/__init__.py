@@ -1,0 +1,18 @@
+"""XCCL's analytic link model and the KV transfer of disaggregated
+Prefill-Decode (§5.1)."""
+from repro_torch.xccl.pd_transfer import (TransferPlan, assemble_chunks,
+                                          chunk_stream_time,
+                                          execute_transfer, plan_transfer,
+                                          pytree_bytes, slice_kv_chunk,
+                                          ub_read, ub_read_time)
+from repro_torch.xccl.topology import (CHIP_CLASSES, FABRICS, PodSpec,
+                                       PodTopology, SuperPod,
+                                       best_transfer_time)
+
+__all__ = [
+    "CHIP_CLASSES", "FABRICS", "PodSpec", "PodTopology", "SuperPod",
+    "best_transfer_time",
+    "TransferPlan", "assemble_chunks", "chunk_stream_time",
+    "execute_transfer", "plan_transfer", "pytree_bytes", "slice_kv_chunk",
+    "ub_read", "ub_read_time",
+]

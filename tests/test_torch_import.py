@@ -46,6 +46,11 @@ def test_import_loads_no_jax_and_no_reference_package():
             for f in ("kernel", "ops", "ref")} <= on_disk
     assert {f"repro_torch.quant.{m}" for m in
             ("int8", "smoothquant", "gptq", "kvcache_quant")} <= on_disk
+    # disaggregated PD: the core and xccl subpackages, and DistFlow
+    assert {"repro_torch.core", "repro_torch.core.pd_disagg",
+            "repro_torch.xccl", "repro_torch.xccl.topology",
+            "repro_torch.xccl.pd_transfer",
+            "repro_torch.serving.distflow"} <= on_disk
 
 
 @pytest.mark.parametrize("needle", ["import jax", "from jax", "import repro.",
@@ -70,6 +75,9 @@ def test_engine_defaults_to_the_card():
     from repro_torch.serving.flowserve import FlowServeEngine
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FlowServeEngine(get_config("deepseek-v3-671b-smoke"))
+    from repro_torch.core import DisaggregatedPD
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DisaggregatedPD(get_config("deepseek-v3-671b-smoke"))
 
 
 def test_backend_and_model_init_default_to_the_card():

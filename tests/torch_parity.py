@@ -28,6 +28,8 @@ CONFIGS = {
     "deepseek-v3": (ARCH, {}),
     "llama4-gqa": ("llama4-maverick-400b-a17b-smoke",
                    {"num_heads": 10, "num_kv_heads": 2, "head_dim": 32}),
+    "llama4": ("llama4-maverick-400b-a17b-smoke", {}),
+    "internlm2": ("internlm2-1.8b-smoke", {}),
 }
 
 
