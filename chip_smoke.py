@@ -145,6 +145,29 @@ B. disaggregated Prefill-Decode (§5.1, ``DisaggregatedPD``) on that
    chain and fill pass beside the plain ``decode_sample`` from the same
    state (``torch.profiler``), and a decode profile of the engine, each
    printed beside the plain path's;
+E. disaggregated MoE-Attention (§5.2, ``DisaggregatedMoEAttention``)
+   on that engine's weights and EPLB table, at B 96 from a cache the
+   port prefilled with prompts of 16-200 random tokens (ragged
+   positions): microbatches 1 and 2 x the INT8 wire format off and on x
+   no placement and the engine's table, 16 decode steps each, teacher-
+   forced by ``Model(decode_microbatches=m)``'s greedy tokens at the
+   model's capacity factor (so the buckets are equal), launch counts set
+   to 0 just before the disaggregated runs and read just after, each
+   ``decode_step`` under ``torch.cuda.set_sync_debug_mode("error")``:
+   the slots each step writes bit-identical to the monolithic step's
+   and the whole cache after the last step too (the only MoE layer is
+   the last one, so the KV never depends on an FFN's add order); logits
+   within 0.05 relative; the first step twice from one cache
+   bit-identical; 16 steps run free, their greedy agreement reported
+   beside the dropped assignments per step and the INT8 wire's logit
+   error; route-pack (with and without its quantize branch), gmm and
+   placement_gmm launched, Collect not; each variant's first pack and
+   grouped FFN replayed on the plain versions (exact, 3e-2); one MoE
+   layer's stages timed at microbatches 2 (attention half, pack, expert
+   half, unpack and combine) into a ``StageTimes`` fed to the Fig. 19
+   pipeline of the full model on 768 dies (labelled modeled); one
+   disaggregated and one monolithic step's device time, and the
+   disaggregated step's device idle share under the profiler;
 7. check the output by the repository's own means: every request
    finished with its tokens, the logits are finite, and on the smoke
    DeepSeek-V3 (float32) the engine on the card gives the same greedy
@@ -154,7 +177,15 @@ B. disaggregated Prefill-Decode (§5.1, ``DisaggregatedPD``) on that
    wave under the oracle head, so full and partial blocks are among
    them); and the smoke DeepSeek-V3 through ``DisaggregatedPD`` with
    the pod directory (C) on the card and on the CPU: the same TE
-   choices, hits, skipped chunks, streams and greedy tokens;
+   choices, hits, skipped chunks, streams and greedy tokens; and
+   through ``DisaggregatedMoEAttention`` (F) in stage E's eight
+   configurations (an EPLB table of six slots), 8 free-running greedy
+   tokens on 6 ragged slots, equal on the card and the CPU;
+G. the port's launcher (``repro_torch.launch.serve.main``) in-process
+   on the card: ``--arch deepseek-v3-671b`` and no other flag (the smoke
+   config, 16 greedy tokens), then both modes on the smoke DeepSeek-V3
+   in float32 with its weights made on the CPU from the seed: the
+   printed lines and the token ids behind them equal the CPU's;
 
 Llama-4 Maverick (GQA + top-1 MoE with a shared expert), after the
 DeepSeek-V3 engine is freed:
@@ -205,6 +236,9 @@ D. prefix seeding on that engine, launch counts set to 0 just before
    attention; on the backend, the same split
    (0, 512), (512, 816), (816, 826) against a seed from its payloads:
    logits and valid-region KV bit-identical;
+E. (Llama-4) stage E on that engine's weights and EPLB table (130
+   slots), ``max_len`` 1024, B 96: its GQA layers' decode attention
+   launched from the attention half, and replayed on the plain version;
 12. the smoke Llama-4 with G = 5 (float32): the engine on the card gives
     the CPU's greedy tokens, before and after EPLB;
 
@@ -215,6 +249,7 @@ D. prefix seeding on that engine, launch counts set to 0 just before
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -294,7 +329,7 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def profile_calls(fn, reps: int = 20, warm: int = 3, tries: int = 3) -> dict:
+def profile_calls(fn, reps: int = 20, warm: int = 3, tries: int = 6) -> dict:
     """``fn`` under ``torch.profiler`` over ``reps`` calls after warm-up:
     ``device_ms``, the CUDA kernels' own time per call, ``per_call``, the
     device kernels and memsets per call, and their ``names``, all from
@@ -305,15 +340,18 @@ def profile_calls(fn, reps: int = 20, warm: int = 3, tries: int = 3) -> dict:
     count over ``reps``, rounded); more rarely it records nothing in a
     window, or drops most of one kernel's events (seen in fewer than
     half the calls), and the window is then profiled again, up to
-    ``tries`` times. After that the last window that recorded anything
-    is returned, or every figure is None: "not measured", never 0."""
+    ``tries`` times, each retry a little later than the last (one run
+    lost three windows in a row). After that the last window that
+    recorded anything is returned, or every figure is None: "not
+    measured", never 0."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     got = dict(device_ms=None, per_call=None, names=[])
-    for _ in range(tries):
+    for attempt in range(tries):
+        time.sleep(0.25 * attempt)       # spread the retries out in time
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -348,7 +386,7 @@ def one_launch(prof: dict, name: str, what: str) -> None:
 
 
 def profile_turns(fa, fb, reps: int = 20, warm: int = 3,
-                  tries: int = 3) -> tuple:
+                  tries: int = 6) -> tuple:
     """Device ms per call of ``fa`` and of ``fb`` called in turn (a, b,
     b, a, ...) in one ``torch.profiler`` window, each the sum of its own
     kernels' mean times (:func:`profile_calls` names them in a window of
@@ -361,7 +399,8 @@ def profile_turns(fa, fb, reps: int = 20, warm: int = 3,
     na, nb = set(pa["names"]), set(pb["names"])
     check(bool(na) and bool(nb) and not na & nb,
           f"profile_turns: kernels told apart by name ({na} and {nb})")
-    for _ in range(tries):
+    for attempt in range(tries):
+        time.sleep(0.25 * attempt)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(2 * reps):
                 (fa, fb)[(i + i // 2) % 2]()
@@ -2287,6 +2326,599 @@ def llama_prefix(engine) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# stages E-G: disaggregated MoE-Attention (§5.2) and the launcher
+# ---------------------------------------------------------------------------
+#: the paper's decode batch per attention die, and the decode steps run
+#: in each configuration of the MoE-Attention stage
+MA_BATCH, MA_STEPS = 96, 16
+#: (microbatches, quantize, placement) of the disaggregated driver; a
+#: quantize=False configuration comes before its quantize=True twin
+MA_CONFIGS = [(m, q, p) for p in (False, True) for m in (1, 2)
+              for q in (False, True)]
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Raise on any host sync PyTorch makes inside the block."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def sync_detector_controls() -> dict:
+    """The host-sync detector is armed: ``.item()`` inside
+    :func:`no_host_sync` must raise. Also reports whether a copy of a
+    numpy array to the card raises there, as ``apply_rope`` made on every
+    call before it kept its frequencies on the card."""
+    import numpy as np
+
+    def raises(fn) -> bool:
+        try:
+            with no_host_sync():
+                fn()
+        except RuntimeError:
+            return True
+        return False
+    res = dict(item=raises(lambda: torch.ones(1, device="cuda").item()),
+               numpy_to_card=raises(lambda: torch.as_tensor(
+                   np.arange(4.0), dtype=torch.float32, device="cuda")))
+    check(res["item"], "no_host_sync raises on .item()")
+    log(f"host-sync detector: .item() raises; a numpy-to-card copy "
+        f"{'raises' if res['numpy_to_card'] else 'does not raise'}")
+    return res
+
+
+def ragged_batch(be, B: int, seed: int = 21, lens=(16, 200)):
+    """A B-slot decode cache prefilled by the port, one prompt of
+    ``lens`` (inclusive) random token ids per slot (so the slots sit at
+    ragged positions), with each slot's greedy first token: (cache,
+    tokens [B, 1] int32, positions [B] int32)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lens[0], lens[1] + 1, B)
+    cache = be.init_cache(B, be.max_len)
+    first = []
+    for i, n in enumerate(lens):
+        cache1, logits = be.prefill(
+            rng.integers(3, be.model.cfg.vocab_size, n).tolist())
+        be.write_slot(cache, cache1, i)
+        first.append(int(logits.argmax()))
+    dev = be.device
+    return (cache, torch.tensor(first, dtype=torch.int32, device=dev)[:, None],
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def written_rows(cache, positions) -> list:
+    """The slot of every cache leaf that a decode step at ``positions``
+    writes (prefix leaves [B, L, ...], stacked ones [n_sb, B, L, ...]),
+    copied."""
+    b = torch.arange(positions.shape[0], device=positions.device)
+    p = positions.long()
+    return ([leaf[b, p].clone() for layer in cache.get("prefix", ())
+             for leaf in layer.values()]
+            + [leaf[:, b, p].clone() for pos in cache["blocks"].values()
+               for leaf in pos.values()])
+
+
+def step_profile(fn, steps: int = 4) -> dict:
+    """``fn`` (one decode step) ``steps`` times under ``torch.profiler``:
+    device busy ms per step (the CUDA kernels' own time), the host-clock
+    ms per step of the same window, and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) / steps * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3 / steps
+    check(0 < busy <= wall, f"device busy {busy} ms within the profiled "
+                            f"step's {wall} ms")
+    return dict(device_busy_ms=busy, profiled_step_ms=wall,
+                device_idle_share=1.0 - busy / wall)
+
+
+class DisaggRecorder:
+    """Stands in for the disaggregated driver's route-pack and grouped
+    FFN entry points and the attention module's decode attention: counts
+    the calls by variant, keeps each pack's keep mask on the card (the
+    dropped assignments, read after each step) and the inputs of the
+    first call of each variant, for the replay against the plain
+    versions. Copies nothing to the host."""
+
+    def __init__(self, pack, ffn, attend):
+        self.pack, self.ffn, self.attend = pack, ffn, attend
+        self.calls, self.first, self.keeps = {}, {}, []
+
+    def _note(self, key, make):
+        self.calls[key] = self.calls.get(key, 0) + 1
+        if key not in self.first:
+            self.first[key] = make()
+
+    def route_pack(self, x, dest, valid=None, eid=None, **kw):
+        key = ("route_pack", kw["n_dest"], bool(kw.get("quantize")))
+        self._note(key, lambda: (x.clone(), dest.clone(), dict(kw)))
+        out = self.pack(x, dest, valid, eid, **kw)
+        self.keeps.append(out.keep)
+        return out
+
+    def expert_ffn(self, buckets, wg, wu, wd, *, phys_owner=None):
+        key = ("gmm" if phys_owner is None else "placement_gmm",
+               buckets.shape[0])
+        self._note(key, lambda: (buckets.clone(), (wg, wu, wd),
+                                 phys_owner))
+        return self.ffn(buckets, wg, wu, wd, phys_owner=phys_owner)
+
+    def decode_attention(self, q, k, v, positions, **kw):
+        self._note(("decode_attention",), lambda: (
+            q.clone(), k.clone(), v.clone(), positions.clone(), kw))
+        return self.attend(q, k, v, positions, **kw)
+
+    def dropped(self) -> int:
+        n = sum(int((~k).sum()) for k in self.keeps)
+        self.keeps.clear()
+        return n
+
+
+def replay_disagg(rec: DisaggRecorder) -> dict:
+    """The path's first call of each variant again on the kernel and on
+    its plain version: route-pack exactly, the grouped FFNs within 3e-2
+    (bf16), decode attention within 3e-2 absolute and scaled by the
+    output. Returns the largest error by kernel."""
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_ref
+    from repro_torch.kernels.gmm.kernel import gmm_cuda
+    from repro_torch.kernels.gmm.ref import gmm_ref, placement_gmm_ref
+    from repro_torch.kernels.route_pack.kernel import route_pack_cuda
+    from repro_torch.kernels.route_pack.ref import route_pack_ref
+
+    errs = {}
+    for key, args in rec.first.items():
+        name, what = key[0], f"moe-attn path {key}"
+        if name == "route_pack":
+            x, dest, kw = args
+            err = pack_err(route_pack_cuda(x, dest, None, None, **kw),
+                           route_pack_ref(x, dest, None, None, **kw), what)
+        elif name == "decode_attention":
+            q, k, v, pos, kw = args
+            err, _ = held_attention(decode_attention_cuda(q, k, v, pos, **kw),
+                                    decode_attention_ref(q, k, v, pos, **kw),
+                                    3e-2, what)
+        else:
+            b, ws, own = args
+            want = (gmm_ref(b, *ws) if own is None
+                    else placement_gmm_ref(b, *ws, own))
+            err = (gmm_cuda(b, *ws, own) - want).abs().max().item()
+            check(err <= 3e-2, f"{what}: max abs err {err} <= 3e-2")
+        errs[name] = max(errs.get(name, 0.0), err)
+    torch.cuda.synchronize()
+    return errs
+
+
+def moe_attn_stage_times(dis, params, cache, tokens, positions) -> dict:
+    """One MoE layer's four stages at microbatch 0 of the driver's split
+    (CUDA events, median of 20, and device time under the profiler):
+    the attention half, the pack (A2E, no wire on one card), the expert
+    half and the unpack-and-combine (E2A), on a copy of ``cache``; and
+    the whole layer at the full batch. Returns seconds per stage, as
+    ``StageTimes`` takes them (a device time the profiler did not
+    record is None)."""
+    from repro_torch.configs.base import MOE
+    from repro_torch.core import moe_attn_disagg as mad
+    from repro_torch.models.common import microbatch_sizes, tree_map
+
+    cfg = dis.cfg
+    e = cfg.moe
+    layer_i = next(i for i, (_, f) in enumerate(cfg.layer_kinds())
+                   if f == MOE)
+    p, loc = dis._block_params(layer_i)
+    cache = tree_map(torch.clone, cache)
+    c = dis._layer_cache(cache, loc)
+    sz = microbatch_sizes(tokens.shape[0], dis.microbatches)[0]
+    x = dis.model._embed(params, tokens[:sz])
+    cm = {n: t[:sz] for n, t in c.items()}
+    lp = dis.placement.layer(layer_i) if dis.placement is not None else None
+    n_dest = e.num_experts if lp is None else int(lp[2].shape[0])
+    owner = None if lp is None else lp[2]
+    cap = mad.chunk_cap(sz, n_dest, e.top_k, dis.capacity_factor)
+
+    def attn():
+        return mad.attention_half(p, x, cfg=cfg, cache=cm,
+                                  positions=positions[:sz])
+    _, hn, idx, w, _, _ = attn()
+
+    def pack():
+        return mad.pack_dispatch(hn, idx, w, n_dest, cap, dis.quantize,
+                                 placement=None if lp is None
+                                 else (lp[0], lp[1]))
+    buckets, state = pack()
+
+    def experts():
+        return mad.expert_half(p["ffn"], buckets, owner)
+    out_b = experts()
+    d = cfg.d_model
+    xf = dis.model._embed(params, tokens)
+    fns = dict(t_attn=attn, t_a2e=pack,
+               t_a2e_quantize=lambda: mad.pack_dispatch(
+                   hn, idx, w, n_dest, cap, True, placement=None
+                   if lp is None else (lp[0], lp[1])),
+               t_moe=experts,
+               t_e2a=lambda: mad.unpack_combine(out_b, state, sz, d, cap),
+               layer_full_batch=lambda: dis.moe_layer(layer_i, p, xf, c,
+                                                      positions))
+    dev = {k: device_ms(f) for k, f in fns.items()}
+    return dict(events_s={k: time_ms(f) / 1e3 for k, f in fns.items()},
+                device_s={k: None if v is None else v / 1e3
+                          for k, v in dev.items()})
+
+
+def moe_attn_stage(be) -> dict:
+    """Stage E: ``DisaggregatedMoEAttention`` on the served engine's
+    weights and EPLB table (``be``: its first DP group's backend, the
+    placement installed), at B 96 from a cache the port prefilled with
+    prompts of 16-200 tokens. Every configuration (microbatches 1 and 2,
+    quantize off and on, no placement and the engine's table) runs 16
+    decode steps teacher-forced by ``Model(decode_microbatches=m)``'s
+    greedy tokens, with the launch counts set to 0 just before the
+    disaggregated runs and read just after, each ``decode_step`` with
+    host syncs made errors: the slots each step writes equal the
+    monolithic step's bit for bit, the whole cache after the last step
+    too; logits within 0.05 relative; the first step run twice from one
+    cache bit-identical; then 16 steps run free, whose greedy agreement
+    with the monolithic tokens is reported, beside the dropped
+    assignments per step and the quantize=True logit error. The path's
+    first pack, grouped FFN and decode attention of each variant are
+    replayed on their plain versions; one MoE layer's stages are timed
+    (microbatches 2) into a ``StageTimes`` and fed to the Fig. 19
+    pipeline model of the full model on 768 dies, and one disaggregated
+    and one monolithic step are profiled."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import moe_attn_disagg as mad
+    from repro_torch.core import (DisaggregatedMoEAttention, DomainPipeline,
+                                  StageTimes, plan_partition)
+    from repro_torch.kernels import runtime
+    from repro_torch.models import attention as A
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import Model
+
+    cfg, params, table = be.model.cfg, be.params, be._placement
+    check(table is not None, "the engine's EPLB table is installed")
+    B, T = MA_BATCH, MA_STEPS
+    t0 = time.monotonic()
+    cache0, tok0, pos0 = ragged_batch(be, B)
+    check(int(pos0.max()) + T < be.max_len, "every step fits the cache")
+    build_s = time.monotonic() - t0
+
+    def clone():
+        return tree_map(torch.clone, cache0)
+
+    def relerr(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp(min=1e-12)).item()
+
+    # the monolithic runs: teacher tokens, logits, written slots, caches
+    mono = {}
+    with torch.no_grad():
+        for m in (1, 2):
+            model = Model(cfg, decode_microbatches=m)
+            for placed in (False, True):
+                c, tok, pos = clone(), tok0, pos0
+                run = dict(tokens=[], logits=[], rows=[])
+                for _ in range(T):
+                    logits, _ = model.decode_step(
+                        params, c, tok, pos,
+                        placement=table if placed else None)
+                    run["rows"].append(written_rows(c, pos))
+                    run["logits"].append(logits)
+                    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+                    run["tokens"].append(tok)
+                    pos = pos + 1
+                run["cache"] = c
+                mono[m, placed] = run
+    torch.cuda.synchronize()
+
+    # the disaggregated runs: the stage's main path
+    rec = DisaggRecorder(mad.fused_route_pack, mad.expert_ffn,
+                         A.decode_attention)
+    res = dict(batch=B, steps=T, cache_build_s=build_s,
+               positions=[int(pos0.min()), int(pos0.max())], configs={},
+               sync_detector=sync_detector_controls())
+    unquantized = {}
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    with mock.patch.object(mad, "fused_route_pack", rec.route_pack), \
+            mock.patch.object(mad, "expert_ffn", rec.expert_ffn), \
+            mock.patch.object(A, "decode_attention", rec.decode_attention), \
+            torch.no_grad():
+        for m, q, placed in MA_CONFIGS:
+            what = f"{cfg.name} moe-attn mb={m} quantize={q} placed={placed}"
+            dis = DisaggregatedMoEAttention(
+                Model(cfg), params, capacity_factor=cfg.moe.capacity_factor,
+                quantize=q, microbatches=m,
+                placement=table if placed else None)
+            ref = mono[m, placed]
+            c, tok, pos = clone(), tok0, pos0
+            errs, drops, logits_all = [], [], []
+            rec.dropped()
+            for s in range(T):
+                with no_host_sync():
+                    logits, out = dis.decode_step(c, tok, pos)
+                check(out is c, f"{what}: the cache written in place")
+                drops.append(rec.dropped())
+                rows = written_rows(c, pos)
+                check(all(torch.equal(a, b)
+                          for a, b in zip(rows, ref["rows"][s])),
+                      f"{what}: step {s} writes the monolithic step's KV "
+                      f"bit for bit")
+                errs.append(relerr(logits, ref["logits"][s]))
+                logits_all.append(logits)
+                tok, pos = ref["tokens"][s], pos + 1
+            check(kv_equal(c, ref["cache"]),
+                  f"{what}: the whole cache after {T} steps bit-identical "
+                  f"to the monolithic one's")
+            check(max(errs) < 0.05, f"{what}: logits within 0.05 relative "
+                                    f"of the monolithic step's: {errs}")
+            # the first step twice from one cache
+            twice = []
+            for _ in range(2):
+                with no_host_sync():
+                    twice.append(dis.decode_step(clone(), tok0, pos0)[0])
+            check(torch.equal(twice[0], twice[1]),
+                  f"{what}: a step run twice gives bit-identical logits")
+            # run free: its own greedy tokens
+            c, tok, pos, same = clone(), tok0, pos0, []
+            for s in range(T):
+                with no_host_sync():
+                    logits, _ = dis.decode_step(c, tok, pos)
+                tok, pos = logits.argmax(-1, keepdim=True).to(torch.int32), \
+                    pos + 1
+                same.append(tok == ref["tokens"][s])
+            same = torch.cat(same, dim=1)
+            rec.dropped()
+            r = dict(logit_rel_err_max=max(errs), logit_rel_err=errs,
+                     dropped_per_step=drops,
+                     dropped_mean=statistics.mean(drops),
+                     free_run_agreement=same.float().mean().item(),
+                     free_run_rows_equal=int(same.all(dim=1).sum()))
+            if q:
+                qerr = [relerr(a, b) for a, b in
+                        zip(logits_all, unquantized.pop((m, placed)))]
+                r["quantize_vs_off_logit_rel_err_max"] = max(qerr)
+            else:
+                unquantized[m, placed] = logits_all
+            res["configs"][f"mb{m}-q{int(q)}-p{int(placed)}"] = r
+            log(f"{what}: KV bit-identical over {T} steps, logits rel err "
+                f"max {r['logit_rel_err_max']:.3e}, repeat bit-identical, "
+                f"no host sync; dropped {r['dropped_mean']:.2f} of "
+                f"{B * cfg.moe.top_k} assignments a step; free-run "
+                f"greedy agreement {r['free_run_agreement']:.4f} "
+                f"({r['free_run_rows_equal']} of {B} rows all {T} equal)"
+                + (f"; quantize vs off logit rel err "
+                   f"{r['quantize_vs_off_logit_rel_err_max']:.3e}" if q
+                   else ""))
+        torch.cuda.synchronize()
+        launches, fused = dict(runtime.LAUNCHES), dict(runtime.FUSED)
+    del mono, unquantized
+    want = {"route_pack", "gmm", "placement_gmm"} | (
+        {"decode_attention"} if cfg.layer_kinds()[-1][0] == "attn" else set())
+    check(all(launches.get(n, 0) > 0 for n in want)
+          and fused.get("collect", 0) == 0,
+          f"{cfg.name} moe-attn: {sorted(want)} launched, no Collect: "
+          f"{launches}, {fused}")
+    check(sum(n for key, n in rec.calls.items()
+              if key[0] == "route_pack" and key[2]) > 0,
+          "route-pack's quantize branch served the decode steps")
+    res.update(launches=launches, fused=fused,
+               calls_by_variant={str(k): n for k, n in rec.calls.items()})
+    errs = replay_disagg(rec)
+    del rec
+
+    # stage times and the pipeline model, microbatches 2, no placement
+    dis = DisaggregatedMoEAttention(Model(cfg), params,
+                                    capacity_factor=cfg.moe.capacity_factor,
+                                    microbatches=2)
+    with torch.no_grad():
+        st = moe_attn_stage_times(dis, params, cache0, tok0, pos0)
+        full = get_config(cfg.name)
+        # the device times (a persistent-kernel deployment keeps the
+        # host out of the loop), the event times where one is missing
+        fed = ("device_s" if all(v is not None
+                                 for v in st["device_s"].values())
+               else "events_s")
+        times = StageTimes(*(st[fed][k] for k in ("t_attn", "t_a2e",
+                                                  "t_moe", "t_e2a")))
+        plan = plan_partition(full, 768)
+        pipe = DomainPipeline(plan, times, full.num_layers)
+        sched, steady = pipe.schedule(), pipe.steady_state()
+        scratch = clone()
+        mono2 = Model(cfg, decode_microbatches=2)
+        dis_ms = device_ms(lambda: dis.decode_step(scratch, tok0, pos0))
+        mono_ms = device_ms(lambda: mono2.decode_step(params, scratch, tok0,
+                                                      pos0))
+        prof = step_profile(lambda: dis.decode_step(scratch, tok0, pos0))
+    res.update(
+        stage_times_s=st,
+        modeled_from_h100_stage_times=dict(
+            plan=dataclasses.asdict(plan), n_layers=full.num_layers,
+            stage_times=fed,
+            schedule_iteration_s=sched.iteration_time,
+            schedule_expert_busy=sched.expert_busy,
+            schedule_attention_busy=sched.attention_busy,
+            steady_iteration_s=steady.iteration_time,
+            steady_expert_busy=steady.expert_busy,
+            steady_attention_busy=steady.attention_busy),
+        disagg_step_device_ms=dis_ms, monolithic_step_device_ms=mono_ms,
+        disagg_step_profile=prof)
+    for kind in ("events_s", "device_s"):
+        log(f"{cfg.name} moe-attn stage ms (B {B}, microbatch of {B // 2},"
+            f" {kind[:-2]}): " + ", ".join(
+                f"{k} {'not measured' if v is None else f'{1e3 * v:.4f}'}"
+                for k, v in st[kind].items()))
+    log(f"{cfg.name} moe-attn, modeled from H100 stage times ({fed[:-2]};"
+        f" not a SuperPod measurement): plan {plan.n_attention} attention + "
+        f"{plan.n_expert} expert dies, {plan.n_dp_domains} domains x "
+        f"{plan.dp_groups_per_domain}, {full.num_layers} layers: "
+        f"schedule {1e3 * sched.iteration_time:.4f} ms per iteration "
+        f"(expert busy {sched.expert_busy:.4f}), steady state "
+        f"{1e3 * steady.iteration_time:.4f} ms (expert busy "
+        f"{steady.expert_busy:.4f})")
+    log(f"{cfg.name} moe-attn decode step at B {B} (mb 2): device "
+        f"{dis_ms} ms disaggregated, {mono_ms} ms monolithic; "
+        f"disaggregated under the profiler {prof['profiled_step_ms']:.3f} "
+        f"ms a step, device busy {prof['device_busy_ms']:.3f}, idle share "
+        f"{prof['device_idle_share']:.4f}")
+    return {n: dict(max_abs_err=e) for n, e in errs.items()}, res
+
+
+def moe_attn_small_reference() -> None:
+    """Stage F: the smoke DeepSeek-V3 (float32) under
+    ``DisaggregatedMoEAttention`` on the card and on the CPU, from
+    ragged caches each device's backend prefilled: in every
+    configuration (microbatches 1 and 2, quantize off and on, no
+    placement and a table replicating two experts) 8 free-running
+    greedy tokens per slot, equal on both."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import DisaggregatedMoEAttention
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.backend import TorchBackend
+    from repro_torch.serving.eplb import (ExpertMap, PlacementTable,
+                                          build_placement_table)
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparison
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(DEEPSEEK + "-smoke"),
+                              dtype="float32")
+    E = cfg.moe.num_experts
+    maps = [None] * cfg.num_layers
+    maps[moe_layers(cfg)[0]] = ExpertMap(E, {1: [1, E], 2: [2, E + 1]})
+    table = build_placement_table(maps, E, pad_physical=E + 2,
+                                  pad_replicas=2)
+    cpu_params = Model(cfg).init(0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        be = TorchBackend(Model(cfg), tree_map(lambda t: t.to(dev),
+                                               cpu_params),
+                          max_len=64, device=dev)
+        tab = PlacementTable(*(torch.as_tensor(a, dtype=torch.int32,
+                                               device=dev)
+                               for a in (table.replica_slots,
+                                         table.n_replicas,
+                                         table.phys_owner)))
+        cache0, tok0, pos0 = ragged_batch(be, 6, seed=5, lens=(4, 40))
+        runs = {"first": tok0.flatten().tolist()}
+        with torch.no_grad():
+            for m, q, placed in MA_CONFIGS:
+                dis = DisaggregatedMoEAttention(
+                    be.model, be.params, quantize=q, microbatches=m,
+                    placement=tab if placed else None)
+                c, tok, pos, toks = tree_map(torch.clone, cache0), tok0, \
+                    pos0, []
+                for _ in range(8):
+                    logits, _ = dis.decode_step(c, tok, pos)
+                    check(bool(torch.isfinite(logits).all()),
+                          "smoke moe-attn: finite logits")
+                    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+                    toks.append(tok.flatten().tolist())
+                    pos = pos + 1
+                runs[m, q, placed] = toks
+        out[dev] = runs
+    check(out["cpu"] == out["cuda"],
+          f"smoke moe-attn: the card's greedy tokens equal the CPU's in "
+          f"every configuration: {out}")
+    log(f"small reference: {cfg.name} (f32) DisaggregatedMoEAttention "
+        f"gives the CPU's greedy tokens on the card in "
+        f"{len(MA_CONFIGS)} configurations (8 steps, 6 ragged slots)")
+
+
+def launcher_stage() -> dict:
+    """Stage G: ``repro_torch.launch.serve.main`` in-process on the card,
+    first as ``--arch deepseek-v3-671b`` and no other flag (the smoke
+    config in bf16, 16 greedy tokens), then in both modes on the smoke
+    DeepSeek-V3 in float32 with its weights made on the CPU from the
+    seed: the printed lines, and the token ids behind them, equal the
+    CPU's."""
+    import io
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.tokenizer import ByteTokenizer
+
+    ids = []
+    real_decode = ByteTokenizer.decode
+
+    def decode(self, toks):
+        ids.append([int(t) for t in toks])
+        return real_decode(self, toks)
+
+    def run(*argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                mock.patch.object(ByteTokenizer, "decode", decode):
+            launch.main(list(argv))
+        return buf.getvalue().splitlines()
+
+    from repro_torch.kernels import runtime
+
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    t0 = time.monotonic()
+    lines = run("--arch", DEEPSEEK)
+    check(len(lines) == 1 and " -> " in lines[0] and len(ids[-1]) == 16,
+          f"launcher, no flag but the arch: one prompt served with 16 "
+          f"tokens on the card: {lines}")
+    default_s = time.monotonic() - t0
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparison
+    torch.backends.cudnn.allow_tf32 = False
+    real_init = Model.init
+
+    def cpu_init(self, seed=0, *, device="cuda"):
+        return tree_map(lambda t: t.to(device),
+                        real_init(self, seed, device="cpu"))
+
+    def f32(name):
+        return dataclasses.replace(get_config(name), dtype="float32")
+    res = dict(default_lines=lines, default_s=default_s)
+    with mock.patch.object(launch, "get_config", f32), \
+            mock.patch.object(Model, "init", cpu_init):
+        for mode in ("colocated", "pd-disagg"):
+            got = {}
+            for dev in ("cpu", "cuda"):
+                ids.clear()
+                got[dev] = (run("--arch", DEEPSEEK, "--device", dev,
+                                "--mode", mode, "--max-new-tokens", "8",
+                                "--prompt", PROMPTS[0], "--prompt",
+                                PROMPTS[1]), list(ids))
+            check(got["cpu"] == got["cuda"] and len(got["cpu"][0]) == 2,
+                  f"launcher {mode} (f32): the card prints the CPU's lines "
+                  f"and tokens: {got}")
+            res[mode] = got["cuda"][0]
+    torch.cuda.synchronize()
+    res.update(launches=dict(runtime.LAUNCHES), fused=dict(runtime.FUSED))
+    check(res["launches"].get("route_pack", 0) > 0
+          and res["launches"].get("gmm", 0) > 0,
+          f"launcher: the MoE kernels launched on the card: {res}")
+    log(f"launcher: --arch {DEEPSEEK} alone served on the card "
+        f"({default_s:.1f} s): {lines[0]!r}; colocated and pd-disagg in "
+        f"f32 print the CPU's lines and tokens")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # stages 7 and 12: the card against the CPU on a small input
 # ---------------------------------------------------------------------------
 def check_small_reference(arch: str, **overrides):
@@ -2849,15 +3481,23 @@ def deepseek_stages(get_config) -> dict:
     table = plain_table(cfg, engine.params, path.pop("tokens"))
     mtp = mtp_stage(cfg, engine.params, dict(
         path, tokens=table, placement=engine.dps[0].backend._placement))
-    del engine
     free(f"MTP: {time.monotonic() - t0:.1f} s")
+
+    t0 = time.monotonic()
+    moe_attn = moe_attn_stage(engine.dps[0].backend)
+    del engine
+    free(f"MoE-Attention: {time.monotonic() - t0:.1f} s")
 
     t0 = time.monotonic()
     check_small_reference(DEEPSEEK)
     pd_small_reference()
-    log(f"small reference: {time.monotonic() - t0:.1f} s")
+    moe_attn_small_reference()
+    launch = launcher_stage()
+    log(f"small reference and launcher: {time.monotonic() - t0:.1f} s")
     return {DEEPSEEK: (kern, path), DEEPSEEK + "/prefix": ({}, trio),
             DEEPSEEK + "/pd": ({}, pd), **mtp,
+            DEEPSEEK + "/moe-attn": moe_attn,
+            DEEPSEEK + "-smoke/launch": ({}, launch),
             DEEPSEEK_INT8: (int8.pop("kernels"), int8)}
 
 
@@ -2896,10 +3536,12 @@ def llama_stages(get_config) -> dict:
                     ("route_pack", "gmm", "placement_gmm",
                      "decode_attention"),
                     before_close=lambda e, reqs: dict(
-                        kv=int8_kv_stage(e, reqs), prefix=llama_prefix(e)))
+                        kv=int8_kv_stage(e, reqs), prefix=llama_prefix(e),
+                        moe_attn=moe_attn_stage(e.dps[0].backend)))
     del engine
     fold_replays(kern, path)
-    kv, prefix = (path["stage"][n] for n in ("kv", "prefix"))
+    kv, prefix, moe_attn = (path["stage"][n]
+                            for n in ("kv", "prefix", "moe_attn"))
     path.pop("stage")
     path.pop("tokens")
     free(f"path: {time.monotonic() - t0:.1f} s; sample output "
@@ -2909,6 +3551,7 @@ def llama_stages(get_config) -> dict:
     check_small_reference(LLAMA, num_heads=10, num_kv_heads=2, head_dim=32)
     log(f"small reference: {time.monotonic() - t0:.1f} s")
     return {LLAMA: (kern, path), LLAMA + "/prefix": ({}, prefix),
+            LLAMA + "/moe-attn": moe_attn,
             LLAMA_INT8_KV: (kv.pop("kernels"), kv)}
 
 

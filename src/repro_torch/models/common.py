@@ -1,6 +1,7 @@
 """Shared building blocks: devices, initializers, norms, RoPE, attention."""
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -103,13 +104,22 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
                             / head_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_frequencies_on(head_dim: int, theta: float,
+                         device: torch.device) -> torch.Tensor:
+    """:func:`rope_frequencies` as float32 on ``device``, copied there
+    once: a copy from host memory each call would make every decode step
+    wait for the card."""
+    return torch.as_tensor(rope_frequencies(head_dim, theta),
+                           dtype=torch.float32, device=device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: [..., seq, heads, head_dim]; positions broadcastable to
     [..., seq]."""
     head_dim = x.shape[-1]
-    freqs = torch.as_tensor(rope_frequencies(head_dim, theta),
-                            dtype=torch.float32, device=x.device)
+    freqs = _rope_frequencies_on(head_dim, float(theta), x.device)
     angles = positions[..., None].float() * freqs       # [..., S, hd/2]
     cos = torch.cos(angles)[..., None, :]                # [..., S, 1, hd/2]
     sin = torch.sin(angles)[..., None, :]

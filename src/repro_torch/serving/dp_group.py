@@ -554,5 +554,8 @@ class DPGroup:
             time.sleep(0.001)
 
     def close(self) -> None:
+        # join the output worker: a daemon thread still emitting while
+        # the interpreter exits aborts the process
         self._out_q.put(None)
+        self._out_thread.join()
         self.gc_ctl.close()

@@ -5,10 +5,11 @@ The pipeline turns raw routing statistics into a *device-resident data
 plane* that the decode forward path executes every iteration:
 
 1. **Collect** — :class:`ExpertLoadCollector` accumulates per-layer
-   token counts per time slice (the Collect kernel's output; in this
-   repro the counts come from the model's routed ``expert_counts``
-   metric; the ``collect`` kernel is not ported yet). The slice window is a
-   bounded deque — memory never grows past ``max_slices``.
+   token counts per time slice (the Collect kernel's output: the MoE
+   layer counts its logical top-k ids per expert inside route-pack's
+   launch, ``kernels/csrc/collect.cuh``, and reports them as
+   ``expert_counts``). The slice window is a bounded deque — memory
+   never grows past ``max_slices``.
 
 2. **Select** — greedy hottest-expert replication per layer
    (:func:`select_redundant_experts`): for a redundancy budget R,

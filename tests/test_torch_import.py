@@ -51,6 +51,11 @@ def test_import_loads_no_jax_and_no_reference_package():
             "repro_torch.xccl", "repro_torch.xccl.topology",
             "repro_torch.xccl.pd_transfer",
             "repro_torch.serving.distflow"} <= on_disk
+    # Transformerless units, MoE-Attention disaggregation, the A2E wire
+    # format and the serving launcher
+    assert {"repro_torch.core.transformerless", "repro_torch.core.dataflow",
+            "repro_torch.core.moe_attn_disagg", "repro_torch.xccl.routing",
+            "repro_torch.launch", "repro_torch.launch.serve"} <= on_disk
 
 
 @pytest.mark.parametrize("needle", ["import jax", "from jax", "import repro.",
