@@ -242,6 +242,40 @@ E. (Llama-4) stage E on that engine's weights and EPLB table (130
 12. the smoke Llama-4 with G = 5 (float32): the engine on the card gives
     the CPU's greedy tokens, before and after EPLB;
 
+RecurrentGemma-2B and Mamba2-130M (the recurrent and hybrid families),
+after the Llama-4 engine is freed:
+
+H. decode attention at RecurrentGemma-2B's local-attention shape (B 4,
+   10 query heads on one KV head, hd 256, a ring of L = window 2048;
+   three head groups of 4, 4 and 2 heads a block) against its plain
+   version in bf16 (3e-2) and float32 (2e-4), absolute and scaled by
+   each row: positions below the window, at 2047, wrapped (2048, 3000,
+   4095), ragged, at L 2000 and at B 8, each also with the slots its
+   rows do not see NaN-filled and repeated bit-identically; one launch
+   per call under the profiler; timed at B 4 and B 8 with every slot
+   valid (CUDA events in turn with ``scaled_dot_product_attention`` and
+   the ring mask, profiler device time) beside the bytes bound and the
+   plain version, and at 1, 2 and 3 head groups on the same K/V;
+I. RecurrentGemma-2B at full width and depth (26 layers: 8 superblocks
+   of RG-LRU, RG-LRU, ring-window attention, then a 2-layer RG-LRU
+   tail; random bf16 weights from a seed) through ``FlowServeEngine``
+   (2 DP groups x 4 slots, ``max_len`` 4096, greedy): prompts of 16,
+   57, 130, 200, 2048 (its first decode wraps to ring slot 0) and 3000
+   tokens (bucket 4096: blockwise attention and the ring-slot layout),
+   64 tokens each, every prefill buffered; launch counts set to 0 just
+   before and read just after: decode attention exactly 8 local layers
+   x each DP group's decode steps, and no other kernel. TTFT and TPOT
+   by prompt length (host clock), peak memory, a decode profile (device
+   busy per engine step, idle share, top kernels), a decode step run
+   twice bit-identically, one under ``no_host_sync``, and 16 decode
+   steps from an unpadded 2040-token prefill (across the wrap) against
+   the padded prefill at their positions, within 0.08 relative;
+J. Mamba2-130M at full width and depth (24 SSD layers) the same way
+   (decode against prefill from 200 tokens): no kernel launches at all;
+K. the smoke RecurrentGemma (5 layers: a superblock and the tail) and
+   Mamba-2 in float32: the engine on the card gives the CPU's greedy
+   tokens;
+
 13. print the card's name and power limit, one JSON line with every
     kernel's launches per path, error, times and bound (Collect's
     launches are the route-pack launches that ran its body), then the
@@ -1286,16 +1320,18 @@ def run_path(engine, prompts, prompts_eplb, kernels,
     return res
 
 
-def check_decode_repeat(engine) -> None:
+def check_decode_repeat(engine, placed: bool = True) -> None:
     """One full-batch decode step of a DP group (every slot prefilled
-    with its own prompt, the EPLB placement installed), run twice from
-    copies of the same cache with the same inputs: the logits must be
-    bit-identical, so the MoE combine sums in a fixed order."""
+    with its own prompt, the EPLB placement installed where ``placed``),
+    run twice from copies of the same cache with the same inputs: the
+    logits must be bit-identical, so the MoE combine sums in a fixed
+    order."""
     from repro_torch.models.common import tree_map
 
     dp = engine.dps[0]
     be, B = dp.backend, dp.max_batch
-    check(be._placement is not None, "an EPLB placement is installed")
+    check((be._placement is not None) == placed,
+          f"an EPLB placement is installed: {placed}")
     cache = be.init_cache(B, dp.max_len)
     lens = []
     for i in range(B):
@@ -2924,7 +2960,8 @@ def launcher_stage() -> dict:
 def check_small_reference(arch: str, **overrides):
     """The smoke variant of ``arch`` in float32: greedy tokens of the
     engine on the card equal the CPU plain versions', before and after
-    EPLB; where it has an MTP head, also with ``mtp_k=2`` (and an oracle
+    EPLB (where it has MoE layers; else two waves of the same prompts);
+    where it has an MTP head, also with ``mtp_k=2`` (and an oracle
     head before EPLB and after it), whose tokens equal the plain
     engine's and whose every iteration's block and accepted counts are
     the CPU's."""
@@ -2962,8 +2999,9 @@ def check_small_reference(arch: str, **overrides):
             first = serve_any(eng, PROMPTS[:3])
             if k:   # drafts accepted, and one rejected, on gmm
                 oracle_wave(eng, tables[dev], PROMPTS[:3], 8, wrong={3})
-            eng.record_expert_counts(skewed_counts(cfg))
-            eng.run_eplb()
+            if cfg.has_moe:
+                eng.record_expert_counts(skewed_counts(cfg))
+                eng.run_eplb()
             second = serve_any(eng, PROMPTS[:3])
             if k:   # and on placement_gmm
                 oracle_wave(eng, tables[dev], PROMPTS[:3], 8, wrong={3})
@@ -3555,6 +3593,314 @@ def llama_stages(get_config) -> dict:
             LLAMA_INT8_KV: (kv.pop("kernels"), kv)}
 
 
+# ---------------------------------------------------------------------------
+# stages H-K: the recurrent and hybrid families
+# ---------------------------------------------------------------------------
+RG, MAMBA = "recurrentgemma-2b", "mamba2-130m"
+#: prompt lengths of the hybrid paths: buffered prefills that fold their
+#: bucket's pads into the state, one of exactly the 2048-slot window (its
+#: first decode wraps to slot 0) and one whose bucket (4096) is past the
+#: window (blockwise attention, the ring-slot layout)
+HYBRID_LENS = (16, 57, 130, 200, 2048, 3000)
+HYBRID_NEW = 64
+HYBRID_MAX_LEN = 4096
+
+
+def check_ring_attention() -> dict:
+    """Stage H: decode attention at RecurrentGemma-2B's local-attention
+    shape (B 4, H 10 on KV 1, hd 256, a ring of L = window 2048), three
+    head groups (4, 4, 2) a KV head: against the plain version in bf16
+    (3e-2) and float32 (2e-4), absolute and scaled by each row
+    (:func:`held_attention`), at positions below the window, at 2047,
+    wrapped (2048, 3000, 4095), ragged, at L 2000 < window and at B 8,
+    each also with every slot its rows do not see NaN-filled and
+    repeated bit-identically; one launch per call under the profiler.
+    Timed at B 4 and B 8 with every slot valid (CUDA events, in turn
+    with ``scaled_dot_product_attention`` and the ring mask; profiler
+    device time), beside the bytes bound and the plain version; and the
+    device time of 1, 2 and 3 head groups on the same K/V (H 4, 8, 10),
+    which prices the groups' re-reads of K/V."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda, plan)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, valid_slots)
+
+    H, KV, hd, W = 10, 1, 256, 2048
+    gen = torch.Generator(device="cuda").manual_seed(2560)
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparison
+    torch.backends.cudnn.allow_tf32 = False
+
+    def inputs(B, L, pos, dtype, H=H):
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device="cuda") * 0.5
+        return (rand(B, H, hd).to(dtype), rand(B, L, KV, hd).to(dtype),
+                rand(B, L, KV, hd).to(dtype),
+                torch.tensor(pos, dtype=torch.int32, device="cuda"))
+
+    cases = [  # name, B, L, positions
+        ("below the window", 4, W, [16, 200, 1000, 2000]),
+        ("at 2047", 4, W, [W - 1] * 4),
+        ("wrapped", 4, W, [2048, 3000, 4095, 2047]),
+        ("ragged", 4, W, [0, 2048, 57, 3999]),
+        ("ragged L=2000", 4, 2000, [1999, 10, 2100, 4000]),
+        ("B 8", 8, W, [2047, 1, 2100, 0, 700, 4000, 2048, 64]),
+    ]
+    errs = {}
+    for dtype, bar in ((torch.bfloat16, 3e-2), (torch.float32, 2e-4)):
+        for name, B, L, pos in cases:
+            q, k, v, p = inputs(B, L, pos, dtype)
+            want = decode_attention_ref(q, k, v, p, window=W)
+            got = decode_attention_cuda(q, k, v, p, window=W)
+            stale = ~valid_slots(p, L, W)[:, :, None, None]
+            k.masked_fill_(stale, float("nan"))
+            v.masked_fill_(stale, float("nan"))
+            nan_got = decode_attention_cuda(q, k, v, p, window=W)
+            again = decode_attention_cuda(q, k, v, p, window=W)
+            torch.cuda.synchronize()
+            what = f"ring {name} {dtype}"
+            e1 = held_attention(got, want, bar, what)
+            e2 = held_attention(nan_got, want, bar, what + ", NaN tail")
+            check(torch.equal(nan_got, again),
+                  f"decode_attention {what}: repeat bit-identical")
+            errs[name, str(dtype)] = (max(e1[0], e2[0]), max(e1[1], e2[1]))
+            log(f"decode_attention ring {name} [{B},{H},{hd}] x L={L} "
+                f"window={W} {str(dtype)[6:]}: max abs err "
+                f"{errs[name, str(dtype)][0]:.3g}, scaled "
+                f"{errs[name, str(dtype)][1]:.3g} (NaN tail too), repeat "
+                f"bit-identical; plan {plan(B, H, KV, hd, L, 132)}")
+
+    def timed(B, heads=H):
+        q, k, v, p = inputs(B, W, [3000] * B, torch.bfloat16, heads)
+        mask = valid_slots(p, W, W)[:, None, None, :]
+
+        def kernel():
+            return decode_attention_cuda(q, k, v, p, window=W)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+        prof = profile_calls(kernel)
+        one_launch(prof, "decode_attention", f"decode_attention ring B={B} "
+                                             f"H={heads}")
+        if heads != H:
+            return dict(device_ms=prof["device_ms"])
+        want = decode_attention_ref(q, k, v, p, window=W)
+        err, scaled = held_attention(kernel(), want, 3e-2,
+                                     f"ring timed B={B}")
+        lib_err = attention_err(sdpa()[:, :, 0].float(), want)
+        rows = int(mask.sum())               # the slots the data needs
+        bnd, by = bound_ms(rows * KV * hd * 2 * 2 + nbytes(q, p)
+                           + B * H * hd * 4, 4 * rows * H * hd)
+        ms, lib_ms = time_pair(kernel, sdpa)
+        res = dict(ms=ms, device_ms=prof["device_ms"],
+                   plain_ms=time_ms(lambda: decode_attention_ref(
+                       q, k, v, p, window=W), reps=5, warm=1),
+                   library_ms=lib_ms, library_device_ms=device_ms(sdpa),
+                   library="scaled_dot_product_attention (ring mask)",
+                   library_max_abs_err=lib_err[0], max_abs_err=err,
+                   scaled_err=scaled, bound_ms=bnd, bound_by=by,
+                   slots_needed=rows, kernels_per_call=prof["per_call"],
+                   plan=plan(B, H, KV, hd, W, 132))
+        log(f"decode_attention ring timed B={B}: {ms:.4f} ms (device "
+            f"{res['device_ms']}), plain {res['plain_ms']:.4f}, SDPA "
+            f"{lib_ms:.4f} (device {res['library_device_ms']}), bound "
+            f"{bnd:.5f} ms ({by}); err {err:.3g}")
+        return res
+    out = timed(4)
+    out["B8"] = timed(8)
+    out["groups_device_ms"] = {g: timed(4, heads)["device_ms"]
+                               for g, heads in ((1, 4), (2, 8))}
+    out["groups_device_ms"][3] = out["device_ms"]
+    log(f"decode_attention ring B=4, device ms by head groups on the same "
+        f"K/V (H 4, 8, 10): {out['groups_device_ms']}")
+    bf16 = [e for (_, dt), e in errs.items() if dt == "torch.bfloat16"]
+    f32 = [e for (_, dt), e in errs.items() if dt == "torch.float32"]
+    out["max_abs_err"] = max([e for e, _ in bf16] + [out["max_abs_err"],
+                                                     out["B8"]["max_abs_err"]])
+    out["max_scaled_err"] = max(s for _, s in bf16)
+    out["max_abs_err_f32"] = max(e for e, _ in f32)
+    out["max_scaled_err_f32"] = max(s for _, s in f32)
+    return out
+
+
+def hybrid_prompts(cfg) -> list:
+    """Token ids of :data:`HYBRID_LENS`, random from a seed."""
+    import numpy as np
+    rng = np.random.default_rng(2402)
+    return [rng.integers(3, cfg.vocab_size, n).tolist() for n in HYBRID_LENS]
+
+
+class DecodeCounter:
+    """Counts each DP group's ``decode_sample`` calls (its decode
+    steps), standing in for the backend's method on the instance."""
+
+    def __init__(self, engine):
+        self.calls = {}
+        for d in engine.dps:
+            real = d.backend.decode_sample
+            self.calls[d.dp_id] = 0
+
+            def spy(*a, _real=real, _id=d.dp_id, **kw):
+                self.calls[_id] += 1
+                return _real(*a, **kw)
+            d.backend.decode_sample = spy
+
+    def undo(self, engine) -> None:
+        for d in engine.dps:
+            del d.backend.decode_sample
+
+
+def decode_consistency(engine, P: int, steps: int, at: tuple) -> dict:
+    """Decode against prefill at full width: a prompt of ``P`` random
+    tokens prefilled unpadded into one slot, then ``steps`` decode steps
+    fed the next tokens; after step ``j`` in ``at`` the logits are held
+    to the backend's (padded) prefill of the first ``P + j`` tokens at
+    its last position, within the 0.08 relative bar of
+    ``tests/test_decode_consistency.py``."""
+    import numpy as np
+
+    be = engine.dps[0].backend
+    dev = be.device
+    toks = np.random.default_rng(P).integers(
+        3, engine.cfg.vocab_size, P + steps).tolist()
+    errs = {}
+    with torch.no_grad():
+        _, cache1 = be.model.prefill(be.params,
+                                     torch.tensor([toks[:P]], device=dev))
+        cache = be.model.init_cache(1, be.max_len, device=dev)
+        be.write_slot(cache, cache1, 0)
+        del cache1
+        for j in range(steps):
+            logits, cache = be.model.decode_step(
+                be.params, cache,
+                torch.tensor([[toks[P + j]]], dtype=torch.int32, device=dev),
+                torch.tensor([P + j], dtype=torch.int32, device=dev))
+            if j + 1 in at:
+                _, ref = be.prefill(toks[:P + j + 1])
+                ref = torch.as_tensor(ref)
+                errs[P + j] = float((logits[0].float().cpu() - ref).abs().max()
+                                    / ref.abs().max().clamp(min=1e-30))
+    check(all(e < 0.08 for e in errs.values()),
+          f"{engine.cfg.name}: decode logits within 0.08 of prefill's at "
+          f"positions {errs}")
+    log(f"decode vs prefill: {engine.cfg.name} from an unpadded {P}-token "
+        f"prefill, relative logit error by position {errs} (bar 0.08)")
+    return errs
+
+
+def sync_free_decode(engine) -> None:
+    """One full-batch decode step of a DP group from tensors already on
+    the card, under :func:`no_host_sync`."""
+    dp = engine.dps[0]
+    be, B = dp.backend, dp.max_batch
+    cache = be.init_cache(B, be.max_len)
+    tokens = torch.arange(5, 5 + B, dtype=torch.int32,
+                          device=be.device)[:, None]
+    positions = torch.tensor([0, 9, 2047, 3000][:B] + [1] * (B - 4),
+                             dtype=torch.int32, device=be.device)
+    torch.cuda.synchronize()
+    with torch.no_grad(), no_host_sync():
+        logits, _ = be.model.decode_step(be.params, cache, tokens, positions)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits).all()), "finite sync-free logits")
+    log(f"no host sync: {engine.cfg.name} decode step (B {B}) under "
+        f"set_sync_debug_mode('error')")
+
+
+def hybrid_path(cfg, consistency: tuple) -> dict:
+    """Stages I and J: ``cfg`` at full width served through the port's
+    ``FlowServeEngine`` (2 DP groups x 4 slots, ``max_len`` 4096,
+    greedy): the :data:`HYBRID_LENS` prompts, :data:`HYBRID_NEW` tokens
+    each, launch counts set to 0 just before and read just after:
+    decode attention exactly (local-attention layers x each DP group's
+    decode steps) and no other kernel. Then TTFT, TPOT, peak memory, a
+    decode profile, a decode step repeated bit-identically, a step with
+    no host sync and decode against prefill (``consistency``: prompt
+    length, steps, checkpoints)."""
+    from repro_torch.configs.base import LOCAL_ATTN
+    from repro_torch.kernels import runtime
+    from repro_torch.serving.request import Request
+
+    engine = make_engine(cfg, max_batch=4, max_len=HYBRID_MAX_LEN)
+    check(not any(d.backend.supports_chunked_prefill for d in engine.dps),
+          f"{cfg.name}: the buffering prefill")
+    n_local = sum(m == LOCAL_ATTN for m, _ in cfg.layer_kinds())
+    torch.cuda.reset_peak_memory_stats()
+    counter = DecodeCounter(engine)
+    reqs = [Request(prompt=f"hybrid {i}", prompt_tokens=toks,
+                    max_new_tokens=HYBRID_NEW, ignore_eos=True)
+            for i, toks in enumerate(hybrid_prompts(cfg))]
+    torch.cuda.synchronize()
+    runtime.reset_launch_counts()
+    t0 = time.monotonic()
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches, fused = dict(runtime.LAUNCHES), dict(runtime.FUSED)
+    steps = dict(counter.calls)
+    counter.undo(engine)
+    for r in reqs:
+        check(r.state.value == "finished"
+              and len(r.output_tokens) == HYBRID_NEW
+              and all(0 <= t < cfg.vocab_size for t in r.output_tokens),
+              f"{cfg.name}: request {r.req_id} finished with "
+              f"{HYBRID_NEW} tokens")
+    want = {"decode_attention": n_local * sum(steps.values())} \
+        if n_local else {}
+    check({n: c for n, c in launches.items() if c} == want and not fused,
+          f"{cfg.name}: launches {launches} (fused {fused}) equal "
+          f"{want}: {n_local} local-attention layers x decode steps "
+          f"{steps} and no other kernel")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    by_len = {len(r.prompt_tokens): dict(ttft_ms=1e3 * r.ttft,
+                                         tpot_ms=1e3 * r.tpot) for r in reqs}
+    log(f"path: {cfg.name} {len(reqs)} requests x {HYBRID_NEW} tokens in "
+        f"{wall:.2f} s; decode steps by DP group {steps}; launches "
+        f"{launches}; peak memory {peak:.2f} GiB; TTFT / TPOT ms by prompt "
+        f"length " + ", ".join(f"{n}: {v['ttft_ms']:.1f} / "
+                               f"{v['tpot_ms']:.2f}"
+                               for n, v in by_len.items()))
+    profile = profile_decode(engine)
+    check_decode_repeat(engine, placed=False)
+    sync_free_decode(engine)
+    errs = decode_consistency(engine, *consistency)
+    res = dict(launches=launches, fused=fused, decode_steps=steps,
+               local_attention_layers=n_local, serve_s=wall,
+               ttft_ms_mean=statistics.mean(v["ttft_ms"]
+                                            for v in by_len.values()),
+               tpot_ms_mean=statistics.mean(v["tpot_ms"]
+                                            for v in by_len.values()),
+               by_prompt_len=by_len, peak_mem_gib=peak,
+               decode_profile=profile, decode_vs_prefill_err=errs,
+               text=engine.tokenizer.decode(reqs[0].output_tokens))
+    engine.close()
+    return res
+
+
+def hybrid_stages(get_config) -> dict:
+    """Stages H-K: decode attention at RecurrentGemma's shape, then
+    RecurrentGemma-2B and Mamba2-130M at full width and depth, then
+    both smoke models card against CPU."""
+    t0 = time.monotonic()
+    kern = {"decode_attention": check_ring_attention()}
+    free(f"ring attention checks: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    rg = hybrid_path(get_config(RG), (2040, 16, (1, 8, 9, 16)))
+    free(f"{RG} path: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    mamba = hybrid_path(get_config(MAMBA), (200, 16, (1, 8, 16)))
+    free(f"{MAMBA} path: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    check_small_reference(RG, num_layers=5)
+    check_small_reference(MAMBA)
+    log(f"hybrid small references: {time.monotonic() - t0:.1f} s")
+    return {RG: (kern, rg), MAMBA: ({}, mamba)}
+
+
+
 def kernel_line(results: dict) -> dict:
     """One entry per kernel: launches per path (and their sum), the
     largest error of any path, and the times and bound of the path named
@@ -3614,7 +3960,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}.cu: {line.strip()}")
 
-    results = {**deepseek_stages(get_config), **llama_stages(get_config)}
+    results = {**deepseek_stages(get_config), **llama_stages(get_config),
+               **hybrid_stages(get_config)}
     for p, (_, path) in results.items():
         log(json.dumps({"path": p, **{k: v for k, v in path.items()
                                       if k != "text"}}))

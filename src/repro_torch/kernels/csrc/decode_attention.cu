@@ -18,22 +18,31 @@
 // window == 0 a row needs only slots <= pos, and no other slot is read.
 // Llama-4's decode shape (B 4, KV 8, hd 128, bf16) costs 4096 bytes of
 // K + V per slot: 16.8 MB (5.0 us) at L 1024, 537 MB (160 us) at 32768.
+// RecurrentGemma's local attention (B 4, H 10 on KV 1, hd 256, a ring of
+// L 2048) costs 1024 bytes a slot: 8.4 MB (2.5 us) with every slot valid.
 //
 // Design.
 //  * Split L across blocks, combine in the same launch. Grid (n_split,
-//    KV, B); a block walks slots [lo, lo + split_len) of one (b, kvh) in
-//    64-slot tiles. Each block merges its warps' (m, l, acc) and writes
-//    the merged partial to a workspace, then takes a ticket from a
-//    per-(b, kvh) counter; the block that arrives last merges the
-//    n_split partials by log-sum-exp weights in split order (0, 1, ...),
-//    writes the output and sets the counter back to 0 for the next call.
-//    So a call is one launch, and the order of every sum is fixed by the
+//    KV * n_grp, B); a block walks slots [lo, lo + split_len) of one
+//    (b, kvh) for one group of at most gpb = DA_MAX_GD / hd of its G
+//    query heads (n_grp = ceil(G / gpb) groups; one group whenever
+//    G * hd <= DA_MAX_GD), in tiles of 64 slots (32 for float32 at
+//    hd 256). A group re-reads the K/V of its (b, kvh) that the other
+//    groups read too: at hd 256, G 10 three groups of 4, 4 and 2 heads,
+//    with the re-reads left to L2 (1 MB of K/V per (b, kvh) at L 2048).
+//    Each block merges its warps' (m, l, acc) and writes the merged
+//    partial to a workspace, then takes a ticket from a per-(b, kvh,
+//    group) counter; the block that arrives last merges the n_split
+//    partials by log-sum-exp weights in split order (0, 1, ...), writes
+//    the output and sets the counter back to 0 for the next call. So a
+//    call is one launch, and the order of every sum is fixed by the
 //    shapes alone: repeated calls are bit-identical. n_split == 1 writes
 //    the output directly.
 //  * Bytes in flight: K and V tiles stay in their own type in shared
 //    memory, brought in by 16-byte cp.async.cg copies through a ring of
 //    stages (bf16: 3 stages of 32 KB at hd 128, two blocks per SM, so
-//    ~128 KB in flight per SM). A slot the block must not use (past L,
+//    ~128 KB in flight per SM; at hd 256 3 stages of 64 KB, one block per
+//    SM). A slot the block must not use (past L,
 //    past pos, or masked by the ring rule) is zero-filled by the copy's
 //    src-size 0 form and never read from memory, so a NaN in a stale
 //    slot cannot reach a product; its score is also set to -inf.
@@ -54,9 +63,10 @@
 //    V^T . P^T, with V^T from ldmatrix.trans. K/V rows are XOR-swizzled
 //    in 16-byte chunks, so ldmatrix reads without bank conflicts.
 //  * float32 keeps CUDA-core FMAs in full f32 (no TF32), on the same
-//    pipelined tiles (2 stages, rows padded by 16 bytes): one lane per
-//    (slot, half of hd) for the scores, lane g for the softmax of query
-//    g, and 32 accumulator elements per lane.
+//    pipelined tiles (2 stages, rows padded by 16 bytes; at hd 256 tiles
+//    of 32 slots, so two stages fit in 133 KB): one lane per (slot, part
+//    of hd) for the scores (halves of hd, quarters at hd 256), lane g for
+//    the softmax of query g, and 32 accumulator elements per lane.
 //  * Strides of K and V are passed in (batch, slot, head), so a view of
 //    a stacked cache is read in place; the innermost stride must be 1,
 //    the other strides multiples of 16 bytes and the base 16-byte
@@ -68,8 +78,9 @@
 
 #define DA_THREADS 128
 #define DA_WARPS (DA_THREADS / 32)
-#define DA_TILE 64            // cache slots per stage: 16 per warp
-#define DA_MAX_GD 1024        // G * hd per block
+#define DA_TILE 64            // cache slots per stage, and the unit of
+                              // split_len (a multiple of every Ring::TILE)
+#define DA_MAX_GD 1024        // query heads x hd per block
 
 __device__ __forceinline__ bool slot_valid(int slot, int pos, int window) {
   if (window > 0) {
@@ -119,18 +130,22 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // Shared-memory layout of the K/V ring for element type T and head size
-// HD: a stage holds DA_TILE K rows, then DA_TILE V rows. bf16 rows are
-// unpadded with 16-byte chunk c of row r at c ^ swz(r); float32 rows are
-// padded by 16 bytes.
+// HD: a stage holds TILE K rows, then TILE V rows (SPW slots per warp).
+// bf16 rows are unpadded with 16-byte chunk c of row r at c ^ swz(r);
+// float32 rows are padded by 16 bytes, and at HD 256 a tile is 32 slots
+// (two 64-slot stages would need 266 KB).
 template <typename T, int HD>
 struct Ring {
   static constexpr bool BF16 = sizeof(T) == 2;
+  static constexpr int TILE = (!BF16 && HD > 128) ? 32 : DA_TILE;
+  static constexpr int SPW = TILE / DA_WARPS;           // slots per warp
   static constexpr int CH = HD * (int)sizeof(T) / 16;   // chunks per row
   static constexpr int ROW = HD * (int)sizeof(T) + (BF16 ? 0 : 16);
-  static constexpr int TILE_BYTES = DA_TILE * ROW;
+  static constexpr int TILE_BYTES = TILE * ROW;
   static constexpr int STAGE = 2 * TILE_BYTES;
   static constexpr int STAGES = BF16 ? 3 : 2;
   static constexpr int BYTES = STAGES * STAGE;
+  static_assert(DA_TILE % TILE == 0, "split_len must hold whole tiles");
   __device__ static int chunk_at(int r, int c) {
     if (!BF16) return c;
     return CH >= 8 ? c ^ (r & 7) : c ^ ((r >> 1) & 3);
@@ -153,11 +168,11 @@ __device__ __forceinline__ void load_tile(unsigned char* st, const T* kb,
                                           long long vsl, const Range& r,
                                           int t) {
   using R = Ring<T, HD>;
-  const int t0 = r.lo + t * DA_TILE;
+  const int t0 = r.lo + t * R::TILE;
 #pragma unroll
-  for (int c = threadIdx.x; c < 2 * DA_TILE * R::CH; c += DA_THREADS) {
-    const int m = c / (DA_TILE * R::CH);           // 0: K, 1: V
-    const int j = (c / R::CH) % DA_TILE, ch = c % R::CH;
+  for (int c = threadIdx.x; c < 2 * R::TILE * R::CH; c += DA_THREADS) {
+    const int m = c / (R::TILE * R::CH);           // 0: K, 1: V
+    const int j = (c / R::CH) % R::TILE, ch = c % R::CH;
     const int slot = t0 + j;
     const bool ok = slot < r.hi && slot_valid(slot, r.pos, r.window);
     const T* base = m ? vb : kb;
@@ -181,11 +196,12 @@ struct MergeBuf {
 };
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores. NG query tiles of 8 (G <= 8 NG), HD / 16 k-steps.
+// bf16: tensor cores. NG query tiles of 8 (a group of at most
+// DA_MAX_GD / HD heads: G <= 8 NG), HD / 16 k-steps.
 // ---------------------------------------------------------------------------
 template <int HD>
 struct Bf16Cfg {
-  static constexpr int NG = DA_MAX_GD / (8 * HD);   // 1, 2 or 4
+  static constexpr int NG = (DA_MAX_GD / HD + 7) / 8;   // 4, 2, 1 or 1
   static constexpr int KS = HD / 16;
   static constexpr int PS_ROW = 24;                  // bf16 per P^T row
   static constexpr int PS_WARP = NG * 8 * PS_ROW * 2;  // bytes per warp
@@ -199,6 +215,7 @@ __device__ __forceinline__ void bf16_walk(
   using R = Ring<__nv_bfloat16, HD>;
   using C = Bf16Cfg<HD>;
   constexpr int NG = C::NG, KS = C::KS;
+  static_assert(R::SPW == 16, "a warp's slots are one m16 tile");
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t4 = lane & 3;
   __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(
@@ -236,7 +253,7 @@ __device__ __forceinline__ void bf16_walk(
   const int li = lane >> 3, lr = lane & 7;
   const int k_row = 16 * warp + lr + ((li & 1) << 3), k_ch = li >> 1;
   const int v_row = 16 * warp + lr + ((li >> 1) << 3), v_ch = li & 1;
-  const int n_tiles = r.hi > r.lo ? (r.hi - r.lo + DA_TILE - 1) / DA_TILE : 0;
+  const int n_tiles = r.hi > r.lo ? (r.hi - r.lo + R::TILE - 1) / R::TILE : 0;
 
 #pragma unroll 1
   for (int p = 0; p < R::STAGES - 1; ++p) {
@@ -257,7 +274,7 @@ __device__ __forceinline__ void bf16_walk(
 
     const unsigned char* ks = smem + (t % R::STAGES) * R::STAGE;
     const unsigned char* vs = ks + R::TILE_BYTES;
-    const int s0 = r.lo + t * DA_TILE + 16 * warp;   // the warp's slots
+    const int s0 = r.lo + t * R::TILE + 16 * warp;   // the warp's slots
     if (s0 >= r.hi) continue;                        // none in range
     // scores S^T [16 slots x 8 queries] per query tile, even and odd
     // k-steps in two accumulators (half the dependent chain)
@@ -383,18 +400,21 @@ __device__ __forceinline__ void f32_walk(unsigned char* smem, const float* qb,
                                          const Range& r, int G, float scale) {
   using R = Ring<float, HD>;
   constexpr int ACC = DA_MAX_GD / 32;
+  constexpr int SPW = R::SPW;              // a warp's slots in a tile
+  constexpr int PART = HD * SPW / 32;      // hd values of one lane's dot
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int GD = G * HD;
   float* qs = reinterpret_cast<float*>(smem + R::BYTES);      // [G][HD]
-  float* sc = qs + DA_MAX_GD + warp * 32 * 16;                 // [G][16]
+  float* sc = qs + DA_MAX_GD + warp * 32 * 16;                 // [G][SPW]
   float* cr = qs + DA_MAX_GD + DA_WARPS * 32 * 16 + warp * 32;  // [G]
   for (int i = tid; i < GD; i += DA_THREADS) qs[i] = qb[i];
   float acc[ACC];
 #pragma unroll
   for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
   float m_run = -INFINITY, l_run = 0.f;       // lane g's query
-  const int j = lane & 15, half = lane >> 4;
-  const int n_tiles = r.hi > r.lo ? (r.hi - r.lo + DA_TILE - 1) / DA_TILE : 0;
+  // lane: slot j of the warp's SPW, part `part` of hd for the scores
+  const int j = lane % SPW, part = lane / SPW;
+  const int n_tiles = r.hi > r.lo ? (r.hi - r.lo + R::TILE - 1) / R::TILE : 0;
 
 #pragma unroll 1
   for (int p = 0; p < R::STAGES - 1; ++p) {
@@ -412,41 +432,43 @@ __device__ __forceinline__ void f32_walk(unsigned char* smem, const float* qb,
                            kb, vb, ksl, vsl, r, t + R::STAGES - 1);
     cp_async_commit();
 
-    const int s0 = r.lo + t * DA_TILE + 16 * warp;
+    const int s0 = r.lo + t * R::TILE + SPW * warp;
     if (s0 >= r.hi) continue;
     const unsigned char* ks = smem + (t % R::STAGES) * R::STAGE;
     const unsigned char* vs = ks + R::TILE_BYTES;
     const int slot = s0 + j;
     const bool ok = slot < r.hi && slot_valid(slot, r.pos, r.window);
     const float4* kr = reinterpret_cast<const float4*>(
-        ks + (16 * warp + j) * R::ROW) + half * (HD / 8);
+        ks + (SPW * warp + j) * R::ROW) + part * (PART / 4);
     __syncwarp();
     for (int g = 0; g < G; ++g) {
       const float4* qr =
-          reinterpret_cast<const float4*>(qs + g * HD) + half * (HD / 8);
+          reinterpret_cast<const float4*>(qs + g * HD) + part * (PART / 4);
       float dot = 0.f;
 #pragma unroll
-      for (int c = 0; c < HD / 8; ++c) {
+      for (int c = 0; c < PART / 4; ++c) {
         const float4 a = qr[c], b = kr[c];
         dot = fmaf(a.x, b.x, dot);
         dot = fmaf(a.y, b.y, dot);
         dot = fmaf(a.z, b.z, dot);
         dot = fmaf(a.w, b.w, dot);
       }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 16);
-      if (half == 0) sc[g * 16 + j] = ok ? dot * scale : -INFINITY;
+#pragma unroll
+      for (int o = SPW; o < 32; o <<= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      if (part == 0) sc[g * SPW + j] = ok ? dot * scale : -INFINITY;
     }
     __syncwarp();
     if (lane < G) {                  // lane g: the softmax of query g
-      float* sg = sc + lane * 16;
+      float* sg = sc + lane * SPW;
       float mb = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) mb = fmaxf(mb, sg[i]);
+      for (int i = 0; i < SPW; ++i) mb = fmaxf(mb, sg[i]);
       const float m_new = fmaxf(m_run, mb);
       const float safe_m = isfinite(m_new) ? m_new : 0.f;
       float sum = 0.f;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < SPW; ++i) {
         const float p = isfinite(sg[i]) ? expf(sg[i] - safe_m) : 0.f;
         sg[i] = p;
         sum += p;
@@ -462,12 +484,12 @@ __device__ __forceinline__ void f32_walk(unsigned char* smem, const float* qb,
       const int e = lane + 32 * i;
       if (e < GD) {
         const int g = e / HD, d = e % HD;
-        const float* pg = sc + g * 16;
-        const float* vd = reinterpret_cast<const float*>(vs + 16 * warp *
+        const float* pg = sc + g * SPW;
+        const float* vd = reinterpret_cast<const float*>(vs + SPW * warp *
                                                          R::ROW) + d;
         float a = acc[i] * cr[g];
 #pragma unroll
-        for (int jj = 0; jj < 16; ++jj)
+        for (int jj = 0; jj < SPW; ++jj)
           a = fmaf(pg[jj], vd[jj * (R::ROW / 4)], a);
         acc[i] = a;
       }
@@ -510,21 +532,26 @@ __device__ __forceinline__ void lse_weights(float* m, const float* l,
   }
 }
 
-// Workspace per (b, kvh): n_split parts of acc [G][HD], then m [G], l [G].
+// Workspace per (b, kvh, group): n_split parts of stride gpb * HD +
+// 2 gpb, each acc [Gb][HD], then m [Gb], l [Gb] for the group's Gb heads.
 template <typename T, int HD>
 __global__ void __launch_bounds__(DA_THREADS, 2)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ positions,
                         float* __restrict__ ws, int* __restrict__ tickets,
-                        float* __restrict__ out, int H, int G, int L,
-                        int split_len, int n_split, int window, float scale,
-                        long long ksb, long long ksl, long long ksh,
-                        long long vsb, long long vsl, long long vsh) {
+                        float* __restrict__ out, int H, int G_kv, int gpb,
+                        int L, int split_len, int n_split, int window,
+                        float scale, long long ksb, long long ksl,
+                        long long ksh, long long vsb, long long vsl,
+                        long long vsh) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int last;
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int KV = gridDim.y, tid = threadIdx.x, GD = G * HD;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int n_grp = (G_kv + gpb - 1) / gpb;
+  const int kvh = blockIdx.y / n_grp, g0 = (blockIdx.y % n_grp) * gpb;
+  const int G = min(gpb, G_kv - g0);              // this block's heads
+  const int tid = threadIdx.x, GD = G * HD;
   Range r;
   r.pos = positions[b];
   r.window = window;
@@ -532,7 +559,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   r.hi = min(L, r.lo + split_len);
   if (window == 0) r.hi = min(r.hi, r.pos + 1);   // masked slots not read
 
-  const size_t row0 = (size_t)b * H + (size_t)kvh * G;   // first head
+  // first head of the block
+  const size_t row0 = (size_t)b * H + (size_t)kvh * G_kv + g0;
   const T* qb = q + row0 * HD;
   const T* kb = k + b * ksb + kvh * ksh;
   const T* vb = v + b * vsb + kvh * vsh;
@@ -552,8 +580,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     bml[G + tid] = lsum;
   }
   __syncthreads();
-  const size_t pair = (size_t)b * KV + kvh;
-  const int part = GD + 2 * G;
+  const size_t pair = (size_t)b * gridDim.y + blockIdx.y;
+  const int part = gpb * HD + 2 * gpb;
   float* wp = ws + (pair * n_split + split) * part;
   for (int e = tid; e < GD; e += DA_THREADS) {
     const int g = e / HD;
@@ -573,7 +601,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (n_split == 1) return;
 
-  // the last block of (b, kvh) to arrive merges the parts
+  // the last block of (b, kvh, group) to arrive merges the parts
   __threadfence();
   __syncthreads();
   if (tid == 0) last = atomicAdd(tickets + pair, 1) == n_split - 1;
@@ -611,16 +639,18 @@ static int smem_bytes() {
 template <typename T, int HD>
 static int launch(const void* q, const void* k, const void* v,
                   const int* positions, float* ws, int* tickets, float* out,
-                  int B, int H, int KV, int L, int split_len, int n_split,
-                  int window, long long ksb, long long ksl, long long ksh,
-                  long long vsb, long long vsl, long long vsh,
+                  int B, int H, int KV, int gpb, int L, int split_len,
+                  int n_split, int window, long long ksb, long long ksl,
+                  long long ksh, long long vsb, long long vsl, long long vsh,
                   cudaStream_t stream) {
-  const int G = H / KV;
+  const int G = H / KV, n_grp = (G + gpb - 1) / gpb;
+  if (gpb * HD > DA_MAX_GD || (long long)KV * n_grp > 65535)
+    return (int)cudaErrorInvalidValue;
   const int smem = smem_bytes<T, HD>();
   // the merge buffers and the parts' (m, l) reuse the ring
-  const int merge = 4 * (DA_WARPS * (G * HD + 2 * G) + 2 * G);
+  const int merge = 4 * (DA_WARPS * (gpb * HD + 2 * gpb) + 2 * gpb);
   if (merge > Ring<T, HD>::BYTES ||
-      4 * (n_split * 2 * G + G) > Ring<T, HD>::BYTES)
+      4 * (n_split * 2 * gpb + gpb) > Ring<T, HD>::BYTES)
     return (int)cudaErrorInvalidValue;
   static bool attr = false;
   if (!attr) {
@@ -630,11 +660,11 @@ static int launch(const void* q, const void* k, const void* v,
     if (e != cudaSuccess) return (int)e;
     attr = true;
   }
-  const dim3 grid(n_split, KV, B);
+  const dim3 grid(n_split, KV * n_grp, B);
   decode_attention_kernel<T, HD><<<grid, DA_THREADS, smem, stream>>>(
       reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(k),
-      reinterpret_cast<const T*>(v), positions, ws, tickets, out, H, G, L,
-      split_len, n_split, window, 1.0f / sqrtf((float)HD), ksb, ksl, ksh,
+      reinterpret_cast<const T*>(v), positions, ws, tickets, out, H, G, gpb,
+      L, split_len, n_split, window, 1.0f / sqrtf((float)HD), ksb, ksl, ksh,
       vsb, vsl, vsh);
   return (int)cudaGetLastError();
 }
@@ -642,48 +672,52 @@ static int launch(const void* q, const void* k, const void* v,
 template <typename T>
 static int launch_hd(int hd, const void* q, const void* k, const void* v,
                      const int* positions, float* ws, int* tickets,
-                     float* out, int B, int H, int KV, int L, int split_len,
-                     int n_split, int window, long long ksb, long long ksl,
-                     long long ksh, long long vsb, long long vsl,
-                     long long vsh, cudaStream_t stream) {
+                     float* out, int B, int H, int KV, int gpb, int L,
+                     int split_len, int n_split, int window, long long ksb,
+                     long long ksl, long long ksh, long long vsb,
+                     long long vsl, long long vsh, cudaStream_t stream) {
 #define DA_LAUNCH(HD)                                                        \
-  launch<T, HD>(q, k, v, positions, ws, tickets, out, B, H, KV, L,           \
+  launch<T, HD>(q, k, v, positions, ws, tickets, out, B, H, KV, gpb, L,      \
                 split_len, n_split, window, ksb, ksl, ksh, vsb, vsl, vsh,    \
                 stream)
   switch (hd) {
     case 32: return DA_LAUNCH(32);
     case 64: return DA_LAUNCH(64);
     case 128: return DA_LAUNCH(128);
+    case 256: return DA_LAUNCH(256);
   }
 #undef DA_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
 // q [B, H, hd] contiguous; k / v [B, L, KV, hd] with element strides
-// (batch, slot, head) and innermost stride 1; positions [B] int32; ws
-// float32 [B, KV, n_split, G * hd + 2 G] scratch and tickets int32
-// [B, KV], all 0 before the first call (every call leaves them 0);
-// out [B, H, hd] float32. dtype: 0 = float32, 1 = bfloat16. hd must be
-// 32, 64 or 128, G * hd <= 1024, split_len a multiple of 64 with
-// (n_split - 1) * split_len < L <= n_split * split_len.
+// (batch, slot, head) and innermost stride 1; positions [B] int32; gpb
+// query heads per block (n_grp = ceil(G / gpb) groups per KV head,
+// G = H / KV); ws float32 [B, KV, n_grp, n_split, gpb * hd + 2 gpb]
+// scratch and tickets int32 [B, KV, n_grp], all 0 before the first call
+// (every call leaves them 0); out [B, H, hd] float32. dtype: 0 =
+// float32, 1 = bfloat16. hd must be 32, 64, 128 or 256, gpb * hd <=
+// 1024, split_len a multiple of 64 with (n_split - 1) * split_len < L
+// <= n_split * split_len.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const int* positions,
     float* ws, int* tickets, float* out, int B, int H, int KV, int hd,
-    int L, int split_len, int n_split, int window, long long ksb,
+    int gpb, int L, int split_len, int n_split, int window, long long ksb,
     long long ksl, long long ksh, long long vsb, long long vsl,
     long long vsh, int dtype, cudaStream_t stream) {
-  if (B <= 0 || KV <= 0 || H % KV || L <= 0 || window < 0 ||
-      (H / KV) * hd > DA_MAX_GD || split_len <= 0 || split_len % DA_TILE ||
-      (long long)n_split * split_len < L ||
-      (long long)(n_split - 1) * split_len >= L || B > 65535 || KV > 65535)
+  if (B <= 0 || KV <= 0 || H % KV || L <= 0 || window < 0 || gpb <= 0 ||
+      gpb > H / KV || gpb * hd > DA_MAX_GD || split_len <= 0 ||
+      split_len % DA_TILE || (long long)n_split * split_len < L ||
+      (long long)(n_split - 1) * split_len >= L || B > 65535)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1)
     return launch_hd<__nv_bfloat16>(hd, q, k, v, positions, ws, tickets, out,
-                                    B, H, KV, L, split_len, n_split, window,
-                                    ksb, ksl, ksh, vsb, vsl, vsh, stream);
+                                    B, H, KV, gpb, L, split_len, n_split,
+                                    window, ksb, ksl, ksh, vsb, vsl, vsh,
+                                    stream);
   if (dtype == 0)
     return launch_hd<float>(hd, q, k, v, positions, ws, tickets, out, B, H,
-                            KV, L, split_len, n_split, window, ksb, ksl, ksh,
-                            vsb, vsl, vsh, stream);
+                            KV, gpb, L, split_len, n_split, window, ksb, ksl,
+                            ksh, vsb, vsl, vsh, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,29 +1,32 @@
-"""Attention mixers: GQA global attention and DeepSeek multi-head latent
-attention (MLA).
+"""Attention mixers: GQA attention (global, or a sliding window over a
+ring buffer) and DeepSeek multi-head latent attention (MLA).
 
 Three execution modes, as in the reference:
 
   * ``prefill`` — full sequence; returns the layer's cache (GQA: roped
-    ``k``/``v`` [B, S, KV, hd]; MLA: latent ``ckv`` [B, S,
-    kv_lora_rank], ``krope`` [B, S, rope_dim]).
+    ``k``/``v`` [B, S, KV, hd], or with a window shorter than S its
+    trailing ``window`` positions, position ``p`` at ring slot ``p %
+    window``; MLA: latent ``ckv`` [B, S, kv_lora_rank], ``krope`` [B, S,
+    rope_dim]). Above ``NAIVE_MAX_LEN`` tokens the scores go through
+    ``blockwise_attention``, as in the reference.
   * ``chunk``   — chunked prefill: the chunk's K/V (or latents) are
     written IN PLACE into the layer's full-length cache buffer at
     ``offset``, and the chunk attends causally over the whole buffer
     with explicit position masks (same values as a monolithic prefill on
-    the valid region).
+    the valid region). Global attention only, as in the reference.
   * ``decode``  — one new token per row: its K/V (or latents) are
-    written IN PLACE at ``positions`` (the reference donates the buffer
-    instead), then the token attends over slots ``<= position``. GQA
-    decode runs the decode-attention kernel
-    (``kernels/decode_attention``); MLA decode is the absorbed form: the
-    query is folded into latent space (``q_nope · wk_b``) and scored
-    against the latent cache directly.
+    written IN PLACE at ``positions`` (ring slot ``positions % window``
+    with a window; the reference donates the buffer instead), then the
+    token attends over the slots it sees. GQA decode runs the
+    decode-attention kernel (``kernels/decode_attention``, ring mode
+    with a window); MLA decode is the absorbed form: the query is folded
+    into latent space (``q_nope · wk_b``) and scored against the latent
+    cache directly.
 
 The per-layer cache is a dict of tensors; in-place writes through views
-of the stacked superblock cache update the stack itself. The GQA mixer
-here is global attention only (the reference's ring-window layout,
-``blockwise_attention`` for prompts over 2048 tokens and tensor-parallel
-head padding wait for later slices).
+of the stacked superblock cache update the stack itself. The
+reference's tensor-parallel head padding has no counterpart on one
+card.
 """
 from __future__ import annotations
 
@@ -34,12 +37,21 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.models.common import apply_rope, naive_attention, rms_norm
+from repro_torch.models.common import (apply_rope, blockwise_attention,
+                                       naive_attention, rms_norm)
 
 Cache = Dict[str, torch.Tensor]
-#: longest prompt the naive prefill attention takes (the reference
-#: switches to blockwise attention above it)
+#: longest prompt the naive prefill attention takes (above it, blockwise
+#: attention, as in the reference)
 NAIVE_MAX_LEN = 2048
+
+
+def _prefill_attention(q, k, v, window: int = 0):
+    """Causal prefill attention, naive up to ``NAIVE_MAX_LEN`` tokens and
+    blockwise above, as the reference picks."""
+    if q.shape[1] > NAIVE_MAX_LEN:
+        return blockwise_attention(q, k, v, causal=True, window=window)
+    return naive_attention(q, k, v, causal=True, window=window)
 
 
 def _write_new_token(leaf, new, positions):
@@ -56,7 +68,7 @@ def _write_new_token(leaf, new, positions):
 
 
 # ===========================================================================
-# GQA attention (global)
+# GQA attention (global or sliding window)
 # ===========================================================================
 def attn_param_shapes(cfg: ModelConfig):
     """name → (shape, fan_in)."""
@@ -66,9 +78,13 @@ def attn_param_shapes(cfg: ModelConfig):
             "wv": ((d, KV, hd), d), "wo": ((H, hd, d), H * hd)}
 
 
-def attn_cache_spec(cfg: ModelConfig, batch: int, max_len: int):
+def attn_cache_spec(cfg: ModelConfig, batch: int, max_len: int,
+                    window: int = 0):
+    """Shapes of the layer's K/V cache: ``max_len`` slots, or with a
+    window a ring of ``min(max_len, window)``."""
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    return {"k": (batch, max_len, KV, hd), "v": (batch, max_len, KV, hd)}
+    L = min(max_len, window) if window > 0 else max_len
+    return {"k": (batch, L, KV, hd), "v": (batch, L, KV, hd)}
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions):
@@ -80,31 +96,41 @@ def _project_qkv(params, x, cfg: ModelConfig, positions):
 
 
 def attn_apply(params, x, *, cfg: ModelConfig, mode: str,
-               cache: Optional[Cache] = None,
+               window: int = 0, cache: Optional[Cache] = None,
                positions: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Global causal GQA. ``positions``: the chunk offset (an int) in
-    ``chunk`` mode, the new tokens' positions [B] in ``decode`` mode."""
+    """Causal GQA, global (``window == 0``) or over the last ``window``
+    positions. ``positions``: the chunk offset (an int) in ``chunk``
+    mode, the new tokens' positions [B] in ``decode`` mode."""
     S = x.shape[1]
     if mode == "prefill":
-        if S > NAIVE_MAX_LEN:
-            raise NotImplementedError(
-                f"prefill of {S} > {NAIVE_MAX_LEN} tokens needs blockwise "
-                f"attention, which is not ported yet")
         q, k, v = _project_qkv(params, x, cfg,
                                torch.arange(S, device=x.device))
-        o = naive_attention(q, k, v)
-        return torch.einsum("bshk,hkd->bsd", o, params["wo"]), \
-            {"k": k, "v": v}
+        o = _prefill_attention(q, k, v, window)
+        y = torch.einsum("bshk,hkd->bsd", o, params["wo"])
+        if window > 0 and S > window:
+            # the trailing window, position p at ring slot p % window
+            slots = (torch.arange(window, device=x.device)
+                     + (S - window)) % window
+            ring = {}
+            for n, t in (("k", k), ("v", v)):
+                ring[n] = torch.empty_like(t[:, :window])
+                ring[n][:, slots] = t[:, S - window:]
+            return y, ring
+        return y, {"k": k, "v": v}
     if mode == "chunk":
+        if window:
+            raise ValueError("chunked prefill needs global attention "
+                             f"(window {window})")
         return _attn_chunk(params, x, cfg=cfg, cache=cache, offset=positions)
     if mode != "decode":
         raise ValueError(f"attn_apply: unsupported mode {mode!r}")
     q, k_new, v_new = _project_qkv(params, x, cfg, positions[:, None])
-    _write_new_token(cache["k"], k_new[:, 0], positions)
-    _write_new_token(cache["v"], v_new[:, 0], positions)
-    o = decode_attention(q[:, 0], cache["k"], cache["v"],
-                         positions).to(q.dtype)
+    slot = torch.remainder(positions, window) if window > 0 else positions
+    _write_new_token(cache["k"], k_new[:, 0], slot)
+    _write_new_token(cache["v"], v_new[:, 0], slot)
+    o = decode_attention(q[:, 0], cache["k"], cache["v"], positions,
+                         window=window).to(q.dtype)
     return torch.einsum("bshk,hkd->bsd", o[:, None], params["wo"]), cache
 
 
@@ -171,7 +197,9 @@ def _mla_qkv_latent(params, x, cfg: ModelConfig, positions):
 
 def _expand_attend(params, q_nope, q_rope, ckv, krope, cfg: ModelConfig,
                    q_positions=None, kv_positions=None):
-    """Expanded (per-head K/V) causal attention + output projection."""
+    """Expanded (per-head K/V) causal attention + output projection;
+    a prefill (no positions) above ``NAIVE_MAX_LEN`` tokens is
+    blockwise."""
     B, L, _ = ckv.shape
     H = cfg.num_heads
     k_nope = torch.einsum("bsr,rhk->bshk", ckv, params["wk_b"])
@@ -179,8 +207,11 @@ def _expand_attend(params, q_nope, q_rope, ckv, krope, cfg: ModelConfig,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, krope[:, :, None].expand(
         B, L, H, cfg.mla.qk_rope_head_dim)], dim=-1)
-    o = naive_attention(q, k, v, q_positions=q_positions,
-                        kv_positions=kv_positions)
+    if q_positions is None:
+        o = _prefill_attention(q, k, v)
+    else:
+        o = naive_attention(q, k, v, q_positions=q_positions,
+                            kv_positions=kv_positions)
     return torch.einsum("bshk,hkd->bsd", o, params["wo"])
 
 

@@ -131,23 +131,105 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Reference attention (materializes scores; f32 scores and accumulation)
 # ---------------------------------------------------------------------------
-def naive_attention(q, k, v, *, causal: bool = True,
+def _mask(qp, kp, causal: bool, window: int):
+    """[Sq, Sk] bool: key position ``kp`` visible from query ``qp``."""
+    msk = torch.ones((qp.shape[0], kp.shape[0]), dtype=torch.bool,
+                     device=qp.device)
+    if causal:
+        msk &= qp[:, None] >= kp[None, :]
+    if window > 0:
+        msk &= qp[:, None] - kp[None, :] < window
+    return msk
+
+
+def naive_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     kv_positions: Optional[torch.Tensor] = None,
                     q_positions: Optional[torch.Tensor] = None):
-    """q [B, Sq, H, hd]; k/v [B, Sk, KV, hd] → [B, Sq, H, vd]."""
+    """q [B, Sq, H, hd]; k/v [B, Sk, KV, hd] → [B, Sq, H, vd].
+    ``window > 0``: a query sees keys less than ``window`` positions
+    behind it."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
     scale = 1.0 / np.sqrt(hd)
     qr = q.reshape(B, Sq, KV, G, hd)
     s = torch.einsum("bqkgd,bpkd->bkgqp", qr.float(), k.float()) * scale
-    if causal:
+    if causal or window > 0:
         qp = (q_positions if q_positions is not None
               else torch.arange(Sq, device=q.device))
         kp = (kv_positions if kv_positions is not None
               else torch.arange(k.shape[1], device=q.device))
-        msk = qp[:, None] >= kp[None, :]
-        s = s.masked_fill(~msk, float("-inf"))
+        s = s.masked_fill(~_mask(qp, kp, causal, window), float("-inf"))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqp,bpkd->bqkgd", p.to(v.dtype).float(), v.float())
     return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_block: int = 512, kv_block: int = 512):
+    """Flash-style causal attention, the reference's online softmax over
+    KV blocks of ``kv_block`` (memory O(S * block), not O(S^2)): q
+    [B, S, H, hd], k/v [B, S, KV, hd] → [B, S, H, vd]. Masked scores take
+    an additive -1e30 and the running max starts at -1e30, as there: a
+    block a row cannot see adds exp(0) junk that the first visible block
+    scales away by exp(-1e30 - m) = 0. Every KV block is walked for every
+    query block (as the reference's scan); query blocks are independent,
+    so they run together."""
+    B, S, H, hd = q.shape
+    KV, vd = k.shape[2], v.shape[-1]
+    G = H // KV
+    scale = 1.0 / np.sqrt(hd)
+    q_block, kv_block = min(q_block, S), min(kv_block, S)
+    nq, nk = -(-S // q_block), -(-S // kv_block)
+    Sq, Sk = nq * q_block, nk * kv_block
+    qr = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, Sq - S)).reshape(
+        B, Sq, KV, G, hd).float()
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, Sk - S))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, Sk - S))
+    q_pos = torch.arange(Sq, device=q.device)
+    m = torch.full((B, KV, G, Sq), -1e30, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, vd), dtype=torch.float32,
+                      device=q.device)
+    for ki in range(nk):
+        k_blk = k[:, ki * kv_block:(ki + 1) * kv_block]
+        v_blk = v[:, ki * kv_block:(ki + 1) * kv_block]
+        kp = torch.arange(ki * kv_block, (ki + 1) * kv_block,
+                          device=q.device)
+        s = torch.einsum("bqkgd,bpkd->bkgqp", qr, k_blk.float()) * scale
+        msk = _mask(q_pos, kp, causal, window) & (kp < S)[None, :]
+        bias = torch.where(msk, 0.0, -1e30).to(torch.float32)
+        s = s + bias
+        new_m = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - new_m[..., None])
+        corr = torch.exp(m - new_m)
+        l = corr * l + p.sum(dim=-1)
+        acc = corr[..., None] * acc + torch.einsum(
+            "bkgqp,bpkd->bkgqd", p.to(v_blk.dtype).float(), v_blk.float())
+        m = new_m
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    # [B, KV, G, Sq, vd] -> [B, Sq, H, vd]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, vd)
+    return out[:, :S].to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Linear recurrence h_t = a_t h_{t-1} + b_t (RG-LRU prefill)
+# ---------------------------------------------------------------------------
+def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1):
+    """Every ``h_t`` of ``h_t = a_t h_{t-1} + b_t`` from ``h_{-1} = 0``
+    along ``dim``, in ceil(log2 S) doubling steps (Hillis-Steele), each
+    composing an element with the one ``d`` before it as the reference's
+    associative scan composes two: ``(a1, b1), (a2, b2) -> (a1 a2, a2
+    b1 + b2)``. Another tree than ``jax.lax.associative_scan``'s, so the
+    two agree within float rounding, not bit for bit."""
+    S = a.shape[dim]
+    d = 1
+    while d < S:
+        a_prev, b_prev = a.narrow(dim, 0, S - d), b.narrow(dim, 0, S - d)
+        a_cur, b_cur = a.narrow(dim, d, S - d), b.narrow(dim, d, S - d)
+        b = torch.cat([b.narrow(dim, 0, d), a_cur * b_prev + b_cur], dim)
+        a = torch.cat([a.narrow(dim, 0, d), a_prev * a_cur], dim)
+        d *= 2
+    return b

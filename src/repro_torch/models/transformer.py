@@ -7,16 +7,20 @@ and residual connections, split into:
     tuple of per-layer dicts;
   * ``blocks`` — ``n_sb`` repetitions of ``cfg.layer_pattern``, each
     leaf stacked on a leading ``[n_sb, ...]`` axis (the reference scans
-    over it; here a Python loop walks it).
+    over it; here a Python loop walks it);
+  * ``tail``   — the pattern's remainder, a tuple of per-layer dicts
+    (RecurrentGemma: 26 = 8·3 + 2).
 
 Parameters are nested dicts of tensors whose paths and shapes equal the
 JAX package's ``Model.init`` leaves, so ``models/weights.py`` can carry
-weights across one to one. The port runs global GQA (``ATTN``) and MLA
-mixers with MLP or MoE FFNs, decoder-only, with no unrolled tail after
-the superblocks, and the §4.6 MTP draft head (``mtp``: one (mixer, MLP)
-block behind a projection of [norm(hidden); norm(embedding)]); the
-encoder, the tail and the other mixers (sliding-window, cross-attention,
-SSM, RG-LRU) wait.
+weights across one to one. The port runs decoder-only models whose
+mixers are global GQA (``ATTN``), ring-window GQA (``LOCAL_ATTN``), MLA,
+the RG-LRU recurrent block or the Mamba-2 SSD block, with MLP, MoE or no
+FFN, and the §4.6 MTP draft head (``mtp``: one (mixer, MLP) block behind
+a projection of [norm(hidden); norm(embedding)]). Cross-attention, the
+encoder and VLM memory wait for the next slice. ``long_context=True``
+puts the configuration's ``long_context_window`` on global attention
+(``window_override``), as the reference's long-context serving does.
 """
 from __future__ import annotations
 
@@ -24,9 +28,12 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, MLA_ATTN, MLP, MOE, ModelConfig
+from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MLA_ATTN, MLP, MOE,
+                                      NONE, RGLRU, SSM, ModelConfig)
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as S
 from repro_torch.models.common import (dense_init, dtype_of, embed_init,
                                        resolve_device, rms_norm, tree_map)
 
@@ -36,28 +43,51 @@ PyTree = Any
 class ParamSpec(NamedTuple):
     shape: Tuple[int, ...]
     dtype: torch.dtype
-    init: str                 # "dense" | "embed" | "zeros"
+    #: "dense" | "embed" | "zeros", or a function (shape, generator,
+    #: device) → float32 tensor (the recurrent blocks' fixed inits)
+    init: Any
     fan_in: int = 0
+
+
+#: the mixers and FFNs the port runs
+MIXERS = (ATTN, LOCAL_ATTN, MLA_ATTN, RGLRU, SSM)
+FFNS = (MLP, MOE, NONE)
 
 
 def _index(tree, i):
     return tree_map(lambda t: t[i], tree)
 
 
+def attn_window(cfg: ModelConfig, mixer, window_override: int = 0) -> int:
+    """The window of a GQA mixer (0 = global): the configuration's ring
+    for ``LOCAL_ATTN``, ``window_override`` for ``ATTN``."""
+    if mixer == LOCAL_ATTN:
+        return cfg.sliding_window or cfg.rglru.window
+    return window_override
+
+
 # ===========================================================================
 # Single block
 # ===========================================================================
+def _mixer_spec(cfg: ModelConfig, mixer, dtype) -> Dict[str, ParamSpec]:
+    if mixer in (RGLRU, SSM):
+        shapes = (R.rglru_param_shapes if mixer == RGLRU
+                  else S.ssm_param_shapes)(cfg)
+        return {n: ParamSpec(s, torch.float32 if f32 else dtype, init, fan)
+                for n, (s, init, fan, f32) in shapes.items()}
+    shapes = (A.mla_param_shapes(cfg) if mixer == MLA_ATTN
+              else A.attn_param_shapes(cfg))
+    return {n: (ParamSpec(s, torch.float32, "zeros") if fan is None
+                else ParamSpec(s, dtype, "dense", fan))
+            for n, (s, fan) in shapes.items()}
+
+
 def block_spec(cfg: ModelConfig, kind, dtype) -> Dict[str, PyTree]:
     mixer, ffn = kind
     d = cfg.d_model
     norm = ParamSpec((d,), torch.float32, "zeros")
-    spec: Dict[str, PyTree] = {"mixer_norm": norm}
-    shapes = (A.attn_param_shapes(cfg) if mixer == ATTN
-              else A.mla_param_shapes(cfg))
-    spec["mixer"] = {
-        n: (ParamSpec(s, torch.float32, "zeros") if fan is None
-            else ParamSpec(s, dtype, "dense", fan))
-        for n, (s, fan) in shapes.items()}
+    spec: Dict[str, PyTree] = {"mixer_norm": norm,
+                               "mixer": _mixer_spec(cfg, mixer, dtype)}
 
     def mlp(f):
         return {"wi_gate": ParamSpec((d, f), dtype, "dense", d),
@@ -82,19 +112,46 @@ def block_spec(cfg: ModelConfig, kind, dtype) -> Dict[str, PyTree]:
     return spec
 
 
+def block_cache_spec(cfg: ModelConfig, kind, batch: int, max_len: int,
+                     dtype, window_override: int = 0):
+    """One block's decode cache: name → (shape, dtype). GQA keeps
+    ``max_len`` slots (a ring of at most its window with one), MLA its
+    latents; the recurrent blocks a float32 state and a conv history."""
+    mixer = kind[0]
+    if mixer in (ATTN, LOCAL_ATTN):
+        w = attn_window(cfg, mixer, window_override)
+        return {n: (s, dtype) for n, s in
+                A.attn_cache_spec(cfg, batch, max_len, w).items()}
+    if mixer == MLA_ATTN:
+        return {n: (s, dtype) for n, s in
+                A.mla_cache_spec(cfg, batch, max_len).items()}
+    return (R.rglru_cache_spec if mixer == RGLRU
+            else S.ssm_cache_spec)(cfg, batch, dtype)
+
+
 def block_apply(params, x, *, cfg: ModelConfig, kind, mode: str,
                 cache=None, positions=None, placement=None,
-                decode_microbatches: int = 1):
+                decode_microbatches: int = 1, window_override: int = 0):
     """Returns (x_out, layer cache). ``placement``: this layer's EPLB
     slice ``(replica_slots, n_replicas, phys_owner)`` or None;
     ``decode_microbatches``: the §4.4 ping-pong split of a decode MoE
     batch (1 = off; ``moe_apply`` applies it at decode only), as
-    ``MeshCtx.decode_microbatches`` in the reference."""
+    ``MeshCtx.decode_microbatches`` in the reference;
+    ``window_override``: the window of global attention (0 = none)."""
     mixer, ffn = kind
     h = rms_norm(x, params["mixer_norm"], cfg.norm_eps)
-    apply = A.attn_apply if mixer == ATTN else A.mla_apply
-    y, new_cache = apply(params["mixer"], h, cfg=cfg, mode=mode, cache=cache,
-                         positions=positions)
+    if mixer in (ATTN, LOCAL_ATTN):
+        y, new_cache = A.attn_apply(
+            params["mixer"], h, cfg=cfg, mode=mode,
+            window=attn_window(cfg, mixer, window_override),
+            cache=cache, positions=positions)
+    elif mixer == MLA_ATTN:
+        y, new_cache = A.mla_apply(params["mixer"], h, cfg=cfg, mode=mode,
+                                   cache=cache, positions=positions)
+    else:
+        apply = R.rglru_apply if mixer == RGLRU else S.ssm_apply
+        y, new_cache = apply(params["mixer"], h, cfg=cfg, mode=mode,
+                             cache=cache)
     x = x + y
     if ffn == MLP:
         h = rms_norm(x, params["ffn_norm"], cfg.norm_eps)
@@ -114,23 +171,32 @@ def block_apply(params, x, *, cfg: ModelConfig, kind, mode: str,
 class Model:
     """Functional model: parameters and caches are passed in.
     ``decode_microbatches >= 2`` splits each decode MoE batch into that
-    many §4.4 ping-pong micro-batches (1 = off)."""
+    many §4.4 ping-pong micro-batches (1 = off). ``long_context=True``
+    gives global attention the configuration's ``long_context_window``
+    (``window_override``) where the architecture does not already avoid
+    a cache that grows with the sequence, as in the reference."""
 
-    def __init__(self, cfg: ModelConfig, *, decode_microbatches: int = 1):
+    def __init__(self, cfg: ModelConfig, *, decode_microbatches: int = 1,
+                 long_context: bool = False):
         kinds = cfg.layer_kinds()
-        bad = sorted({k for k in kinds if k[0] not in (ATTN, MLA_ATTN)
-                      or k[1] not in (MLP, MOE)})
-        if bad or cfg.is_encdec or cfg.num_tail_layers:
+        bad = sorted({k for k in kinds if k[0] not in MIXERS
+                      or k[1] not in FFNS})
+        if bad or cfg.is_encdec:
             raise NotImplementedError(
-                f"{cfg.name}: block kinds {bad}, an encoder or a tail after "
-                f"the superblocks are not ported yet (global GQA and MLA "
-                f"mixers with MLP/MoE FFNs only)")
+                f"{cfg.name}: block kinds {bad} or an encoder: "
+                f"cross-attention, the encoder and VLM memory are not "
+                f"ported yet (the next slice of the port)")
         self.cfg = cfg
         self.decode_microbatches = decode_microbatches
         self.dtype = dtype_of(cfg.dtype)
-        self.prefix_kinds = kinds[:len(cfg.prefix_layers)]
+        self.window_override = (cfg.long_context_window
+                                if long_context
+                                and not cfg.supports_long_context else 0)
+        np_ = len(cfg.prefix_layers)
+        self.prefix_kinds = kinds[:np_]
         self.pattern = cfg.layer_pattern
         self.n_sb = cfg.num_superblocks
+        self.tail_kinds = kinds[np_ + self.n_sb * len(self.pattern):]
         # the MTP head's block: the last pattern mixer with a dense MLP
         # (the reference puts global attention in place of a
         # cross-attention mixer, which the check above refuses)
@@ -156,6 +222,9 @@ class Model:
                 f"pos{i}": tree_map(lambda s: s._replace(
                     shape=(self.n_sb,) + s.shape), block_spec(cfg, k, dt))
                 for i, k in enumerate(self.pattern)}
+        if self.tail_kinds:
+            spec["tail"] = tuple(block_spec(cfg, k, dt)
+                                 for k in self.tail_kinds)
         if cfg.mtp_num_layers:
             d = cfg.d_model
             norm = ParamSpec((d,), torch.float32, "zeros")
@@ -175,6 +244,8 @@ class Model:
         gen.manual_seed(seed)
 
         def make(s: ParamSpec):
+            if callable(s.init):
+                return s.init(s.shape, gen, dev).to(s.dtype)
             if s.init == "zeros":
                 return torch.zeros(s.shape, dtype=s.dtype, device=dev)
             if s.init == "embed":
@@ -187,20 +258,29 @@ class Model:
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, *,
                    device="cuda") -> PyTree:
+        """Zeros in each block's cache layout (:func:`block_cache_spec`):
+        ``prefix`` and ``tail`` per layer, ``blocks`` stacked."""
         dev = resolve_device(device)
 
         def zeros(kind, lead=()):
-            spec = (A.attn_cache_spec if kind[0] == ATTN
-                    else A.mla_cache_spec)(self.cfg, batch, max_len)
-            return {n: torch.zeros(lead + s, dtype=self.dtype, device=dev)
-                    for n, s in spec.items()}
+            spec = block_cache_spec(self.cfg, kind, batch, max_len,
+                                    self.dtype, self.window_override)
+            return {n: torch.zeros(lead + s, dtype=dt, device=dev)
+                    for n, (s, dt) in spec.items()}
         cache: Dict[str, PyTree] = {}
         if self.prefix_kinds:
             cache["prefix"] = tuple(zeros(k) for k in self.prefix_kinds)
         if self.n_sb:
             cache["blocks"] = {f"pos{i}": zeros(k, (self.n_sb,))
                                for i, k in enumerate(self.pattern)}
+        if self.tail_kinds:
+            cache["tail"] = tuple(zeros(k) for k in self.tail_kinds)
         return cache
+
+    def _mtp_kv_spec(self, batch: int, max_len: int):
+        # no window_override, as the reference's MTP block
+        return block_cache_spec(self.cfg, self.mtp_kind, batch, max_len,
+                                self.dtype)
 
     def mtp_cache_spec(self, batch: int, max_len: int) -> PyTree:
         """Shapes of the MTP draft head's batched decode state (§4.6):
@@ -208,19 +288,17 @@ class Model:
         the main cache's prefix layers), and ``"hidden"``, the ``[B, 1,
         d]`` main-model final hidden carried across decode iterations as
         the head's conditioning input."""
-        spec = (A.attn_cache_spec if self.mtp_kind[0] == ATTN
-                else A.mla_cache_spec)(self.cfg, batch, max_len)
-        return {"kv": spec, "hidden": (batch, 1, self.cfg.d_model)}
+        return {"kv": {n: s for n, (s, _) in
+                       self._mtp_kv_spec(batch, max_len).items()},
+                "hidden": (batch, 1, self.cfg.d_model)}
 
     def init_mtp_cache(self, batch: int, max_len: int, *,
                        device="cuda") -> PyTree:
         dev = resolve_device(device)
-        spec = self.mtp_cache_spec(batch, max_len)
-
-        def zeros(shape):
-            return torch.zeros(shape, dtype=self.dtype, device=dev)
-        return {"kv": {n: zeros(s) for n, s in spec["kv"].items()},
-                "hidden": zeros(spec["hidden"])}
+        return {"kv": {n: torch.zeros(s, dtype=dt, device=dev) for n, (s, dt)
+                       in self._mtp_kv_spec(batch, max_len).items()},
+                "hidden": torch.zeros((batch, 1, self.cfg.d_model),
+                                      dtype=self.dtype, device=dev)}
 
     # ------------------------------------------------------------------
     # core stack application
@@ -237,15 +315,20 @@ class Model:
             lp = None if placement is None else placement.layer(gl)
             return block_apply(p, x, cfg=cfg, kind=kind, mode=mode, cache=c,
                                positions=positions, placement=lp,
-                               decode_microbatches=self.decode_microbatches)
+                               decode_microbatches=self.decode_microbatches,
+                               window_override=self.window_override)
 
-        prefix = []
-        for i, kind in enumerate(self.prefix_kinds):
-            c = None if caches is None else caches["prefix"][i]
-            x, nc = layer(params["prefix"][i], x, kind, c, i)
-            prefix.append(nc)
-        if prefix:
-            new_caches["prefix"] = tuple(prefix)
+        def unrolled(section, kinds, first, x):
+            out = []
+            for i, kind in enumerate(kinds):
+                c = None if caches is None else caches[section][i]
+                x, nc = layer(params[section][i], x, kind, c, first + i)
+                out.append(nc)
+            if out:
+                new_caches[section] = tuple(out)
+            return x
+
+        x = unrolled("prefix", self.prefix_kinds, 0, x)
         if self.n_sb:
             per_sb = []
             for sb in range(self.n_sb):
@@ -261,6 +344,7 @@ class Model:
                 caches["blocks"] if caches is not None else
                 {k: {n: torch.stack([c[k][n] for c in per_sb])
                      for n in per_sb[0][k]} for k in per_sb[0]})
+        x = unrolled("tail", self.tail_kinds, np_ + self.n_sb * pl_len, x)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x, (caches if caches is not None else new_caches)
 

@@ -4,9 +4,9 @@ the port's parameter tree, one to one by path.
 The JAX tree is handed over as numpy arrays (``tree_map(np.asarray,
 params)`` on the JAX side), so this module needs neither JAX nor the JAX
 package. Paths are dotted (``prefix.0.mixer.wq_a``,
-``blocks.pos0.ffn.we_gate`` stacked ``[n_sb, ...]``, ``embed``,
-``final_norm``, ``lm_head``, the MTP head's ``mtp.0.proj``,
-``mtp.0.block.mixer.wq_a``). A missing or unexpected leaf, or a shape or
+``blocks.pos0.ffn.we_gate`` stacked ``[n_sb, ...]``, the tail's
+``tail.1.mixer.lam``, ``embed``, ``final_norm``, ``lm_head``, the MTP
+head's ``mtp.0.proj``, ``mtp.0.block.mixer.wq_a``). A missing or unexpected leaf, or a shape or
 dtype mismatch, raises.
 """
 from __future__ import annotations

@@ -65,7 +65,10 @@ chunk of a prompt's prefill and returns ``(cache, logits)``: pass
 ``cache=None`` on the first chunk (``offset == 0``) and thereafter the
 handle the previous chunk returned; ``logits`` are the chunk's last
 valid position, equal to ``prefill``'s on the final chunk. The default
-implementation buffers the chunks and runs one monolithic ``prefill``.
+implementation buffers the chunks and runs one monolithic ``prefill``;
+``TorchBackend`` runs chunks incrementally only where every mixer
+attends globally (``supports_chunked_prefill``): a ring window or a
+recurrent state cannot resume a prompt mid-way, so those models buffer.
 
 The ``apply_placement`` contract — the EPLB data plane
 ------------------------------------------------------
@@ -121,6 +124,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ATTN, MLA_ATTN
 from repro_torch.models.common import resolve_device, tree_map
 from repro_torch.serving.sampling import (DRAFT, greedy_verify,
                                           sample_tokens, speculative_verify,
@@ -276,8 +280,6 @@ class TorchBackend(ExecutionBackend):
     ``mtp_k > 0`` turns on :meth:`decode_sample_mtp` with that many
     drafts per iteration; it needs a model with an MTP head."""
 
-    supports_chunked_prefill = True
-
     def __init__(self, model, params: PyTree, *, max_len: int = 256,
                  seed: int = 0, top_k: int = 0, mtp_k: int = 0,
                  device="cuda"):
@@ -310,12 +312,26 @@ class TorchBackend(ExecutionBackend):
             self.params, self._ints(padded)[None], self._ints([n - 1]))
         return cache, logits[0].float().cpu().numpy()
 
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        """True when every mixer attends globally (ATTN / MLA_ATTN) in a
+        decoder-only model with no ``window_override``, the reference's
+        rule: ring windows and recurrent states cannot resume a prefill
+        mid-prompt, so those models take the buffering default."""
+        cfg = self.model.cfg
+        return (not cfg.is_encdec and self.model.window_override == 0
+                and all(m in (ATTN, MLA_ATTN)
+                        for m, _ in cfg.layer_kinds()))
+
     @torch.no_grad()
     def prefill_chunk(self, cache, tokens: List[int], offset: int,
                       total_len: int):
         """One chunk over the full-length cache buffer (written in place),
         padded to its bucket exactly as the reference pads it: the pad
-        tokens go through the router too."""
+        tokens go through the router too. Without incremental prefill
+        (``supports_chunked_prefill``), the buffering default."""
+        if not self.supports_chunked_prefill:
+            return super().prefill_chunk(cache, tokens, offset, total_len)
         Lc = self._chunk_buffer_len(total_len)
         if cache is None:
             if offset != 0:
@@ -366,16 +382,21 @@ class TorchBackend(ExecutionBackend):
     @torch.no_grad()
     def write_slot(self, cache: PyTree, cache1: PyTree,
                    slot: int) -> PyTree:
-        """Copy a batch-1 cache (any length up to the slot's) into slot
-        ``slot`` in place; the slot's positions past it are zeroed."""
+        """Copy a batch-1 cache into slot ``slot`` in place, the
+        reference's pad-to-slot rule: each leaf is zero-padded at the end
+        of every axis up to the slot's shape (a prefill's [S, ...] K/V or
+        ring into the slot's [L, ...]; a recurrent ``state`` or ``conv``
+        history has the slot's shape already) and cast to its dtype."""
         def one(full, part, stacked):
-            # per-layer leaves are [B, L, ...] (MLA latents, GQA k/v),
-            # stacked ones [n_sb, B, L, ...]
+            # the batch axis: 1 in stacked leaves [n_sb, B, ...], else 0
             dst = full[:, slot] if stacked else full[slot]
             src = part[:, 0] if stacked else part[0]
-            ax = 1 if stacked else 0
+            if src.dim() != dst.dim() or any(
+                    s > d for s, d in zip(src.shape, dst.shape)):
+                raise ValueError(f"write_slot: a {tuple(src.shape)} leaf "
+                                 f"does not fit a {tuple(dst.shape)} slot")
             dst.zero_()
-            dst.narrow(ax, 0, src.shape[ax]).copy_(src.to(dst.dtype))
+            dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
         _map_pairs(one, cache, cache1)
         return cache
 

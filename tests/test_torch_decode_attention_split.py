@@ -12,27 +12,47 @@ in PyTorch, one range at a time; on the cases of
 interpret mode) within 2e-4 in float32 and 3e-2 in bf16, under the plan
 of a 132-SM card and of a 4-SM one (more, shorter ranges). A NaN in a
 masked slot (a stale cache tail past the row's position) must not reach
-the output: it is held against the same inputs with that tail zeroed."""
+the output: it is held against the same inputs with that tail zeroed.
+
+A KV head's query heads are split into groups of at most ``1024 // hd``
+(``head_groups``), one block per (range, group): at RecurrentGemma's
+decode shape (hd 256, 10 query heads on one KV head, a ring of 2048
+slots) three groups of 4, 4 and 2. ``block_work`` is the kernel's own
+index arithmetic of a block; under the plan every (row, query head,
+slot) is walked by exactly one block, in ring mode and not, and the
+partition by groups gives the plain version's output."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.decode_attention.ops import decode_attention as jax_op
-from repro_torch.kernels.decode_attention.kernel import split_plan
+from repro_torch.kernels.decode_attention.kernel import (block_work, plan,
+                                                         split_plan)
 from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
                                                       valid_slots)
 from test_torch_decode_attention import CASES, TOL, _inputs
 
 
 def partitioned(q, k, v, positions, *, window=0, n_sms=132):
-    """The kernel's partition of the cache, as plain PyTorch."""
+    """The kernel's partition of the cache and of the query heads, as
+    plain PyTorch."""
     B, H, hd = q.shape
     L, KV = k.shape[1], k.shape[2]
     G = H // KV
-    split_len, n_split = split_plan(B, KV, L, n_sms)
+    p = plan(B, H, KV, hd, L, n_sms)
+    outs = [_partitioned_group(q.reshape(B, KV, G, hd)[:, :, g0:g0 + p[
+        "gpb"]], k, v, positions, window, p["split_len"], p["n_split"])
+        for g0 in range(0, G, p["gpb"])]
+    return torch.cat(outs, dim=2).reshape(B, H, hd)
+
+
+def _partitioned_group(qg, k, v, positions, window, split_len, n_split):
+    """One head group [B, KV, g, hd] over the plan's slot ranges:
+    (m, l, acc) per range, merged by log-sum-exp weights in order."""
+    hd, L = qg.shape[-1], k.shape[1]
     valid = valid_slots(positions, L, window)
-    qr = q.reshape(B, KV, G, hd).float()
+    qr = qg.float()
     ms, ls, accs = [], [], []
     for j in range(n_split):
         lo, hi = j * split_len, min(L, (j + 1) * split_len)
@@ -51,7 +71,7 @@ def partitioned(q, k, v, positions, *, window=0, n_sms=132):
         ls.append(p.sum(dim=-1))
         accs.append(torch.einsum("bkgl,blkd->bkgd",
                                  p.to(v.dtype).float(), vj.float()))
-    m = torch.stack(ms)                              # [n, B, KV, G]
+    m = torch.stack(ms)                              # [n, B, KV, g]
     M = m.amax(dim=0)
     safe = torch.where(torch.isfinite(M), M, torch.zeros_like(M))
     w = torch.where(torch.isfinite(m), torch.exp(m - safe),
@@ -61,8 +81,7 @@ def partitioned(q, k, v, positions, *, window=0, n_sms=132):
     for j in range(len(accs)):                       # range order
         acc = acc + w[j][..., None] * accs[j]
         l = l + w[j] * ls[j]
-    out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.reshape(B, H, hd)
+    return acc / torch.clamp(l[..., None], min=1e-30)
 
 
 @pytest.mark.parametrize("n_sms", [132, 4])
@@ -119,3 +138,89 @@ def test_nan_in_a_masked_slot_does_not_reach_the_output(dtype, window):
     assert torch.isfinite(ref).all()
     np.testing.assert_allclose(ref.numpy(), want, rtol=tol, atol=tol)
     assert torch.equal(ref, decode_attention_ref(tq, kz, vz, tpos, window=w))
+
+
+#: RecurrentGemma-2B's local-attention decode: B, H, KV, hd, L = window
+RING = (4, 10, 1, 256, 2048)
+
+
+@pytest.mark.parametrize("n_sms", [132, 4])
+@pytest.mark.parametrize("window", [2048, 0])
+@pytest.mark.parametrize("B,positions", [
+    (4, (0, 2047, 2048, 3000)), (4, (4095, 5, 100, 1500)),
+    (8, (2047, 1, 2100, 0, 700, 4000, 2048, 64))])
+def test_head_groups_cover_every_head_and_slot_once(B, positions, window,
+                                                    n_sms):
+    _, H, KV, hd, L = RING
+    p = plan(B, H, KV, hd, L, n_sms)
+    assert (p["gpb"], p["n_grp"]) == (4, 3)
+    assert p["grid"] == (p["n_split"], KV * p["n_grp"], B)
+    walked = np.zeros((B, H, L), np.int64)
+    for split in range(p["n_split"]):
+        for y in range(KV * p["n_grp"]):
+            for b in range(B):
+                heads, slots = block_work(p, H, KV, L, positions, window,
+                                          split, y, b)
+                assert 1 <= len(heads) <= p["gpb"]
+                walked[b, heads.start:heads.stop,
+                       slots.start:slots.stop] += 1
+    # a ring walks every slot (the kernel masks the stale ones); global
+    # attention walks the slots up to the row's position and no further
+    want = np.ones((B, H, L), np.int64)
+    if window == 0:
+        want *= (np.arange(L)[None, None, :]
+                 <= np.asarray(positions)[:, None, None])
+    assert np.array_equal(walked, want)
+
+
+@pytest.mark.parametrize("n_sms", [132, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_shape_partition_matches_plain_version_and_jax_op(dtype,
+                                                               n_sms):
+    B, H, KV, hd, L = RING
+    rng = np.random.default_rng(256)
+    q, k, v = (rng.standard_normal(s).astype(np.float32) * 0.5 for s in
+               ((B, H, hd), (B, L, KV, hd), (B, L, KV, hd)))
+    pos = np.asarray([0, 2047, 2048, 3000], np.int32)
+    td = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(td) for a in (q, k, v))
+    tpos = torch.from_numpy(pos)
+    got = partitioned(tq, tk, tv, tpos, window=L, n_sms=n_sms)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(
+        got.numpy(), decode_attention_ref(tq, tk, tv, tpos,
+                                          window=L).numpy(),
+        rtol=tol, atol=tol)
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = jax_op(*(jnp.asarray(a).astype(jd) for a in (q, k, v)),
+                  jnp.asarray(pos), window=L)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_nan_in_a_masked_ring_slot_stays_out_of_every_group(dtype):
+    """Rows early in the ring (slots not yet written are masked) with
+    those slots NaN: each head group's output equals the zero-filled
+    cache's."""
+    B, H, KV, hd, L = RING
+    rng = np.random.default_rng(7)
+    td = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32) * 0.5).to(td) for s in
+        ((B, H, hd), (B, L, KV, hd), (B, L, KV, hd)))
+    tpos = torch.tensor([5, 700, 2046, 0], dtype=torch.int32)
+    stale = ~valid_slots(tpos, L, L)[:, :, None, None]
+    assert stale.any()
+    kn, vn = (torch.where(stale, torch.tensor(float("nan"), dtype=td), t)
+              for t in (tk, tv))
+    kz, vz = (torch.where(stale, torch.zeros((), dtype=td), t)
+              for t in (tk, tv))
+    want = decode_attention_ref(tq, kz, vz, tpos, window=L)
+    for n_sms in (132, 4):
+        got = partitioned(tq, kn, vn, tpos, window=L, n_sms=n_sms)
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+    assert torch.equal(decode_attention_ref(tq, kn, vn, tpos, window=L),
+                       want)

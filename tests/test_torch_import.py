@@ -56,6 +56,8 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert {"repro_torch.core.transformerless", "repro_torch.core.dataflow",
             "repro_torch.core.moe_attn_disagg", "repro_torch.xccl.routing",
             "repro_torch.launch", "repro_torch.launch.serve"} <= on_disk
+    # the recurrent mixers: RG-LRU (RecurrentGemma) and Mamba-2's SSD
+    assert {"repro_torch.models.rglru", "repro_torch.models.ssm"} <= on_disk
 
 
 @pytest.mark.parametrize("needle", ["import jax", "from jax", "import repro.",

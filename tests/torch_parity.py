@@ -30,6 +30,10 @@ CONFIGS = {
                    {"num_heads": 10, "num_kv_heads": 2, "head_dim": 32}),
     "llama4": ("llama4-maverick-400b-a17b-smoke", {}),
     "internlm2": ("internlm2-1.8b-smoke", {}),
+    # one superblock (RG-LRU, RG-LRU, ring-window attention) and a
+    # 2-layer RG-LRU tail
+    "recurrentgemma": ("recurrentgemma-2b-smoke", {"num_layers": 5}),
+    "mamba2": ("mamba2-130m-smoke", {}),
 }
 
 
