@@ -276,6 +276,42 @@ K. the smoke RecurrentGemma (5 layers: a superblock and the tail) and
    Mamba-2 in float32: the engine on the card gives the CPU's greedy
    tokens;
 
+Llama-3.2-Vision-11B and SeamlessM4T-medium (cross-attention, the
+encoder and VLM memory), after the hybrid engines are freed:
+
+L. decode attention at the memory paths' shapes (B 4): each model's
+   cross-attention over its memory (Llama-3.2-Vision: 32 query heads on
+   8 KV heads of 128, L 1601; SeamlessM4T: 16 on 16 of 64, L 512) and
+   its self-attention over 256 slots, against the plain version in bf16
+   (3e-2) and float32 (2e-4), absolute and scaled by each row: every
+   slot attended, a short memory's zero pads among them, a layer's view
+   of a stacked cache, ragged self-attention positions, the slots a row
+   does not see NaN-filled; each check one launch under the profiler
+   and repeated bit-identically; timed in bf16 with every slot valid
+   (CUDA events in turn with ``scaled_dot_product_attention``, profiler
+   device time) beside the bytes bound and the plain version;
+M. Llama-3.2-Vision-11B at full width and depth (40 layers: 8
+   superblocks of 4 GQA layers and a cross-attention layer; 9.78 B
+   random bf16 parameters from a seed) through
+   ``FlowServeEngine(memory=)``, the memory [1, 1601, 4096] bf16 patch
+   embeddings made on the card from a seeded generator (the stubbed
+   vision frontend): 2 DP groups x 4 slots, ``max_len`` 256, prompts
+   of 8-200 random tokens x 16 greedy tokens, every prefill buffered;
+   launch counts set to 0 just before and read just after: decode
+   attention exactly 40 layers x each DP group's decode steps, and no
+   other kernel. TTFT, TPOT, peak memory, a decode profile, a decode
+   step run twice bit-identically and one under ``no_host_sync``, and
+   16 decode steps from an unpadded 200-token prefill against the
+   padded prefill, within 0.08 relative;
+N. SeamlessM4T-medium at full width and depth (12 encoder layers on
+   [1, 512, 1024] frames, 24 decoder blocks: 12 self-attention and 12
+   cross-attention + MLP) the same way: decode attention exactly 24 x
+   the decode steps;
+O. the smoke Llama-3.2-Vision with G = 4 (8 query heads on 2 KV heads)
+   and the smoke SeamlessM4T in float32, served a memory made on the
+   CPU from a seed: the engine on the card gives the CPU's greedy
+   tokens;
+
 13. print the card's name and power limit, one JSON line with every
     kernel's launches per path, error, times and bound (Collect's
     launches are the route-pack launches that ran its body), then the
@@ -285,6 +321,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import statistics
@@ -2964,12 +3001,13 @@ def check_small_reference(arch: str, **overrides):
     where it has an MTP head, also with ``mtp_k=2`` (and an oracle
     head before EPLB and after it), whose tokens equal the plain
     engine's and whose every iteration's block and accepted counts are
-    the CPU's."""
+    the CPU's. A model with cross-attention is served a memory made on
+    the CPU from a seed, the same on both devices."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.models.common import tree_map
-    from repro_torch.models.transformer import Model
+    from repro_torch.models.transformer import Model, seeded_memory
     from repro_torch.serving.flowserve import FlowServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparison
@@ -2978,11 +3016,13 @@ def check_small_reference(arch: str, **overrides):
                               **overrides)
     outs, blocks, tables = {}, {}, {}
     cpu_params = Model(cfg).init(0, device="cpu")
+    mem = (seeded_memory(cfg, torch.Generator().manual_seed(5), "cpu",
+                         torch.float32) if Model(cfg).has_cross else None)
     for dev in ("cpu", "cuda"):
         params = tree_map(lambda t: t.to(dev), cpu_params)
         for k in (0, 2) if cfg.mtp_num_layers else (0,):
             eng = FlowServeEngine(cfg, params, device=dev, n_dp_groups=2,
-                                  max_batch=2, mtp_k=k)
+                                  max_batch=2, mtp_k=k, memory=mem)
             seen = []
             for d in eng.dps if k else ():
                 real = d.backend.decode_sample_mtp
@@ -3724,11 +3764,11 @@ def check_ring_attention() -> dict:
     return out
 
 
-def hybrid_prompts(cfg) -> list:
-    """Token ids of :data:`HYBRID_LENS`, random from a seed."""
+def random_prompts(cfg, lens) -> list:
+    """Token ids of prompts of ``lens`` tokens, random from a seed."""
     import numpy as np
     rng = np.random.default_rng(2402)
-    return [rng.integers(3, cfg.vocab_size, n).tolist() for n in HYBRID_LENS]
+    return [rng.integers(3, cfg.vocab_size, n).tolist() for n in lens]
 
 
 class DecodeCounter:
@@ -3757,7 +3797,8 @@ def decode_consistency(engine, P: int, steps: int, at: tuple) -> dict:
     fed the next tokens; after step ``j`` in ``at`` the logits are held
     to the backend's (padded) prefill of the first ``P + j`` tokens at
     its last position, within the 0.08 relative bar of
-    ``tests/test_decode_consistency.py``."""
+    ``tests/test_decode_consistency.py``. A model with cross-attention
+    reads the backend's memory in both prefills."""
     import numpy as np
 
     be = engine.dps[0].backend
@@ -3766,8 +3807,9 @@ def decode_consistency(engine, P: int, steps: int, at: tuple) -> dict:
         3, engine.cfg.vocab_size, P + steps).tolist()
     errs = {}
     with torch.no_grad():
-        _, cache1 = be.model.prefill(be.params,
-                                     torch.tensor([toks[:P]], device=dev))
+        _, cache1 = be.model.prefill(
+            be.params, torch.tensor([toks[:P]], device=dev),
+            memory=None if be.memory is None else be.memory[:1])
         cache = be.model.init_cache(1, be.max_len, device=dev)
         be.write_slot(cache, cache1, 0)
         del cache1
@@ -3797,7 +3839,9 @@ def sync_free_decode(engine) -> None:
     cache = be.init_cache(B, be.max_len)
     tokens = torch.arange(5, 5 + B, dtype=torch.int32,
                           device=be.device)[:, None]
-    positions = torch.tensor([0, 9, 2047, 3000][:B] + [1] * (B - 4),
+    positions = torch.tensor([min(p, be.max_len - 1)
+                              for p in (0, 9, 2047, 3000)][:B]
+                             + [1] * (B - 4),
                              dtype=torch.int32, device=be.device)
     torch.cuda.synchronize()
     with torch.no_grad(), no_host_sync():
@@ -3808,29 +3852,32 @@ def sync_free_decode(engine) -> None:
         f"set_sync_debug_mode('error')")
 
 
-def hybrid_path(cfg, consistency: tuple) -> dict:
-    """Stages I and J: ``cfg`` at full width served through the port's
-    ``FlowServeEngine`` (2 DP groups x 4 slots, ``max_len`` 4096,
-    greedy): the :data:`HYBRID_LENS` prompts, :data:`HYBRID_NEW` tokens
-    each, launch counts set to 0 just before and read just after:
-    decode attention exactly (local-attention layers x each DP group's
+def served_path(cfg, lens, n_new: int, max_len: int, consistency: tuple,
+                memory=None) -> dict:
+    """Stages I, J, M and N: ``cfg`` at full width served through the
+    port's ``FlowServeEngine`` (2 DP groups x 4 slots, greedy; a model
+    with cross-attention reads ``memory``): prompts of ``lens`` random
+    tokens, ``n_new`` tokens each, every prefill buffered; launch counts
+    set to 0 just before and read just after: decode attention exactly
+    (its global, local and cross-attention layers x each DP group's
     decode steps) and no other kernel. Then TTFT, TPOT, peak memory, a
     decode profile, a decode step repeated bit-identically, a step with
     no host sync and decode against prefill (``consistency``: prompt
     length, steps, checkpoints)."""
-    from repro_torch.configs.base import LOCAL_ATTN
+    from repro_torch.configs.base import ATTN, CROSS_ATTN, LOCAL_ATTN
     from repro_torch.kernels import runtime
     from repro_torch.serving.request import Request
 
-    engine = make_engine(cfg, max_batch=4, max_len=HYBRID_MAX_LEN)
+    engine = make_engine(cfg, max_batch=4, max_len=max_len, memory=memory)
     check(not any(d.backend.supports_chunked_prefill for d in engine.dps),
           f"{cfg.name}: the buffering prefill")
-    n_local = sum(m == LOCAL_ATTN for m, _ in cfg.layer_kinds())
+    n_attn = sum(m in (ATTN, LOCAL_ATTN, CROSS_ATTN)
+                 for m, _ in cfg.layer_kinds())
     torch.cuda.reset_peak_memory_stats()
     counter = DecodeCounter(engine)
-    reqs = [Request(prompt=f"hybrid {i}", prompt_tokens=toks,
-                    max_new_tokens=HYBRID_NEW, ignore_eos=True)
-            for i, toks in enumerate(hybrid_prompts(cfg))]
+    reqs = [Request(prompt=f"prompt {i}", prompt_tokens=toks,
+                    max_new_tokens=n_new, ignore_eos=True)
+            for i, toks in enumerate(random_prompts(cfg, lens))]
     torch.cuda.synchronize()
     runtime.reset_launch_counts()
     t0 = time.monotonic()
@@ -3844,20 +3891,20 @@ def hybrid_path(cfg, consistency: tuple) -> dict:
     counter.undo(engine)
     for r in reqs:
         check(r.state.value == "finished"
-              and len(r.output_tokens) == HYBRID_NEW
+              and len(r.output_tokens) == n_new
               and all(0 <= t < cfg.vocab_size for t in r.output_tokens),
-              f"{cfg.name}: request {r.req_id} finished with "
-              f"{HYBRID_NEW} tokens")
-    want = {"decode_attention": n_local * sum(steps.values())} \
-        if n_local else {}
+              f"{cfg.name}: request {r.req_id} finished with {n_new} "
+              f"tokens")
+    want = {"decode_attention": n_attn * sum(steps.values())} \
+        if n_attn else {}
     check({n: c for n, c in launches.items() if c} == want and not fused,
           f"{cfg.name}: launches {launches} (fused {fused}) equal "
-          f"{want}: {n_local} local-attention layers x decode steps "
-          f"{steps} and no other kernel")
+          f"{want}: {n_attn} attention layers x decode steps {steps} and "
+          f"no other kernel")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     by_len = {len(r.prompt_tokens): dict(ttft_ms=1e3 * r.ttft,
                                          tpot_ms=1e3 * r.tpot) for r in reqs}
-    log(f"path: {cfg.name} {len(reqs)} requests x {HYBRID_NEW} tokens in "
+    log(f"path: {cfg.name} {len(reqs)} requests x {n_new} tokens in "
         f"{wall:.2f} s; decode steps by DP group {steps}; launches "
         f"{launches}; peak memory {peak:.2f} GiB; TTFT / TPOT ms by prompt "
         f"length " + ", ".join(f"{n}: {v['ttft_ms']:.1f} / "
@@ -3868,7 +3915,7 @@ def hybrid_path(cfg, consistency: tuple) -> dict:
     sync_free_decode(engine)
     errs = decode_consistency(engine, *consistency)
     res = dict(launches=launches, fused=fused, decode_steps=steps,
-               local_attention_layers=n_local, serve_s=wall,
+               attention_layers=n_attn, serve_s=wall,
                ttft_ms_mean=statistics.mean(v["ttft_ms"]
                                             for v in by_len.values()),
                tpot_ms_mean=statistics.mean(v["tpot_ms"]
@@ -3888,10 +3935,12 @@ def hybrid_stages(get_config) -> dict:
     kern = {"decode_attention": check_ring_attention()}
     free(f"ring attention checks: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
-    rg = hybrid_path(get_config(RG), (2040, 16, (1, 8, 9, 16)))
+    rg = served_path(get_config(RG), HYBRID_LENS, HYBRID_NEW,
+                     HYBRID_MAX_LEN, (2040, 16, (1, 8, 9, 16)))
     free(f"{RG} path: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
-    mamba = hybrid_path(get_config(MAMBA), (200, 16, (1, 8, 16)))
+    mamba = served_path(get_config(MAMBA), HYBRID_LENS, HYBRID_NEW,
+                        HYBRID_MAX_LEN, (200, 16, (1, 8, 16)))
     free(f"{MAMBA} path: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     check_small_reference(RG, num_layers=5)
@@ -3899,6 +3948,194 @@ def hybrid_stages(get_config) -> dict:
     log(f"hybrid small references: {time.monotonic() - t0:.1f} s")
     return {RG: (kern, rg), MAMBA: ({}, mamba)}
 
+
+# ---------------------------------------------------------------------------
+# stages L-O: cross-attention, the encoder and VLM memory
+# ---------------------------------------------------------------------------
+VLM, SEAMLESS = "llama-3.2-vision-11b", "seamless-m4t-medium"
+#: the memory paths' self-attention cache length
+MEMORY_MAX_LEN = 256
+#: prompt lengths of the memory paths: one wave of 8 slots
+MEMORY_LENS = (8, 16, 33, 57, 100, 130, 180, 200)
+MEMORY_NEW = 16
+#: decode-attention batch of stage L (a DP group's slots)
+MEMORY_B = 4
+
+
+def memory_attention_shapes(get_config) -> dict:
+    """name → (H, KV, hd, L, cross) of decode attention on the memory
+    paths: each model's cross-attention over its memory and its
+    self-attention over ``MEMORY_MAX_LEN`` slots."""
+    out = {}
+    for arch in (VLM, SEAMLESS):
+        c = get_config(arch)
+        H, KV, hd = c.num_heads, c.num_kv_heads, c.resolved_head_dim
+        out[f"{arch} cross"] = (H, KV, hd, c.num_frontend_tokens, True)
+        out[f"{arch} self"] = (H, KV, hd, MEMORY_MAX_LEN, False)
+    return out
+
+
+def check_memory_attention(get_config) -> dict:
+    """Stage L: decode attention at the memory paths' shapes (B 4;
+    Llama-3.2-Vision H 32 on KV 8, hd 128, cross L 1601; SeamlessM4T H
+    16 on KV 16, hd 64, cross L 512; self-attention over 256 slots)
+    against the plain version in bf16 (3e-2) and float32 (2e-4),
+    absolute and scaled by each row (:func:`held_attention`). Cross
+    shapes: every slot attended (positions L - 1), a short memory's zero
+    pads among them, and a per-layer view of a stacked cache; self
+    shapes: every slot, ragged positions and a stacked view, with the
+    slots a row does not see NaN-filled. Each check repeats
+    bit-identically, and is one launch under the profiler (all checks'
+    calls in one window). Timed in bf16 with every
+    slot valid (CUDA events in turn with ``scaled_dot_product_attention``,
+    profiler device time) beside the bytes bound and the plain
+    version."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda, plan)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, valid_slots)
+
+    B = MEMORY_B
+    gen = torch.Generator(device="cuda").manual_seed(1601)
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparison
+    torch.backends.cudnn.allow_tf32 = False
+
+    def inputs(H, KV, hd, L, dtype, pos, stacked=False):
+        """q, k, v, positions; ``stacked``: k/v are layer 1 of a [2, B,
+        L, KV, hd] stack, as a superblock's cache view."""
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device="cuda") * 0.5
+        n = 2 if stacked else 1
+        k = rand(n, B, L, KV, hd).to(dtype)[n - 1]
+        v = rand(n, B, L, KV, hd).to(dtype)[n - 1]
+        return (rand(B, H, hd).to(dtype), k, v,
+                torch.tensor(pos, dtype=torch.int32, device="cuda"))
+
+    shapes = memory_attention_shapes(get_config)
+    errs, calls = {}, []
+    for name, (H, KV, hd, L, cross) in shapes.items():
+        last = [L - 1] * B
+        cases = [("every slot", last, False, 0)]
+        if cross:
+            cases += [("short memory, zero pads", last, False, L // 3),
+                      ("stacked cache view", last, True, 0)]
+        else:
+            cases += [("ragged", [0, L - 1, L // 2 + 3, 37], False, 0),
+                      ("stacked cache view", [L - 1, 3, 100, 200], True, 0)]
+        for dtype, bar in ((torch.bfloat16, 3e-2), (torch.float32, 2e-4)):
+            for case, pos, stacked, short in cases:
+                q, k, v, p = inputs(H, KV, hd, L, dtype, pos, stacked)
+                if short:
+                    k[:, short:] = 0
+                    v[:, short:] = 0
+                want = decode_attention_ref(q, k, v, p)
+                got = decode_attention_cuda(q, k, v, p)
+                stale = ~valid_slots(p, L)[:, :, None, None]
+                k.masked_fill_(stale, float("nan"))
+                v.masked_fill_(stale, float("nan"))
+                nan_got = decode_attention_cuda(q, k, v, p)
+                again = decode_attention_cuda(q, k, v, p)
+                torch.cuda.synchronize()
+                what = f"{name}, {case}, {dtype}"
+                e1 = held_attention(got, want, bar, what)
+                e2 = held_attention(nan_got, want, bar, what + ", NaN tail")
+                check(torch.equal(nan_got, again),
+                      f"decode_attention {what}: repeat bit-identical")
+                calls.append(functools.partial(decode_attention_cuda,
+                                               q, k, v, p))
+                errs[name, case, str(dtype)] = (max(e1[0], e2[0]),
+                                                max(e1[1], e2[1]))
+                log(f"decode_attention {what} [{B},{H},{hd}] x L={L}: max "
+                    f"abs err {errs[name, case, str(dtype)][0]:.3g}, scaled "
+                    f"{errs[name, case, str(dtype)][1]:.3g} (NaN tail too), "
+                    f"repeat bit-identical; plan "
+                    f"{plan(B, H, KV, hd, L, 132)}")
+    # every check's call, each once, in one profiler window: one device
+    # kernel per call and nothing beside them (40 rounds: late in the
+    # process a window loses its first 7-10 kernel events)
+    prof = profile_calls(lambda: [c() for c in calls], reps=40)
+    check(prof["per_call"] is not None
+          and round(prof["per_call"]) == len(calls)
+          and all("decode_attention" in n for n in prof["names"]),
+          f"decode_attention: each of the {len(calls)} checks one launch "
+          f"under the profiler, got {prof['per_call']} of {prof['names']}")
+    log(f"decode_attention: the {len(calls)} checks' calls are "
+        f"{prof['per_call']} device kernels per round ({prof['names']})")
+
+    def timed(name):
+        H, KV, hd, L, _ = shapes[name]
+        q, k, v, p = inputs(H, KV, hd, L, torch.bfloat16, [L - 1] * B)
+
+        def kernel():
+            return decode_attention_cuda(q, k, v, p)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                enable_gqa=True)
+        want = decode_attention_ref(q, k, v, p)
+        err, scaled = held_attention(kernel(), want, 3e-2, f"timed {name}")
+        lib_err = attention_err(sdpa()[:, :, 0].float(), want)
+        rows = B * L                           # every slot is needed
+        bnd, by = bound_ms(rows * KV * hd * 2 * 2 + nbytes(q, p)
+                           + B * H * hd * 4, 4 * rows * H * hd)
+        prof = profile_calls(kernel, reps=100)   # see the window above
+        one_launch(prof, "decode_attention", f"decode_attention {name}")
+        ms, lib_ms = time_pair(kernel, sdpa)
+        res = dict(ms=ms, device_ms=prof["device_ms"],
+                   plain_ms=time_ms(lambda: decode_attention_ref(q, k, v, p),
+                                    reps=5, warm=1),
+                   library_ms=lib_ms, library_device_ms=device_ms(sdpa),
+                   library="scaled_dot_product_attention",
+                   library_max_abs_err=lib_err[0], max_abs_err=err,
+                   scaled_err=scaled, bound_ms=bnd, bound_by=by,
+                   slots_needed=rows, kernels_per_call=prof["per_call"],
+                   shape=dict(B=B, H=H, KV=KV, hd=hd, L=L),
+                   plan=plan(B, H, KV, hd, L, 132))
+        log(f"decode_attention timed {name} [{B},{H},{hd}] x L={L}: "
+            f"{ms:.4f} ms (device {res['device_ms']}), plain "
+            f"{res['plain_ms']:.4f}, SDPA {lib_ms:.4f} (device "
+            f"{res['library_device_ms']}), bound {bnd:.5f} ms ({by}); err "
+            f"{err:.3g}")
+        return res
+    by_shape = {name: timed(name) for name in shapes}
+    out = dict(by_shape[f"{VLM} cross"], by_shape=by_shape)
+    bf16 = [e for (_, _, dt), e in errs.items() if dt == "torch.bfloat16"]
+    f32 = [e for (_, _, dt), e in errs.items() if dt == "torch.float32"]
+    out["max_abs_err"] = max([e for e, _ in bf16]
+                             + [t["max_abs_err"] for t in by_shape.values()])
+    out["max_scaled_err"] = max(s for _, s in bf16)
+    out["max_abs_err_f32"] = max(e for e, _ in f32)
+    out["max_scaled_err_f32"] = max(s for _, s in f32)
+    return out
+
+
+def memory_stages(get_config) -> dict:
+    """Stages L-O: decode attention at the memory paths' shapes, then
+    Llama-3.2-Vision-11B (40 layers) and SeamlessM4T-medium (12 encoder
+    layers, 24 decoder blocks) at full width and depth, then both smoke
+    models card against CPU."""
+    from repro_torch.models.transformer import seeded_memory
+
+    t0 = time.monotonic()
+    kern = {"decode_attention": check_memory_attention(get_config)}
+    free(f"memory attention checks: {time.monotonic() - t0:.1f} s")
+    paths = {}
+    for arch in (VLM, SEAMLESS):
+        t0 = time.monotonic()
+        cfg = get_config(arch)
+        memory = seeded_memory(cfg, torch.Generator(
+            device="cuda").manual_seed(2311), "cuda", torch.bfloat16)
+        paths[arch] = served_path(cfg, MEMORY_LENS, MEMORY_NEW,
+                                  MEMORY_MAX_LEN, (200, 16, (1, 8, 16)),
+                                  memory)
+        del memory
+        free(f"{arch} path: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    check_small_reference(VLM, num_heads=8, num_kv_heads=2)
+    check_small_reference(SEAMLESS)
+    log(f"memory small references: {time.monotonic() - t0:.1f} s")
+    return {VLM: (kern, paths[VLM]), SEAMLESS: ({}, paths[SEAMLESS])}
 
 
 def kernel_line(results: dict) -> dict:
@@ -3961,7 +4198,7 @@ def main() -> int:
                 log(f"  {name}.cu: {line.strip()}")
 
     results = {**deepseek_stages(get_config), **llama_stages(get_config),
-               **hybrid_stages(get_config)}
+               **hybrid_stages(get_config), **memory_stages(get_config)}
     for p, (_, path) in results.items():
         log(json.dumps({"path": p, **{k: v for k, v in path.items()
                                       if k != "text"}}))

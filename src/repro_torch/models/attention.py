@@ -1,5 +1,7 @@
 """Attention mixers: GQA attention (global, or a sliding window over a
-ring buffer) and DeepSeek multi-head latent attention (MLA).
+ring buffer), cross-attention over a fixed memory (VLM image layers and
+the encoder-decoder's decoder), and DeepSeek multi-head latent attention
+(MLA).
 
 Three execution modes, as in the reference:
 
@@ -22,6 +24,11 @@ Three execution modes, as in the reference:
     with a window); MLA decode is the absorbed form: the query is folded
     into latent space (``q_nope · wk_b``) and scored against the latent
     cache directly.
+
+Cross-attention is neither causal nor roped: prefill projects the
+memory to K/V once and returns them as the layer's cache; decode reads
+that cache and never writes it, attending over every slot through the
+decode-attention kernel.
 
 The per-layer cache is a dict of tensors; in-place writes through views
 of the stacked superblock cache update the stack itself. The
@@ -149,6 +156,52 @@ def _attn_chunk(params, x, *, cfg: ModelConfig, cache: Cache, offset: int):
     o = naive_attention(q, cache["k"], cache["v"], q_positions=pos,
                         kv_positions=torch.arange(L, device=x.device))
     return torch.einsum("bshk,hkd->bsd", o, params["wo"]), cache
+
+
+# ===========================================================================
+# Cross attention (VLM image layers, the encoder-decoder's decoder)
+# ===========================================================================
+def cross_attn_param_shapes(cfg: ModelConfig):
+    """name → (shape, fan_in); K/V project the memory, of width
+    ``encoder_d_model`` (0: ``d_model``)."""
+    d, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.resolved_head_dim)
+    md = cfg.encoder_d_model or d
+    return {"wq": ((d, H, hd), d), "wk": ((md, KV, hd), md),
+            "wv": ((md, KV, hd), md), "wo": ((H, hd, d), H * hd)}
+
+
+def cross_attn_cache_spec(cfg: ModelConfig, batch: int, mem_len: int):
+    """The memory's K/V: ``mem_len`` slots."""
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return {"k": (batch, mem_len, KV, hd), "v": (batch, mem_len, KV, hd)}
+
+
+def cross_attn_apply(params, x, *, cfg: ModelConfig, mode: str,
+                     memory: Optional[torch.Tensor] = None,
+                     cache: Optional[Cache] = None
+                     ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """Attention of ``x`` over a memory, with no RoPE and no mask.
+    ``prefill``: ``memory`` [B, M, md] → K/V, returned as the cache.
+    ``decode``: the cache's K/V, read only; every slot is attended (the
+    kernel at ``positions = L - 1``), the zero-padded ones of a memory
+    shorter than the slot too, as the reference's ``naive_attention``
+    attends them."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    if mode == "prefill":
+        if memory is None:
+            raise ValueError("cross-attention prefill needs the memory")
+        k = torch.einsum("bmd,dhk->bmhk", memory, params["wk"])
+        v = torch.einsum("bmd,dhk->bmhk", memory, params["wv"])
+        o = naive_attention(q, k, v, causal=False)
+        return torch.einsum("bshk,hkd->bsd", o, params["wo"]), {"k": k,
+                                                                "v": v}
+    if mode != "decode":
+        raise ValueError(f"cross_attn_apply: unsupported mode {mode!r}")
+    B, L = cache["k"].shape[:2]
+    last = torch.full((B,), L - 1, dtype=torch.int32, device=x.device)
+    o = decode_attention(q[:, 0], cache["k"], cache["v"], last).to(q.dtype)
+    return torch.einsum("bshk,hkd->bsd", o[:, None], params["wo"]), cache
 
 
 # ===========================================================================

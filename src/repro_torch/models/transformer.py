@@ -13,29 +13,35 @@ and residual connections, split into:
 
 Parameters are nested dicts of tensors whose paths and shapes equal the
 JAX package's ``Model.init`` leaves, so ``models/weights.py`` can carry
-weights across one to one. The port runs decoder-only models whose
-mixers are global GQA (``ATTN``), ring-window GQA (``LOCAL_ATTN``), MLA,
-the RG-LRU recurrent block or the Mamba-2 SSD block, with MLP, MoE or no
-FFN, and the §4.6 MTP draft head (``mtp``: one (mixer, MLP) block behind
-a projection of [norm(hidden); norm(embedding)]). Cross-attention, the
-encoder and VLM memory wait for the next slice. ``long_context=True``
+weights across one to one. Mixers: global GQA (``ATTN``), ring-window
+GQA (``LOCAL_ATTN``), cross-attention over a memory (``CROSS_ATTN``),
+MLA, the RG-LRU recurrent block or the Mamba-2 SSD block, with MLP, MoE
+or no FFN; the §4.6 MTP draft head (``mtp``: one (mixer, MLP) block
+behind a projection of [norm(hidden); norm(embedding)]). A VLM is given
+its ``memory`` (the stubbed vision frontend's patch embeddings); an
+encoder-decoder model (``cfg.is_encdec``) runs its ``encoder`` stack —
+non-causal, un-roped (ATTN, MLP) blocks at ``encoder_d_model`` and an
+RMS norm — on the stubbed frontend's frames first. The cross-attention
+layers keep the memory's K/V as their decode cache. ``long_context=True``
 puts the configuration's ``long_context_window`` on global attention
 (``window_override``), as the reference's long-context serving does.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MLA_ATTN, MLP, MOE,
-                                      NONE, RGLRU, SSM, ModelConfig)
+from repro_torch.configs.base import (ATTN, CROSS_ATTN, LOCAL_ATTN, MLA_ATTN,
+                                      MLP, MOE, RGLRU, SSM, ModelConfig)
 from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 from repro_torch.models.common import (dense_init, dtype_of, embed_init,
-                                       resolve_device, rms_norm, tree_map)
+                                       naive_attention, resolve_device,
+                                       rms_norm, tree_map)
 
 PyTree = Any
 
@@ -47,11 +53,6 @@ class ParamSpec(NamedTuple):
     #: device) → float32 tensor (the recurrent blocks' fixed inits)
     init: Any
     fan_in: int = 0
-
-
-#: the mixers and FFNs the port runs
-MIXERS = (ATTN, LOCAL_ATTN, MLA_ATTN, RGLRU, SSM)
-FFNS = (MLP, MOE, NONE)
 
 
 def _index(tree, i):
@@ -76,6 +77,7 @@ def _mixer_spec(cfg: ModelConfig, mixer, dtype) -> Dict[str, ParamSpec]:
         return {n: ParamSpec(s, torch.float32 if f32 else dtype, init, fan)
                 for n, (s, init, fan, f32) in shapes.items()}
     shapes = (A.mla_param_shapes(cfg) if mixer == MLA_ATTN
+              else A.cross_attn_param_shapes(cfg) if mixer == CROSS_ATTN
               else A.attn_param_shapes(cfg))
     return {n: (ParamSpec(s, torch.float32, "zeros") if fan is None
                 else ParamSpec(s, dtype, "dense", fan))
@@ -113,11 +115,15 @@ def block_spec(cfg: ModelConfig, kind, dtype) -> Dict[str, PyTree]:
 
 
 def block_cache_spec(cfg: ModelConfig, kind, batch: int, max_len: int,
-                     dtype, window_override: int = 0):
+                     dtype, window_override: int = 0, mem_len: int = 0):
     """One block's decode cache: name → (shape, dtype). GQA keeps
-    ``max_len`` slots (a ring of at most its window with one), MLA its
-    latents; the recurrent blocks a float32 state and a conv history."""
+    ``max_len`` slots (a ring of at most its window with one),
+    cross-attention the memory's ``mem_len``, MLA its latents; the
+    recurrent blocks a float32 state and a conv history."""
     mixer = kind[0]
+    if mixer == CROSS_ATTN:
+        return {n: (s, dtype) for n, s in
+                A.cross_attn_cache_spec(cfg, batch, mem_len).items()}
     if mixer in (ATTN, LOCAL_ATTN):
         w = attn_window(cfg, mixer, window_override)
         return {n: (s, dtype) for n, s in
@@ -130,10 +136,12 @@ def block_cache_spec(cfg: ModelConfig, kind, batch: int, max_len: int,
 
 
 def block_apply(params, x, *, cfg: ModelConfig, kind, mode: str,
-                cache=None, positions=None, placement=None,
+                cache=None, positions=None, memory=None, placement=None,
                 decode_microbatches: int = 1, window_override: int = 0):
-    """Returns (x_out, layer cache). ``placement``: this layer's EPLB
-    slice ``(replica_slots, n_replicas, phys_owner)`` or None;
+    """Returns (x_out, layer cache). ``memory``: what a cross-attention
+    layer attends to in prefill (decode reads its cache);
+    ``placement``: this layer's EPLB slice ``(replica_slots, n_replicas,
+    phys_owner)`` or None;
     ``decode_microbatches``: the §4.4 ping-pong split of a decode MoE
     batch (1 = off; ``moe_apply`` applies it at decode only), as
     ``MeshCtx.decode_microbatches`` in the reference;
@@ -145,6 +153,10 @@ def block_apply(params, x, *, cfg: ModelConfig, kind, mode: str,
             params["mixer"], h, cfg=cfg, mode=mode,
             window=attn_window(cfg, mixer, window_override),
             cache=cache, positions=positions)
+    elif mixer == CROSS_ATTN:
+        y, new_cache = A.cross_attn_apply(params["mixer"], h, cfg=cfg,
+                                          mode=mode, memory=memory,
+                                          cache=cache)
     elif mixer == MLA_ATTN:
         y, new_cache = A.mla_apply(params["mixer"], h, cfg=cfg, mode=mode,
                                    cache=cache, positions=positions)
@@ -179,13 +191,6 @@ class Model:
     def __init__(self, cfg: ModelConfig, *, decode_microbatches: int = 1,
                  long_context: bool = False):
         kinds = cfg.layer_kinds()
-        bad = sorted({k for k in kinds if k[0] not in MIXERS
-                      or k[1] not in FFNS})
-        if bad or cfg.is_encdec:
-            raise NotImplementedError(
-                f"{cfg.name}: block kinds {bad} or an encoder: "
-                f"cross-attention, the encoder and VLM memory are not "
-                f"ported yet (the next slice of the port)")
         self.cfg = cfg
         self.decode_microbatches = decode_microbatches
         self.dtype = dtype_of(cfg.dtype)
@@ -197,10 +202,13 @@ class Model:
         self.pattern = cfg.layer_pattern
         self.n_sb = cfg.num_superblocks
         self.tail_kinds = kinds[np_ + self.n_sb * len(self.pattern):]
-        # the MTP head's block: the last pattern mixer with a dense MLP
-        # (the reference puts global attention in place of a
-        # cross-attention mixer, which the check above refuses)
-        self.mtp_kind = (self.pattern[-1][0], MLP)
+        #: a cross-attention layer reads a memory: prefill needs one
+        self.has_cross = any(m == CROSS_ATTN for m, _ in kinds)
+        # the MTP head's block: the last pattern mixer with a dense MLP,
+        # global attention in place of cross-attention (the reference's
+        # rule: the head has no memory)
+        mixer = self.pattern[-1][0]
+        self.mtp_kind = (ATTN if mixer == CROSS_ATTN else mixer, MLP)
 
     # ------------------------------------------------------------------
     # parameters
@@ -225,6 +233,12 @@ class Model:
         if self.tail_kinds:
             spec["tail"] = tuple(block_spec(cfg, k, dt)
                                  for k in self.tail_kinds)
+        if cfg.is_encdec:
+            ecfg = self._encoder_cfg()
+            spec["encoder"] = {
+                "blocks": tuple(block_spec(ecfg, (ATTN, MLP), dt)
+                                for _ in range(cfg.encoder_layers)),
+                "norm": ParamSpec((ecfg.d_model,), torch.float32, "zeros")}
         if cfg.mtp_num_layers:
             d = cfg.d_model
             norm = ParamSpec((d,), torch.float32, "zeros")
@@ -257,14 +271,18 @@ class Model:
     # caches
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, *,
-                   device="cuda") -> PyTree:
+                   mem_len: Optional[int] = None, device="cuda") -> PyTree:
         """Zeros in each block's cache layout (:func:`block_cache_spec`):
-        ``prefix`` and ``tail`` per layer, ``blocks`` stacked."""
+        ``prefix`` and ``tail`` per layer, ``blocks`` stacked; a
+        cross-attention layer keeps ``mem_len`` slots (default
+        ``cfg.num_frontend_tokens``)."""
         dev = resolve_device(device)
+        mem_len = mem_len or self.cfg.num_frontend_tokens
 
         def zeros(kind, lead=()):
             spec = block_cache_spec(self.cfg, kind, batch, max_len,
-                                    self.dtype, self.window_override)
+                                    self.dtype, self.window_override,
+                                    mem_len)
             return {n: torch.zeros(lead + s, dtype=dt, device=dev)
                     for n, (s, dt) in spec.items()}
         cache: Dict[str, PyTree] = {}
@@ -304,7 +322,7 @@ class Model:
     # core stack application
     # ------------------------------------------------------------------
     def _apply_stack(self, params, x, *, mode, caches=None, positions=None,
-                     placement=None):
+                     memory=None, placement=None):
         """``caches`` is updated in place in ``decode``/``chunk`` mode and
         returned; ``prefill`` returns freshly built caches."""
         cfg = self.cfg
@@ -314,7 +332,8 @@ class Model:
         def layer(p, x, kind, c, gl):
             lp = None if placement is None else placement.layer(gl)
             return block_apply(p, x, cfg=cfg, kind=kind, mode=mode, cache=c,
-                               positions=positions, placement=lp,
+                               positions=positions, memory=memory,
+                               placement=lp,
                                decode_microbatches=self.decode_microbatches,
                                window_override=self.window_override)
 
@@ -349,6 +368,33 @@ class Model:
         return x, (caches if caches is not None else new_caches)
 
     # ------------------------------------------------------------------
+    # encoder (the encoder-decoder's stubbed audio frontend's frames)
+    # ------------------------------------------------------------------
+    def _encoder_cfg(self) -> ModelConfig:
+        """The encoder's blocks: (ATTN, MLP) at ``encoder_d_model``."""
+        cfg = self.cfg
+        return dataclasses.replace(
+            cfg, d_model=cfg.encoder_d_model or cfg.d_model,
+            prefix_layers=(), layer_pattern=((ATTN, MLP),),
+            num_layers=cfg.encoder_layers)
+
+    def encode(self, params, frames):
+        """frames [B, M, encoder_d_model] → memory [B, M,
+        encoder_d_model]: per block, non-causal un-roped self-attention
+        and the MLP, each behind a pre-norm, then an RMS norm."""
+        eps = self.cfg.norm_eps
+        x = frames.to(self.dtype)
+        for bp in params["encoder"]["blocks"]:
+            h = rms_norm(x, bp["mixer_norm"], eps)
+            q, k, v = (torch.einsum("bsd,dhk->bshk", h, bp["mixer"][n])
+                       for n in ("wq", "wk", "wv"))
+            o = naive_attention(q, k, v, causal=False)
+            x = x + torch.einsum("bshk,hkd->bsd", o, bp["mixer"]["wo"])
+            h = rms_norm(x, bp["ffn_norm"], eps)
+            x = x + F.mlp_apply(bp["ffn"], h)
+        return rms_norm(x, params["encoder"]["norm"], eps)
+
+    # ------------------------------------------------------------------
     # public steps
     # ------------------------------------------------------------------
     def _unembed(self, params):
@@ -362,11 +408,21 @@ class Model:
     def _logits(self, params, h):
         return torch.matmul(h.float(), self._unembed(params).float())
 
-    def prefill(self, params, tokens, last_pos=None):
+    def prefill(self, params, tokens, *, memory=None, last_pos=None):
         """tokens [B, S] → (logits at ``last_pos`` (default S-1) [B, V]
-        f32, cache)."""
+        f32, cache). A model with cross-attention needs ``memory`` [B,
+        M, md]: the frames its encoder runs on (``cfg.is_encdec``), else
+        the memory itself; it is taken in the model's dtype."""
+        if self.has_cross:
+            if memory is None:
+                raise ValueError(f"{self.cfg.name}: prefill needs memory "
+                                 f"(its cross-attention layers read it)")
+            memory = memory.to(self.dtype)
+            if self.cfg.is_encdec:
+                memory = self.encode(params, memory)
         x = self._embed(params, tokens)
-        x, caches = self._apply_stack(params, x, mode="prefill")
+        x, caches = self._apply_stack(params, x, mode="prefill",
+                                      memory=memory)
         if last_pos is None:
             h = x[:, -1]
         else:
@@ -377,7 +433,11 @@ class Model:
         """Run one contiguous chunk [B, S_chunk] of a prompt against the
         full-length cache buffers in ``cache`` (written in place at
         ``offset``). Returns (logits [B, V] at ``last_pos`` within the
-        chunk, cache); on the final chunk these equal :meth:`prefill`'s."""
+        chunk, cache); on the final chunk these equal :meth:`prefill`'s.
+        Decoder-only models without cross-attention."""
+        if self.has_cross:
+            raise ValueError(f"{self.cfg.name}: chunked prefill runs no "
+                             f"cross-attention or encoder")
         x = self._embed(params, tokens)
         x, cache = self._apply_stack(params, x, mode="chunk", caches=cache,
                                      positions=int(offset))
@@ -434,3 +494,13 @@ class Model:
         h, cache = self.mtp_hidden(params, mtp_index, hidden, next_tokens,
                                    positions, mtp_cache)
         return self._logits(params, h[:, -1]), h, cache
+
+
+def seeded_memory(cfg: ModelConfig, generator: torch.Generator, device,
+                  dtype=torch.float32) -> torch.Tensor:
+    """[1, num_frontend_tokens, md] standard normal from ``generator``:
+    what the stubbed frontends give a model with cross-attention (a
+    VLM's patch embeddings, an encoder-decoder's frames)."""
+    md = cfg.encoder_d_model or cfg.d_model
+    return torch.randn((1, cfg.num_frontend_tokens, md), generator=generator,
+                       device=device, dtype=dtype)

@@ -6,8 +6,10 @@ params)`` on the JAX side), so this module needs neither JAX nor the JAX
 package. Paths are dotted (``prefix.0.mixer.wq_a``,
 ``blocks.pos0.ffn.we_gate`` stacked ``[n_sb, ...]``, the tail's
 ``tail.1.mixer.lam``, ``embed``, ``final_norm``, ``lm_head``, the MTP
-head's ``mtp.0.proj``, ``mtp.0.block.mixer.wq_a``). A missing or unexpected leaf, or a shape or
-dtype mismatch, raises.
+head's ``mtp.0.proj``, ``mtp.0.block.mixer.wq_a``, the encoder's
+``encoder.blocks.0.mixer.wq`` and ``encoder.norm``, a cross-attention
+layer's ``blocks.pos4.mixer.wk`` [n_sb, md, KV, hd]). A missing or
+unexpected leaf, or a shape or dtype mismatch, raises.
 """
 from __future__ import annotations
 

@@ -278,15 +278,19 @@ class TorchBackend(ExecutionBackend):
     ``top_k > 0`` truncates sampling at temperature > 0 to each row's
     ``top_k`` highest logits, as the reference's ``JAXBackend`` does.
     ``mtp_k > 0`` turns on :meth:`decode_sample_mtp` with that many
-    drafts per iteration; it needs a model with an MTP head."""
+    drafts per iteration; it needs a model with an MTP head. ``memory``
+    [B, M, md]: what a model with cross-attention reads (a VLM's patch
+    embeddings, an encoder-decoder's frames), moved to the device; each
+    prefill takes its first row, as the reference's ``JAXBackend``."""
 
     def __init__(self, model, params: PyTree, *, max_len: int = 256,
-                 seed: int = 0, top_k: int = 0, mtp_k: int = 0,
-                 device="cuda"):
+                 memory: Optional[torch.Tensor] = None, seed: int = 0,
+                 top_k: int = 0, mtp_k: int = 0, device="cuda"):
         self.device = resolve_device(device)
         self.model = model
         self.params = params
         self.max_len = max_len
+        self.memory = None if memory is None else memory.to(self.device)
         self.seed = seed
         self.top_k = top_k
         self.mtp_k = int(mtp_k)
@@ -309,7 +313,9 @@ class TorchBackend(ExecutionBackend):
         Lp = min(_bucket_len(n), self.max_len)
         padded = list(tokens) + [PAD] * (Lp - n)
         logits, cache = self.model.prefill(
-            self.params, self._ints(padded)[None], self._ints([n - 1]))
+            self.params, self._ints(padded)[None],
+            memory=None if self.memory is None else self.memory[:1],
+            last_pos=self._ints([n - 1]))
         return cache, logits[0].float().cpu().numpy()
 
     @property
@@ -385,8 +391,10 @@ class TorchBackend(ExecutionBackend):
         """Copy a batch-1 cache into slot ``slot`` in place, the
         reference's pad-to-slot rule: each leaf is zero-padded at the end
         of every axis up to the slot's shape (a prefill's [S, ...] K/V or
-        ring into the slot's [L, ...]; a recurrent ``state`` or ``conv``
-        history has the slot's shape already) and cast to its dtype."""
+        ring into the slot's [L, ...], a memory's [M, ...] cross K/V into
+        the slot's ``num_frontend_tokens``; a recurrent ``state`` or
+        ``conv`` history has the slot's shape already) and cast to its
+        dtype."""
         def one(full, part, stacked):
             # the batch axis: 1 in stacked leaves [n_sb, B, ...], else 0
             dst = full[:, slot] if stacked else full[slot]

@@ -7,6 +7,9 @@ the shared weights (a copy per group would be 28 GiB at DeepSeek-V3
 width cut to 4 layers) and its own decode cache. ``mtp_k > 0`` serves
 with §4.6 MTP speculative decoding: each decode iteration drafts
 ``mtp_k`` tokens with the model's MTP head and verifies them.
+``memory`` is what a model with cross-attention reads (a VLM's patch
+embeddings, an encoder-decoder's frames), handed to every group's
+backend.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ class FlowServeEngine:
                  *, device="cuda", n_dp_groups: int = 2, max_batch: int = 4,
                  max_len: int = 256, seed: int = 0,
                  token_budget: int = 8192,
-                 chunk_tokens: Optional[int] = None, mtp_k: int = 0):
+                 chunk_tokens: Optional[int] = None, mtp_k: int = 0,
+                 memory=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = Model(cfg)
@@ -43,8 +47,8 @@ class FlowServeEngine:
         # shared seed would draw identical Gumbel noise
         self.dps = [
             DPGroup(i, TorchBackend(self.model, params, max_len=max_len,
-                                    seed=seed * 1000 + i, mtp_k=mtp_k,
-                                    device=self.device),
+                                    memory=memory, seed=seed * 1000 + i,
+                                    mtp_k=mtp_k, device=self.device),
                     max_batch=max_batch, max_len=max_len)
             for i in range(n_dp_groups)
         ]

@@ -34,6 +34,16 @@ CONFIGS = {
     # 2-layer RG-LRU tail
     "recurrentgemma": ("recurrentgemma-2b-smoke", {"num_layers": 5}),
     "mamba2": ("mamba2-130m-smoke", {}),
+    # one superblock of 4 ATTN layers and a CROSS_ATTN layer; the GQA
+    # variant has G = 4 query heads per KV head, as at full width
+    "vision": ("llama-3.2-vision-11b-smoke", {}),
+    "vision-gqa": ("llama-3.2-vision-11b-smoke",
+                   {"num_heads": 8, "num_kv_heads": 2}),
+    # with an MTP head, whose block takes global attention in place of
+    # the pattern's last (cross-attention) mixer
+    "vision-mtp": ("llama-3.2-vision-11b-smoke", {"mtp_num_layers": 1}),
+    # a 2-block encoder, then (ATTN, NONE), (CROSS_ATTN, MLP)
+    "seamless": ("seamless-m4t-medium-smoke", {}),
 }
 
 
@@ -66,6 +76,16 @@ def reference(dtype: str = "float32", num_layers=None, seed: int = 0,
     tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, params),
                               tcfg, "cpu")
     return jcfg, model, params, tcfg, tparams
+
+
+def memory(cfg, batch: int = 1, length=None, seed: int = 0) -> np.ndarray:
+    """A seeded memory for a model with cross-attention, float32 [batch,
+    length (default ``num_frontend_tokens``), md]: a VLM's patch
+    embeddings or an encoder-decoder's frames (both frontends are stubs
+    in the reference)."""
+    md = cfg.encoder_d_model or cfg.d_model
+    return np.random.default_rng(seed).standard_normal(
+        (batch, length or cfg.num_frontend_tokens, md)).astype(np.float32)
 
 
 def to_np(x) -> np.ndarray:
