@@ -113,7 +113,8 @@ B. disaggregated Prefill-Decode (§5.1, ``DisaggregatedPD``) on that
    decode group admits bit-identical to the prefill group's final cache
    over the prompt; every pin released exactly once; route-pack and gmm
    launched on both sides. TTFT and TPOT (host clock), peak memory, and
-   the follow-up turn's prefill device time cold against seeded. Then
+   the follow-up turn's prefill device time cold against seeded, beside
+   the cold split's chunks up to the seed (stage P's ``hit_skip``). Then
    with ``kv_pool=False`` against the colocated ``FlowServeEngine``
    (same chunks and slots) on prompts that share no block: the same
    greedy tokens (decode at B 4 with capacity 4 drops nothing);
@@ -311,6 +312,20 @@ O. the smoke Llama-3.2-Vision with G = 4 (8 query heads on 2 KV heads)
    and the smoke SeamlessM4T in float32, served a memory made on the
    CPU from a seed: the engine on the card gives the CPU's greedy
    tokens;
+P. the SuperPod simulator (``repro_torch.sim``; host code, no kernel):
+   DeepSeek-V3 on a modeled CloudMatrix384 of 768 dies (8 simulated DP
+   groups, EPLB every 0.5 s, 80 requests/s for 1 s, seed 11), colocated
+   and MoE-Attention disaggregated, each run twice: the trace digests
+   and the report JSON (per request too) must repeat, every request
+   finish, and the plan be 288 expert / 480 attention dies; then two
+   calibration rows measured earlier in this run are written to
+   ``chiprun_out/sim_calibration.json`` (``decode/iter_overhead``: the
+   DeepSeek-V3 decode profile's engine step on the host clock less the
+   device busy of the same steps, per DP group; ``prefill/hit_skip``: the share of the cold prefix's
+   prefill device time that seeding saved, from stage B's follow-up
+   turn), and the colocated run is repeated from that file: the cost
+   model must carry both rows and every request finish. Its figures are
+   the MODELED pod's, not the card's (only the two rows are);
 
 13. print the card's name and power limit, one JSON line with every
     kernel's launches per path, error, times and bound (Collect's
@@ -1324,7 +1339,7 @@ def run_path(engine, prompts, prompts_eplb, kernels,
         check(bool(torch.isfinite(logits).all()), "finite logits")
     replay_err, collect_err = replay_packs(rec, cfg)
     del rec
-    profile = profile_decode(engine)
+    profile = profile_decode(engine, overhead_window=True)
     check_decode_repeat(engine)
     everyone = reqs + reqs2
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1395,13 +1410,20 @@ def check_decode_repeat(engine, placed: bool = True) -> None:
         f"twice from one cache: logits bit-identical")
 
 
-def profile_decode(engine, steps: int = 4) -> dict:
+def profile_decode(engine, steps: int = 4,
+                   overhead_window: bool = False) -> dict:
     """Where a decode step's time goes: engine steps with every slot of
     both DP groups decoding, timed on the host clock, then the same
     number of steps under ``torch.profiler``, which gives device time by
     kernel; the idle share compares that busy time with the host-clock
     time of the same profiled steps. Runs after the path's launch counts
-    were read."""
+    were read.
+
+    With ``overhead_window``, ``steps`` more engine steps run under a
+    profiler that records only device activity (no host op events, so
+    it adds little host time), and the host clock and the device busy
+    are both read from that one window: ``overhead_step_ms`` and
+    ``overhead_busy_ms`` (stage P's ``decode/iter_overhead`` row)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.request import Request
@@ -1409,7 +1431,7 @@ def profile_decode(engine, steps: int = 4) -> dict:
     n = sum(d.max_batch for d in engine.dps)
     for i in range(n):
         engine.submit(Request(prompt=f"profile prompt {i}",
-                              max_new_tokens=2 * steps + 8, ignore_eos=True))
+                              max_new_tokens=3 * steps + 8, ignore_eos=True))
     for _ in range(3):                        # prefill + first decodes
         engine.step()
     check(all(d.active == d.max_batch for d in engine.dps),
@@ -1436,8 +1458,27 @@ def profile_decode(engine, steps: int = 4) -> dict:
     attention = sum(ms for k, ms in kernels if "decode_attention" in k)
     check(0 < busy <= prof_wall, f"device busy {busy} ms per step within "
           f"the profiled step's {prof_wall} ms")
+    window = {}
+    if overhead_window:
+        check(all(d.active == d.max_batch for d in engine.dps),
+              "every slot decoding in the overhead window")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            for _ in range(steps):
+                engine.step()
+            torch.cuda.synchronize()
+            step_ms = (time.monotonic() - t0) / steps * 1e3
+        busy_ms = sum(e.self_device_time_total / 1e3 / steps
+                      for e in prof.key_averages()
+                      if e.device_type.name == "CUDA")
+        check(0 < busy_ms <= step_ms, f"overhead window: device busy "
+              f"{busy_ms} ms per step within its {step_ms} ms")
+        window = dict(overhead_step_ms=step_ms, overhead_busy_ms=busy_ms)
+        log(f"decode overhead window (device activity only): engine step "
+            f"{step_ms:.2f} ms (host clock), device busy {busy_ms:.2f} ms "
+            f"in the same steps")
     engine.run_until_done()
-    res = dict(engine_step_ms=wall, profiled_step_ms=prof_wall,
+    res = dict(engine_step_ms=wall, profiled_step_ms=prof_wall, **window,
                device_busy_ms=busy, device_idle_share=1.0 - busy / prof_wall,
                decode_attention_ms=attention,
                dp_groups=len(engine.dps),
@@ -2226,6 +2267,8 @@ def pd_stage(cfg, params) -> dict:
     payloads = [be.slice_prefill_kv(cold, toks, b * 16, (b + 1) * 16)
                 for b in range(hit // 16)]
     warm_stops = list(range(hit + PD_CHUNK, n, PD_CHUNK)) + [n]
+    # the cold split's chunks up to the seed: what the seed replaces
+    prefix_stops = [e for e in stops if e < hit] + [hit]
 
     def warm():
         seeded = be.seed_prefill_cache(be.read_remote_kv(payloads), hit, n)
@@ -2235,6 +2278,10 @@ def pd_stage(cfg, params) -> dict:
                    cold_device_ms=device_ms(lambda: chunked(be, toks, stops),
                                             reps=5, warm=1),
                    warm_device_ms=device_ms(warm, reps=5, warm=1),
+                   prefix_chunks=len(prefix_stops),
+                   prefix_device_ms=device_ms(
+                       lambda: chunked(be, toks, prefix_stops), reps=5,
+                       warm=1),
                    cold_ms=time_ms(lambda: chunked(be, toks, stops), reps=5,
                                    warm=1),
                    warm_ms=time_ms(warm, reps=5, warm=1))
@@ -2276,7 +2323,8 @@ def pd_stage(cfg, params) -> dict:
         f"{n} tokens: cold {prefill['cold_device_ms']} ms device "
         f"({prefill['cold_chunks']} chunks), seeded from {hit} tokens "
         f"{prefill['warm_device_ms']} ms ({prefill['warm_chunks']} "
-        f"chunks); peak memory {peak:.2f} GiB; launches by side {side}; "
+        f"chunks), the cold prefix's {prefill['prefix_chunks']} chunks "
+        f"{prefill['prefix_device_ms']} ms; peak memory {peak:.2f} GiB; launches by side {side}; "
         f"kv_pool off: {len(plain)} requests give the colocated engine's "
         f"tokens")
     return res
@@ -4138,6 +4186,125 @@ def memory_stages(get_config) -> dict:
     return {VLM: (kern, paths[VLM]), SEAMLESS: ({}, paths[SEAMLESS])}
 
 
+#: stage P's deployment: the simulator example's (DeepSeek-V3 on 768
+#: dies folded to 8 simulated DP groups; 80 requests/s for 1 s)
+SIM_CFG = dict(n_sim_dps=8, eplb_interval_s=0.5)
+SIM_WL = dict(arrival_rate=80.0, duration_s=1.0, seed=11)
+
+
+def sim_run(sim, what: str, **kw):
+    """One simulator run at stage P's deployment: (sim, report, host
+    wall seconds); every request must finish on the 288/480 plan."""
+    t0 = time.monotonic()
+    s = sim.SuperPodSim(sim.SimConfig(**SIM_CFG, **kw),
+                        sim.WorkloadConfig(**SIM_WL))
+    rep = s.run()
+    wall = time.monotonic() - t0
+    m = rep.summary
+    check((s.plan.n_expert, s.plan.n_attention) == (288, 480),
+          f"simulator {what}: the 288/480 plan, got {s.plan}")
+    check(m["n_finished"] == m["n_requests"] > 0,
+          f"simulator {what}: every request finished: {m['n_finished']} "
+          f"of {m['n_requests']}")
+    log(f"simulator {what} (MODELED CloudMatrix384, 768 dies, not this "
+        f"card): {m['throughput_tok_s_per_die']} tok/s/die, TPOT mean "
+        f"{m['tpot_mean_s'] * 1e3:.3f} ms p99 {m['tpot_p99_s'] * 1e3:.3f} "
+        f"ms, TTFT p99 {m['ttft_p99_s'] * 1e3:.3f} ms, {m['n_finished']} "
+        f"requests, {len(s.loop.trace)} events; {wall:.2f} s wall on the "
+        f"card's host; digest {rep.trace_hash[:16]}")
+    return s, rep, wall
+
+
+def calibration_rows(results: dict) -> list:
+    """The two ``from_calibration`` rows this run measured on the card:
+    the host overhead of one DP group's decode iteration, and the share
+    of the cold prefix's prefill device time that seeding saved (stage
+    B's follow-up turn; clipped to [0, 1] by the reader).
+
+    The overhead is the DeepSeek-V3 decode profile's overhead window:
+    its engine step on the host clock less the device busy of the same
+    steps, divided by the DP groups that step runs one after the other
+    on one host thread (the cost model charges ``iter_overhead`` once
+    per DP-group iteration). It is a 4-layer eager step's: the modeled
+    die's 61 layers would launch more."""
+    prof = results[DEEPSEEK][1]["decode_profile"]
+    pre = results[DEEPSEEK + "/pd"][1]["prefill"]
+    for k in ("cold_device_ms", "warm_device_ms", "prefix_device_ms"):
+        check(pre[k] is not None and pre[k] > 0,
+              f"stage B measured the prefill's {k}: {pre[k]}")
+    overhead_us = ((prof["overhead_step_ms"] - prof["overhead_busy_ms"])
+                   / prof["dp_groups"] * 1e3)
+    check(overhead_us > 0, f"the decode iteration's host overhead is "
+                           f"positive: {overhead_us} us")
+    skip = ((pre["cold_device_ms"] - pre["warm_device_ms"])
+            / pre["prefix_device_ms"])
+    return [
+        {"name": "decode/iter_overhead", "us_per_call": overhead_us,
+         "derived": f"(engine_step_ms={prof['overhead_step_ms']} - "
+                    f"device_busy_ms={prof['overhead_busy_ms']}) / "
+                    f"dp_groups={prof['dp_groups']}, one window "
+                    f"(DeepSeek-V3 4 layers eager, {prof['dp_groups']} "
+                    f"DP groups "
+                    f"x {prof['batch_per_group']} slots)"},
+        {"name": "prefill/hit_skip", "us_per_call": skip,
+         "derived": f"cold_device_ms={pre['cold_device_ms']} "
+                    f"seeded_device_ms={pre['warm_device_ms']} "
+                    f"prefix_device_ms={pre['prefix_device_ms']} "
+                    f"({pre['prompt_tokens']} tokens, {pre['hit_tokens']} "
+                    f"seeded; dimensionless)"}]
+
+
+def sim_stage(results: dict, smi: str) -> dict:
+    """Stage P: the simulator at the example's deployment, analytic
+    (colocated and MoE-Attention, each twice: reports must repeat byte
+    for byte), then colocated from the two rows this run measured."""
+    import numpy as np
+
+    import repro_torch.sim as sim
+
+    t0 = time.monotonic()
+    runs = {}
+    for dep in ("colocated", "moe_attn"):
+        (_, a, wa), (_, b, wb) = (sim_run(sim, f"{dep} run {i}",
+                                          deployment=dep) for i in (1, 2))
+        check(a.trace_hash == b.trace_hash and a.to_json(
+            include_requests=True) == b.to_json(include_requests=True),
+            f"simulator {dep}: a second run repeats the digest and the "
+            f"report")
+        runs[dep] = dict(summary=a.summary, trace_hash=a.trace_hash,
+                         wall_s=[wa, wb])
+    rows = calibration_rows(results)
+    path = ROOT / "chiprun_out" / "sim_calibration.json"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(json.dumps({"benchmark": "chip_smoke", "device": smi,
+                                "rows": rows}, indent=1))
+    cal, rep, wall = sim_run(sim, "colocated, calibrated",
+                             calibration_paths=(str(path),))
+    want = rows[0]["us_per_call"] * 1e-6
+    skip = float(np.clip(rows[1]["us_per_call"], 0.0, 1.0))
+    check(cal.cost.iter_overhead == want
+          and cal.cost.prefill_hit_skip == skip,
+          f"the calibrated cost model carries the measured rows: "
+          f"iter_overhead {cal.cost.iter_overhead} (row {want}), "
+          f"prefill_hit_skip {cal.cost.prefill_hit_skip} (row {skip})")
+    runs["colocated, calibrated"] = dict(
+        summary=rep.summary, trace_hash=rep.trace_hash, wall_s=[wall],
+        rows=rows, calibration_file=str(path.relative_to(ROOT)))
+    a, c = runs["colocated"]["summary"], rep.summary
+    log(f"simulator calibrated from this card ({smi}): decode/iter_overhead "
+        f"{rows[0]['us_per_call']:.2f} us per DP-group iteration of a "
+        f"4-layer eager step (analytic 1000), prefill/hit_skip "
+        f"{rows[1]['us_per_call']:.4f} (analytic 1.0); the die's compute is "
+        f"still the MODELED die's, only these two rows are the card's. "
+        f"Modeled pod, analytic vs calibrated: "
+        f"{a['throughput_tok_s_per_die']} vs {c['throughput_tok_s_per_die']} "
+        f"tok/s/die, TPOT mean {a['tpot_mean_s'] * 1e3:.3f} vs "
+        f"{c['tpot_mean_s'] * 1e3:.3f} ms, TTFT p99 "
+        f"{a['ttft_p99_s'] * 1e3:.3f} vs {c['ttft_p99_s'] * 1e3:.3f} ms")
+    log(f"simulator stage: {time.monotonic() - t0:.1f} s")
+    return runs
+
+
 def kernel_line(results: dict) -> dict:
     """One entry per kernel: launches per path (and their sum), the
     largest error of any path, and the times and bound of the path named
@@ -4202,6 +4369,7 @@ def main() -> int:
     for p, (_, path) in results.items():
         log(json.dumps({"path": p, **{k: v for k, v in path.items()
                                       if k != "text"}}))
+    log(json.dumps({"simulator": sim_stage(results, smi)}))
     print(smi)
     print(json.dumps({"kernels": kernel_line(results)}))
     print(json.dumps({"ok": True, "device": {

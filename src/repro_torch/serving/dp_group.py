@@ -389,6 +389,9 @@ class DPGroup:
     def active(self) -> int:
         return sum(0 if s.free else 1 for s in self.slots)
 
+    def active_requests(self) -> List[Request]:
+        return [s.req for s in self.slots if not s.free]
+
     def _gather_step_inputs(self):
         tokens = np.full((self.max_batch, 1), PAD, np.int32)
         positions = np.zeros((self.max_batch,), np.int32)
@@ -537,6 +540,21 @@ class DPGroup:
         req.state = RequestState.FINISHED
         self.finished.append(req)
         self.slots[slot_id] = Slot()
+
+    def evict(self, slot_id: int) -> Optional[Request]:
+        """Pull a request out of a slot without finishing it (dead-DP
+        failover, §6.2: the caller re-dispatches it elsewhere): its
+        blocks go back to the allocator and it is queued again."""
+        s = self.slots[slot_id]
+        if s.free:
+            return None
+        req = s.req
+        self.allocator.free(req.req_id)
+        self.slots[slot_id] = Slot()
+        req.state = RequestState.QUEUED
+        req.slot = None
+        req.dp_group = None
+        return req
 
     # ------------------------------------------------------------------
     def status(self) -> DPStatus:

@@ -93,33 +93,41 @@ class ExpertLoadCollector:
 # ---------------------------------------------------------------------------
 # Step 2: EPLB selection + placement
 # ---------------------------------------------------------------------------
+def _split_load(counts: np.ndarray, replicas: np.ndarray) -> float:
+    """L_ℓ of float64 counts [E, T] under per-expert replica counts
+    [E] (float64)."""
+    return float((counts / replicas[:, None]).max(axis=0).sum())
+
+
 def simulated_layer_load(counts: np.ndarray,
                          replicas: Dict[int, int]) -> float:
     """L_ℓ with each expert's per-slice count split over its replicas.
     counts: [E, T]; replicas: expert → replica count (≥1)."""
     r = np.ones(counts.shape[0], np.float64)
-    for e, k in replicas.items():
-        r[e] = k
-    eff = counts.astype(np.float64) / r[:, None]
-    return float(eff.max(axis=0).sum())
+    if replicas:
+        r[list(replicas)] = list(replicas.values())
+    return _split_load(counts.astype(np.float64), r)
 
 
 def select_redundant_experts(counts: np.ndarray, budget: int)\
         -> List[int]:
     """Greedy §4.5 selection for ONE layer. counts: [E, T]. Returns the
     redundancy list (an expert may appear multiple times = more replicas).
-    """
+    Each trial adds one replica to a hot candidate and prices the layer
+    with :func:`simulated_layer_load`'s arithmetic."""
     E, T = counts.shape
-    replicas = {e: 1 for e in range(E)}
-    hot_candidates = set(int(np.argmax(counts[:, t])) for t in range(T))
+    cf = counts.astype(np.float64)
+    replicas = np.ones(E, np.float64)
+    hot_candidates = sorted(set(int(np.argmax(counts[:, t]))
+                                for t in range(T)))
     chosen: List[int] = []
     for _ in range(budget):
-        base = simulated_layer_load(counts, replicas)
+        base = _split_load(cf, replicas)
         best_e, best_load = None, base
-        for c in sorted(hot_candidates):
-            trial = dict(replicas)
-            trial[c] = trial[c] + 1
-            load = simulated_layer_load(counts, trial)
+        for c in hot_candidates:
+            replicas[c] += 1
+            load = _split_load(cf, replicas)
+            replicas[c] -= 1
             if load < best_load - 1e-9:
                 best_e, best_load = c, load
         if best_e is None:
@@ -353,15 +361,21 @@ def build_placement_table(maps: Sequence[Optional[ExpertMap]],
     phys_owner = np.tile((np.arange(n_phys, dtype=np.int32) % n_experts)
                          [None], (L, 1))
     for li, m in enumerate(maps):
-        if m is None:
+        # an absent or disabled map, and every expert a map leaves out,
+        # keep the identity rows above
+        experts = ([e for e in range(n_experts) if e in m.replicas]
+                   if m is not None and m.enabled else [])
+        if not experts:
             continue
-        for e in range(n_experts):
-            slots = m.replicas.get(e, [e]) if m.enabled else [e]
-            n_replicas[li, e] = len(slots)
-            for r in range(R):
-                replica_slots[li, e, r] = slots[r % len(slots)]
-            for s in slots:
-                phys_owner[li, s] = e
+        slots = [m.replicas[e] for e in experts]
+        lens = np.array([len(s) for s in slots], np.int64)
+        flat = np.array([s for ss in slots for s in ss], np.int32)
+        first = np.cumsum(lens) - lens
+        n_replicas[li, experts] = lens
+        replica_slots[li, experts] = flat[first[:, None]
+                                          + np.arange(R) % lens[:, None]]
+        phys_owner[li, flat] = np.repeat(np.asarray(experts, np.int32),
+                                         lens)
     return PlacementTable(replica_slots, n_replicas, phys_owner)
 
 

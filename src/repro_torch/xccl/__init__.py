@@ -9,11 +9,13 @@ from repro_torch.xccl.pd_transfer import (TransferPlan, assemble_chunks,
 from repro_torch.xccl.routing import dequantize_tokens, quantize_tokens
 from repro_torch.xccl.topology import (CHIP_CLASSES, FABRICS, PodSpec,
                                        PodTopology, SuperPod,
-                                       best_transfer_time)
+                                       a2e_latency_model,
+                                       best_transfer_time,
+                                       dispatch_latency_model)
 
 __all__ = [
     "CHIP_CLASSES", "FABRICS", "PodSpec", "PodTopology", "SuperPod",
-    "best_transfer_time",
+    "a2e_latency_model", "best_transfer_time", "dispatch_latency_model",
     "TransferPlan", "assemble_chunks", "chunk_stream_time",
     "execute_transfer", "plan_transfer", "pytree_bytes", "slice_kv_chunk",
     "ub_read", "ub_read_time",

@@ -20,8 +20,10 @@ Deployments beyond one SuperPod compose :class:`PodTopology`: per-pod
 pod, §7.2 / P/D-Serve), intra-pod traffic on UB, cross-pod on RoCE.
 
 This module is the *analytic* side of XCCL: it models the paper's link
-latencies, and the port's PD transfer prices its plans with it
-(``TransferPlan.modeled_time_s``). These are modeled CloudMatrix times,
+latencies, the port's PD transfer prices its plans with it
+(``TransferPlan.modeled_time_s``), and the SuperPod simulator prices its
+dispatch, A2E and KV transfers with it (``sim/fabric.py``). These are
+modeled CloudMatrix times,
 never the card's: what a copy takes on the GPU is measured. The constants
 keep the Ascend view and a TPU-adapted one (UB ≈ ICI, RoCE ≈ DCN), as the
 reference does.
@@ -232,3 +234,35 @@ def best_transfer_time(nbytes: int, fabric: Fabric = "ub") -> float:
                mte_transfer_time(nbytes, AIV_CORES_PER_DIE, fabric),
                dma_transfer_time(nbytes, fabric))
 
+
+def dispatch_latency_model(batch_per_die: int, hidden: int, ep: int,
+                           top_k: int, quantized: bool = True) -> float:
+    """§3.2 dispatch: metadata broadcast (one 32-byte field per rank,
+    scalar-throughput bound) + pull phase. Calibrated to Fig. 6 / Fig. 20
+    (≈234 µs average dispatch at bpd 96, EP128; INT8 dispatch overtakes
+    bf16 combine past bpd ≈ 32)."""
+    elem = 1 if quantized else 2
+    payload_total = batch_per_die * top_k * hidden * elem
+    # quantization: a fixed vector-pipeline ramp cost (the bf16 read
+    # overlaps the MTE2 fill, so no separate read pass)
+    quant_cost = 7.0e-6 if quantized else 0.0
+    t_meta = ep * 1.2e-6          # per-rank metadata write + poll
+    t_pull = mte_transfer_time(int(payload_total), AIV_CORES_PER_DIE)
+    return t_meta + quant_cost + t_pull
+
+
+def a2e_latency_model(n_attn: int, n_expert: int, batch_per_die: int,
+                      hidden: int, top_k: int) -> float:
+    """§3.3 trampoline A2E: attention → trampolines (= n_attn experts),
+    then trampolines → remaining experts. Two stages of ~equal payload,
+    plus one metadata field per destination expert rank on the critical
+    path (the trampoline bounds this at O(n_attn + n_expert); a naive
+    pull design pays O(n_attn × n_expert) — the §3.3 scalar-throughput
+    wall). Calibrated to the paper's 172 µs A2E at 160/288/bpd96."""
+    payload_stage1 = batch_per_die * hidden  # int8 after fused quant
+    stage1 = mte_transfer_time(payload_stage1, AIV_CORES_PER_DIE)
+    fan2 = max(1, (n_expert - n_attn))
+    payload_stage2 = payload_stage1 * top_k / max(n_expert, 1) * fan2
+    stage2 = mte_transfer_time(int(payload_stage2), AIV_CORES_PER_DIE)
+    t_meta = 0.5e-6 * n_expert
+    return t_meta + stage1 + stage2

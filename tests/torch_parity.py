@@ -100,3 +100,50 @@ def to_np(x) -> np.ndarray:
 def rel_err(a, b) -> float:
     a, b = to_np(a).astype(np.float64), to_np(b).astype(np.float64)
     return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-12))
+
+
+#: one row of every kind ``SuperPodCostModel.from_calibration`` reads,
+#: two points of each curve, values outside [0, 1] where it clips, and
+#: one row it does not know (ignored)
+SIM_CALIBRATION_ROWS = [
+    {"name": "fig6/dispatch/bpd8", "us_per_call": 100.0,
+     "derived": "combine_us=150.0"},
+    {"name": "fig6/dispatch/bpd96", "us_per_call": 300.0,
+     "derived": "combine_us=400.0 extra=1"},
+    {"name": "fig6/dispatch/bpd32", "us_per_call": 180.0, "derived": ""},
+    {"name": "decode/iter_overhead", "us_per_call": 512.25, "derived": ""},
+    {"name": "disagg/expert_op_overhead", "us_per_call": 33.5,
+     "derived": ""},
+    {"name": "prefill/chunk_time/c2048", "us_per_call": 41000.0,
+     "derived": ""},
+    {"name": "prefill/chunk_time/c512", "us_per_call": 12000.0,
+     "derived": ""},
+    {"name": "prefill/decode_contention", "us_per_call": 1.37,
+     "derived": "dimensionless"},
+    {"name": "prefill/hit_skip", "us_per_call": 0.6036,
+     "derived": "dimensionless"},
+    {"name": "prefix/remote_seed", "us_per_call": 1.7,
+     "derived": "dimensionless, clipped to 1"},
+    {"name": "mtp/acceptance", "us_per_call": -0.2,
+     "derived": "dimensionless, clipped to 0"},
+    {"name": "mtp/draft_overhead", "us_per_call": 2500.0, "derived": ""},
+    {"name": "eplb/placement_gmm", "us_per_call": 50.0, "derived": ""},
+    {"name": "not/a/row", "us_per_call": 9.0, "derived": ""},
+]
+
+
+def write_sim_calibration(directory) -> tuple:
+    """:data:`SIM_CALIBRATION_ROWS` split over two files (the row order
+    inside a curve is not sorted), as ``SimConfig.calibration_paths``
+    takes them."""
+    import json
+    from pathlib import Path
+
+    half = len(SIM_CALIBRATION_ROWS) // 2
+    paths = []
+    for i, rows in enumerate((SIM_CALIBRATION_ROWS[:half],
+                              SIM_CALIBRATION_ROWS[half:])):
+        p = Path(directory) / f"calibration{i}.json"
+        p.write_text(json.dumps({"benchmark": "sim", "rows": rows}))
+        paths.append(str(p))
+    return tuple(paths)
