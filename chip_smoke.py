@@ -312,6 +312,33 @@ O. the smoke Llama-3.2-Vision with G = 4 (8 query heads on 2 KV heads)
    and the smoke SeamlessM4T in float32, served a memory made on the
    CPU from a seed: the engine on the card gives the CPU's greedy
    tokens;
+Q. training (``repro_torch.train``, ``Model.forward_train``,
+   ``MTPTrainer``), no hand kernel launched in any of it (the MoE layers
+   take the plain route-pack and grouped FFN by mode), each step's line
+   and one JSON line per part: Q1 one forward_train + backward +
+   ``adamw_update`` of five smoke models in float32 (DeepSeek-V3 with
+   its MTP head, Llama-4 with G = 5, RecurrentGemma, Mamba-2,
+   SeamlessM4T) on the card and on the host's CPU, same weights,
+   tokens, loss mask and memory, TF32 off: the loss within 1e-4, every
+   gradient leaf and updated weight within 1e-3 relative in norm; a
+   requires-grad input to ``fused_route_pack`` or ``expert_ffn`` on the
+   card raises, and with ``use_kernel=False`` both carry the gradient.
+   Q2 InternLM2-1.8B at full width and depth (24 layers, 1.89 B), as
+   ``launch/train.py`` builds it by default (B 8, S 256, lr 3e-4), 20
+   steps: finite losses, the first within 1 of ln V, the last 5's mean
+   below the first 5's; Q3 DeepSeek-MoE-16B at full width cut to 4
+   layers (1 dense, 3 MoE), 10 steps: the aux losses finite and non-zero,
+   every MoE layer's counts summing to B·S·6, the loss falling; both
+   print the host ms per step and, over the steps after 2 under a
+   device-activity-only profiler, device busy (also by kernel kind:
+   f32 GEMM, bf16 GEMM, elementwise, other), idle share, tokens/s,
+   6·N·tokens/s, the top kernels and peak memory. Q4 ``MTPTrainer`` on
+   DeepSeek-V3 depth 4 at full width (the served path's seed-0 weights
+   made again; head 0, lr 5e-3, [4, 64] seeded tokens, 8 steps): the
+   last loss below the first, every other weight untouched, ms per step.
+   Q5 smoke InternLM2: a checkpoint after 3 steps restored into a fresh
+   ``Trainer`` (its loader moved past the 3 batches: a checkpoint holds
+   no loader) gives steps 4-5 bit-identical to a straight run;
 P. the SuperPod simulator (``repro_torch.sim``; host code, no kernel):
    DeepSeek-V3 on a modeled CloudMatrix384 of 768 dies (8 simulated DP
    groups, EPLB every 0.5 s, 80 requests/s for 1 s, seed 11), colocated
@@ -339,6 +366,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1220,7 +1248,10 @@ class PackRecorder:
         self.fn, self.calls = fn, {}
         self.n_calls = self.n_counted = 0
 
-    def __call__(self, x, dest, valid=None, eid=None, **kw):
+    def __call__(self, x, dest, valid=None, eid=None, *,
+                 use_kernel: bool = True, **kw):
+        check(use_kernel, "a served MoE layer launches the route-pack "
+                          "kernel (use_kernel is for training)")
         kw = {"k": 1, "quantize": False, **kw}     # the entry's defaults
         ids = kw.get("count_ids")
         self.n_calls += 1
@@ -4186,6 +4217,407 @@ def memory_stages(get_config) -> dict:
     return {VLM: (kern, paths[VLM]), SEAMLESS: ({}, paths[SEAMLESS])}
 
 
+# ---------------------------------------------------------------------------
+# stage Q: training (train/*, Model.forward_train, MTPTrainer)
+# ---------------------------------------------------------------------------
+#: Q1's smoke configurations, float32: MLA + MoE with the MTP head, GQA +
+#: MoE (5 query heads per KV head), RG-LRU + ring attention, the SSD, and
+#: the encoder-decoder
+TRAIN_SMOKE = (("deepseek-v3-671b", {}),
+               ("llama4-maverick-400b-a17b",
+                dict(num_heads=10, num_kv_heads=2, head_dim=32)),
+               ("recurrentgemma-2b", dict(num_layers=5)),
+               ("mamba2-130m", {}), ("seamless-m4t-medium", {}))
+#: Q2: ``launch/train.py``'s default arch and arguments; Q3: the MoE
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_B, TRAIN_S, TRAIN_LR = (
+    "internlm2-1.8b", 20, 8, 256, 3e-4)
+TRAIN_MOE_ARCH, TRAIN_MOE_LAYERS, TRAIN_MOE_STEPS = "deepseek-moe-16b", 4, 10
+#: profiled steps follow this many unprofiled ones
+TRAIN_WARM = 2
+
+
+def no_kernel_launched(what: str) -> None:
+    from repro_torch.kernels import runtime
+
+    check(not +runtime.LAUNCHES and not +runtime.FUSED,
+          f"{what}: no hand kernel launched (got {dict(runtime.LAUNCHES)}, "
+          f"fused {dict(runtime.FUSED)})")
+
+
+def norm_err(got, want) -> float:
+    """|got - want| / |want| over the whole tensor (|got| if want is 0)."""
+    got, want = (t.detach().double().cpu() for t in (got, want))
+    num = float(torch.linalg.vector_norm(got - want))
+    den = float(torch.linalg.vector_norm(want))
+    return num / den if den else num
+
+
+def train_parity(device: str = "cuda") -> dict:
+    """Q1: one ``forward_train`` + backward + ``adamw_update`` of each
+    :data:`TRAIN_SMOKE` model on the card and on the host's CPU, same
+    seeded weights, tokens, loss mask (and memory), TF32 off: the loss
+    within 1e-4 relative, every gradient leaf and every updated
+    parameter within 1e-3 relative in norm; no hand kernel launched.
+    Then a requires-grad input to ``expert_ffn`` or ``fused_route_pack``
+    on the card raises, and with ``use_kernel=False`` both run and carry
+    the gradient."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.gmm.ops import expert_ffn
+    from repro_torch.kernels.route_pack.ops import fused_route_pack
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import Model, seeded_memory
+    from repro_torch.models.weights import flatten
+    from repro_torch.train import AdamWConfig, adamw_update, init_adamw
+    from repro_torch.train.train_loop import loss_and_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparison
+    torch.backends.cudnn.allow_tf32 = False
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    B, S = 2, 64
+    out = {}
+    for arch, kw in TRAIN_SMOKE:
+        cfg = dataclasses.replace(get_config(arch + "-smoke"),
+                                  dtype="float32", **kw)
+        model = Model(cfg)
+        cpu_params = model.init(0, device="cpu")
+        gen = torch.Generator().manual_seed(7)
+        toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen)
+        mask = (torch.rand((B, S), generator=gen) > 0.1).float()
+        mem = (seeded_memory(cfg, gen, "cpu").expand(B, -1, -1)
+               if model.has_cross else None)
+        res = {}
+        for dev in ("cpu", device):
+            params = tree_map(lambda t: t.to(dev), cpu_params)
+            runtime.reset_launch_counts()
+            (loss, met), grads = loss_and_grads(
+                model, params, toks[:, :-1].to(dev), toks[:, 1:].to(dev),
+                memory=None if mem is None else mem.to(dev),
+                loss_mask=mask.to(dev))
+            new, _, _ = adamw_update(opt, params, grads, init_adamw(params))
+            no_kernel_launched(f"Q1 {arch} on {dev}")
+            res[dev] = (float(loss), float(met["moe_lb_loss"]),
+                        flatten(grads), flatten(new))
+        (cl, clb, cg, cp), (gl, glb, gg, gp) = res["cpu"], res[device]
+        loss_err = abs(gl - cl) / abs(cl)
+        grad_err = max(norm_err(gg[k], cg[k]) for k in cg)
+        param_err = max(norm_err(gp[k], cp[k]) for k in cp)
+        check(loss_err <= 1e-4, f"Q1 {arch}: loss {gl} vs CPU {cl}")
+        check(grad_err <= 1e-3, f"Q1 {arch}: gradients within 1e-3 "
+                                f"({grad_err})")
+        check(param_err <= 1e-3, f"Q1 {arch}: updated parameters within "
+                                 f"1e-3 ({param_err})")
+        out[arch] = dict(loss=gl, moe_lb_loss=glb, loss_rel_err=loss_err,
+                         grad_max_rel_err=grad_err,
+                         param_max_rel_err=param_err, leaves=len(cg))
+        log(f"Q1 {arch} {kw}: loss {gl:.6f} (CPU {cl:.6f}, rel {loss_err:.2e})"
+            f", {len(cg)} gradient leaves within {grad_err:.2e}, parameters "
+            f"after AdamW within {param_err:.2e}")
+    # the refusal: a kernel's output would leave the graph
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn((8, 64), generator=gen, device=device,
+                    requires_grad=True)
+    dest = torch.randint(0, 4, (8,), generator=gen, device=device,
+                         dtype=torch.int32)
+    w = torch.randn((4, 64, 64), generator=gen, device=device) * 0.1
+    buckets = torch.randn((4, 8, 64), generator=gen, device=device,
+                          requires_grad=True)
+    refused = []
+    for name, call in (
+            ("route_pack", lambda u: fused_route_pack(
+                x, dest, n_dest=4, capacity=8, use_kernel=u).buckets),
+            ("gmm", lambda u: expert_ffn(buckets, w, w, w, use_kernel=u))):
+        try:
+            call(True)
+        except RuntimeError as e:
+            check("no backward" in str(e), f"Q1 {name}: refused ({e})")
+            refused.append(name)
+        y = call(False)
+        y.sum().backward()
+    check(refused == ["route_pack", "gmm"],
+          f"Q1: requires-grad input refused on the card ({refused})")
+    check(x.grad is not None and buckets.grad is not None
+          and bool(torch.isfinite(x.grad).all()),
+          "Q1: the plain versions carry the gradient")
+    return out
+
+
+def train_run(cfg, steps: int, B: int, S: int, what: str,
+              device: str = "cuda") -> tuple:
+    """``Trainer`` as ``launch/train.py`` builds it (AdamW lr
+    :data:`TRAIN_LR`, warm-up ``max(steps // 20, 5)``, cosine to
+    ``steps``) for ``steps`` steps of B × S tokens, logging every step;
+    after :data:`TRAIN_WARM` steps the rest run under a profiler that
+    records device activity only. → (rows, timing dict, trainer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import runtime
+    from repro_torch.models.weights import flatten
+    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig,
+                                   Trainer)
+
+    tcfg = TrainConfig(
+        steps=steps, log_every=1,
+        opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=max(steps // 20, 5),
+                        total_steps=steps),
+        data=DataConfig(seq_len=S, global_batch=B))
+    t0 = time.monotonic()
+    tr = Trainer(cfg, tcfg, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in flatten(tr.params).values())
+    log(f"{what}: {cfg.name} depth {cfg.num_layers}, {n_params / 1e9:.3f} B "
+        f"parameters ({cfg.dtype}) made on the card in "
+        f"{time.monotonic() - t0:.1f} s")
+    rows, host, last = [], [], [0.0]
+
+    def on_log(r):      # wall_s counts from the start of each run()
+        host.append((r["wall_s"] - last[0]) * 1e3)
+        last[0] = r["wall_s"]
+        rows.append(r)
+        log(f"{what} step {r['step']:3d}: loss {r['loss']:.4f} nll "
+            f"{r['nll']:.4f} lb {r['moe_lb_loss']:.5f} z "
+            f"{r['moe_z_loss']:.5f} gnorm {r['grad_norm']:.3f} lr "
+            f"{r['lr']:.2e}, {host[-1]:.1f} ms (host clock)")
+    runtime.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    tr.tcfg.steps = TRAIN_WARM
+    tr.run(on_log=on_log)
+    tr.tcfg.steps, last[0] = steps, 0.0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tr.run(on_log=on_log)
+        torch.cuda.synchronize()
+    no_kernel_launched(what)
+    n_prof = steps - TRAIN_WARM
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / n_prof)
+                      for e in prof.key_averages()
+                      if e.device_type.name == "CUDA"
+                      and e.self_device_time_total > 0),
+                     key=lambda kv: -kv[1])
+    busy = sum(ms for _, ms in kernels)
+    step_ms = statistics.mean(host[TRAIN_WARM:])
+    check(0 < busy <= step_ms, f"{what}: device busy {busy} ms within the "
+                               f"step's {step_ms} ms")
+    tok_s = B * S / step_ms * 1e3
+    by_kind: dict = {}
+    for k, ms in kernels:
+        by_kind[kernel_kind(k)] = by_kind.get(kernel_kind(k), 0.0) + ms
+    timing = dict(
+        params=n_params, host_ms_per_step=step_ms,
+        host_ms_first_steps=host[:TRAIN_WARM], device_busy_ms=busy,
+        device_idle_share=1.0 - busy / step_ms, tokens_per_s=tok_s,
+        six_n_tflop_s=6 * n_params * tok_s / 1e12,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        by_kind_ms=by_kind,
+        top_kernels_ms=[(k[:70], ms) for k, ms in kernels[:8]])
+    log(f"{what}: {step_ms:.1f} ms per step (host clock, mean of the "
+        f"{n_prof} profiled steps), device busy {busy:.1f} ms, idle share "
+        f"{timing['device_idle_share']:.4f}, {tok_s:.0f} tokens/s, "
+        f"6·N·tokens/s {timing['six_n_tflop_s']:.1f} TFLOP/s, peak "
+        f"{timing['peak_gib']:.2f} GiB; by kind "
+        + ", ".join(f"{k} {ms:.1f} ms" for k, ms in sorted(
+            by_kind.items(), key=lambda kv: -kv[1])))
+    for k, ms in timing["top_kernels_ms"]:
+        log(f"  {ms:8.3f} ms/step  {k}")
+    return rows, timing, tr
+
+
+def kernel_kind(name: str) -> str:
+    """A device kernel's kind, by its name: float32 GEMM (cuBLAS'
+    ``sgemm`` / ``f32f32`` kernels), other GEMM (bf16), elementwise
+    (PyTorch's elementwise and copy kernels, fills), or other
+    (reductions, softmax, sort, scatter, ...)."""
+    n = name.lower()
+    if "sgemm" in n or "f32f32" in n or "gemmsn" in n:
+        return "f32 GEMM"
+    if "gemm" in n or "nvjet" in n:
+        return "bf16 GEMM"
+    if "elementwise" in n or "copy" in n or "fill" in n:
+        return "elementwise"
+    return "other"
+
+
+def finite_falling(rows, what: str, n: int) -> None:
+    losses = [r["loss"] for r in rows]
+    check(all(math.isfinite(x) for x in losses), f"{what}: finite losses")
+    first, last = (statistics.mean(losses[:n]), statistics.mean(losses[-n:]))
+    check(last < first, f"{what}: the mean of the last {n} losses "
+                        f"({last:.4f}) below the first {n}'s ({first:.4f})")
+
+
+def train_full_width(get_config, device: str = "cuda") -> dict:
+    """Q2: ``launch/train.py``'s default, InternLM2-1.8B at full width
+    and depth, 20 steps of 8 × 256 tokens."""
+    cfg = get_config(TRAIN_ARCH)
+    rows, timing, _ = train_run(cfg, TRAIN_STEPS, TRAIN_B, TRAIN_S, "Q2",
+                                device)
+    finite_falling(rows, "Q2", 5)
+    first = rows[0]["loss"]
+    check(abs(first - math.log(cfg.vocab_size)) <= 1.0,
+          f"Q2: first loss {first:.4f} within 1 of ln V "
+          f"{math.log(cfg.vocab_size):.4f}")
+    return dict(arch=cfg.name, layers=cfg.num_layers, batch=TRAIN_B,
+                seq_len=TRAIN_S, steps=TRAIN_STEPS,
+                losses=[r["loss"] for r in rows], **timing)
+
+
+def train_moe(get_config, device: str = "cuda") -> dict:
+    """Q3: DeepSeek-MoE-16B at full width cut to
+    :data:`TRAIN_MOE_LAYERS` layers (the dense prefix layer and 3 MoE
+    layers), 10 steps of 8 × 256 tokens: the aux losses finite and
+    non-zero, every MoE layer's ``expert_counts`` summing to B·S·top-k on
+    every step, the loss falling."""
+    from repro_torch.configs.base import MOE
+    from repro_torch.models import ffn
+
+    full = get_config(TRAIN_MOE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_MOE_LAYERS)
+    n_moe = sum(f == MOE for _, f in cfg.layer_kinds())
+    log(f"Q3: {cfg.name} cut from {full.num_layers} to {cfg.num_layers} "
+        f"layers ({cfg.num_layers - n_moe} dense, {n_moe} MoE), full width")
+    seen = []
+    real = ffn.moe_apply
+
+    def spy(*a, **kw):
+        y, aux = real(*a, **kw)
+        seen.append(aux["expert_counts"].detach())
+        return y, aux
+    ffn.moe_apply = spy
+    try:
+        rows, timing, _ = train_run(cfg, TRAIN_MOE_STEPS, TRAIN_B, TRAIN_S,
+                                    "Q3", device)
+    finally:
+        ffn.moe_apply = real
+    want = TRAIN_B * TRAIN_S * cfg.moe.top_k
+    sums = [int(c.sum()) for c in seen]
+    check(len(sums) == n_moe * TRAIN_MOE_STEPS and set(sums) == {want},
+          f"Q3: every MoE layer's counts sum to {want} on every step "
+          f"({len(sums)} layer calls, sums {sorted(set(sums))})")
+    for k in ("moe_lb_loss", "moe_z_loss"):
+        check(all(math.isfinite(r[k]) and r[k] != 0 for r in rows),
+              f"Q3: {k} finite and non-zero")
+    finite_falling(rows, "Q3", 3)
+    return dict(arch=cfg.name, layers=cfg.num_layers, moe_layers=n_moe,
+                batch=TRAIN_B, seq_len=TRAIN_S, steps=TRAIN_MOE_STEPS,
+                losses=[r["loss"] for r in rows],
+                moe_lb_loss=[r["moe_lb_loss"] for r in rows],
+                moe_z_loss=[r["moe_z_loss"] for r in rows], **timing)
+
+
+def train_mtp(get_config, device: str = "cuda") -> dict:
+    """Q4: ``MTPTrainer`` on DeepSeek-V3 at full width, depth 4 with its
+    MTP head, the served path's seed-0 weights made again: head 0, lr
+    5e-3, 8 steps on seeded tokens [4, 64]; the last loss below the
+    first, and every other weight the same tensor, never written."""
+    from repro_torch.kernels import runtime
+    from repro_torch.models.transformer import Model
+    from repro_torch.models.weights import flatten
+    from repro_torch.serving.mtp import MTPTrainer
+
+    cfg = dataclasses.replace(get_config(DEEPSEEK), num_layers=4)
+    model = Model(cfg)
+    t0 = time.monotonic()
+    params = model.init(0, device=device)
+    torch.cuda.synchronize()
+    before = {k: (t, t._version) for k, t in flatten(params).items()
+              if not k.startswith("mtp.0.")}
+    log(f"Q4: {cfg.name} depth 4 with its MTP head made on the card in "
+        f"{time.monotonic() - t0:.1f} s")
+    toks = torch.randint(0, cfg.vocab_size, (4, 64), device=device,
+                         generator=torch.Generator(device=device)
+                         .manual_seed(1))
+    tr = MTPTrainer(model, params, mtp_index=0, lr=5e-3)
+    runtime.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(8):
+        t0 = time.monotonic()
+        losses.append(tr.train_step(toks))
+        ms.append((time.monotonic() - t0) * 1e3)
+    no_kernel_launched("Q4")
+    check(losses[-1] < losses[0], f"Q4: the draft loss falls ({losses})")
+    after = flatten(tr.params)
+    check(all(after[k] is t and t._version == v
+              for k, (t, v) in before.items()),
+          "Q4: every main-stack weight (and no other head) untouched")
+    check(any(not torch.equal(after[k], flatten(params)[k])
+              for k in after if k.startswith("mtp.0.")),
+          "Q4: the head was updated")
+    res = dict(arch=cfg.name, layers=4, losses=losses, ms_per_step=ms,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"Q4: draft loss {losses[0]:.4f} -> {losses[-1]:.4f} over 8 steps, "
+        f"{statistics.median(ms[1:]):.1f} ms per step (host clock, median "
+        f"of steps 2-8; the first {ms[0]:.1f}), peak {res['peak_gib']:.2f} "
+        f"GiB")
+    return res
+
+
+def train_checkpoint(get_config, device: str = "cuda") -> dict:
+    """Q5: smoke InternLM2 (bf16) on the card: 3 steps and a checkpoint,
+    a fresh ``Trainer`` restored from it (its loader moved past the 3
+    batches the first run read: the loader is not in a checkpoint, in
+    either package) running steps 4 and 5, against 5 steps run straight
+    through: every metric and every parameter and moment bit-identical."""
+    import shutil
+    import tempfile
+
+    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig,
+                                   Trainer)
+    from repro_torch.train.checkpoint import _flatten
+
+    cfg = get_config(TRAIN_ARCH + "-smoke")
+
+    def trainer(steps, d):
+        return Trainer(cfg, TrainConfig(
+            steps=steps, log_every=1, ckpt_dir=d,
+            opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=5),
+            data=DataConfig(seq_len=64, global_batch=4)), device=device)
+    d = tempfile.mkdtemp(prefix="q5_ckpt_")
+    try:
+        a = trainer(5, None)
+        straight = a.run()
+        trainer(3, d).run()
+        c = trainer(5, d)
+        c.maybe_restore()
+        check(c.step == 3, f"Q5: restored at step {c.step}")
+        for _ in range(c.step):
+            c.loader.next_batch()
+        resumed = c.run()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    strip = [{k: v for k, v in r.items() if k != "wall_s"}
+             for r in straight[3:]]
+    check([{k: v for k, v in r.items() if k != "wall_s"} for r in resumed]
+          == strip, "Q5: steps 4-5 after the restore equal the straight "
+                    "run's, metric for metric")
+    want, got = (dict(_flatten((t.params, t.opt_state))) for t in (a, c))
+    check(list(got) == list(want) and all(
+        got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+        for k in want), "Q5: every parameter, moment and the step "
+                        "bit-identical to the straight run's")
+    log(f"Q5: {cfg.name} checkpoint after 3 steps, restored, steps 4-5 "
+        f"bit-identical to the straight run (losses "
+        f"{[r['loss'] for r in resumed]}, {len(want)} leaves)")
+    return dict(arch=cfg.name, losses=[r["loss"] for r in resumed],
+                leaves=len(want))
+
+
+def train_stages(get_config) -> dict:
+    """Stage Q: Q1-Q5, each with a line of its own."""
+    t0 = time.monotonic()
+    out = {}
+    for name, fn in (("Q1", lambda: train_parity()),
+                     ("Q2", lambda: train_full_width(get_config)),
+                     ("Q3", lambda: train_moe(get_config)),
+                     ("Q4", lambda: train_mtp(get_config)),
+                     ("Q5", lambda: train_checkpoint(get_config))):
+        t1 = time.monotonic()
+        out[name] = fn()
+        free(f"{name}: {time.monotonic() - t1:.1f} s")
+        log(json.dumps({"train": name, **out[name]}))
+    log(f"training stage: {time.monotonic() - t0:.1f} s")
+    return out
+
+
 #: stage P's deployment: the simulator example's (DeepSeek-V3 on 768
 #: dies folded to 8 simulated DP groups; 80 requests/s for 1 s)
 SIM_CFG = dict(n_sim_dps=8, eplb_interval_s=0.5)
@@ -4369,6 +4801,7 @@ def main() -> int:
     for p, (_, path) in results.items():
         log(json.dumps({"path": p, **{k: v for k, v in path.items()
                                       if k != "text"}}))
+    train_stages(get_config)
     log(json.dumps({"simulator": sim_stage(results, smi)}))
     print(smi)
     print(json.dumps({"kernels": kernel_line(results)}))

@@ -250,9 +250,9 @@ class DisaggregatedMoEAttention:
             if kind[1] == MOE:
                 x = self.moe_layer(layer_i, params_layer, x, c, positions)
             else:
-                x, _ = block_apply(params_layer, x, cfg=cfg, kind=kind,
-                                   mode="decode", cache=c,
-                                   positions=positions)
+                x, _, _ = block_apply(params_layer, x, cfg=cfg, kind=kind,
+                                      mode="decode", cache=c,
+                                      positions=positions)
         x = rms_norm(x, self.params["final_norm"], cfg.norm_eps)
         return self.model._logits(self.params, x[:, -1]), cache
 

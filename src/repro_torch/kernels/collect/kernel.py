@@ -25,6 +25,7 @@ def _fn():
 def collect_cuda(expert_ids: torch.Tensor, n_experts: int) -> torch.Tensor:
     """expert_ids [N] int32/int64 → counts [n_experts] int32; ids outside
     ``[0, n_experts)`` are ignored."""
+    runtime.refuse_grad("collect", expert_ids)
     if expert_ids.dtype not in _ID_BYTES:
         raise TypeError(f"collect: ids must be int32 or int64, got "
                         f"{expert_ids.dtype}")

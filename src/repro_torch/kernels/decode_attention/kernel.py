@@ -115,6 +115,7 @@ def decode_attention_cuda(q, k, v, positions, *, window: int = 0):
     128 or 256; a KV head's query heads are taken in groups of at most
     ``1024 // hd`` (:func:`head_groups`). One kernel launch: the splits
     of the cache and the groups are combined inside it."""
+    runtime.refuse_grad("decode_attention", q, k, v)
     B, H, hd = q.shape
     Bk, L, KV, hdk = k.shape
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:

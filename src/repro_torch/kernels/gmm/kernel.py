@@ -46,6 +46,7 @@ def gmm_cuda_with_rows(buckets, we_gate, we_up, we_down, phys_owner=None):
     what the kernel's prologue computed on the card, the number of
     leading rows of each slot it ran (``ref.live_rows``). bf16 takes d
     and f multiples of 8 and 16-byte aligned tensors; f32 d and f even."""
+    runtime.refuse_grad("gmm", buckets, we_gate, we_up, we_down)
     S, C, d = buckets.shape
     E, d2, f = we_gate.shape
     dtype = buckets.dtype

@@ -109,6 +109,7 @@ def int8_matmul_cuda(x_q, x_scale, w_q, w_scale):
     (strides (1, K): the transposed view of an [N, K] row-major tensor,
     as ``QTensor`` keeps it), w_scale [N] f32 → [M, N] f32, bit-identical
     to :func:`int8_matmul_ref`. Any M, K ≤ 133143 and N. One launch."""
+    runtime.refuse_grad("int8_matmul", x_q, x_scale, w_q, w_scale)
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise TypeError("int8_matmul: x_q and w_q must be int8")
     if x_scale.dtype != torch.float32 or w_scale.dtype != torch.float32:

@@ -174,6 +174,7 @@ def quant_dispatch_cuda(x: torch.Tensor):
     """x [T, d] bf16/f32 → (int8 [T, d], f32 scales [T]), one scale per
     row, bit-identical to :func:`quant_dispatch_ref`. One launch, on the
     path :func:`plan` picks."""
+    runtime.refuse_grad("quant_dispatch", x)
     if x.dtype not in _DTYPES:
         raise TypeError(f"quant_dispatch: dtype {x.dtype} unsupported")
     if x.dim() != 2 or x.shape[1] == 0:

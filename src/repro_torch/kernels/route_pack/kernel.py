@@ -42,6 +42,7 @@ def route_pack_cuda(x, dest, valid, eid, *, k: int, n_dest: int,
     launch, counted once as ``route_pack`` (and in ``runtime.FUSED`` as
     ``collect`` when it counts): the kernel writes every byte of every
     output, so they are allocated uninitialised."""
+    runtime.refuse_grad("route_pack", x)
     T, d = x.shape
     N = dest.shape[0]
     if x.dtype not in _DTYPES:

@@ -3,7 +3,9 @@
 :func:`fused_route_pack` launches the hand-written CUDA kernel for a
 tensor on the card and takes the plain version (``ref.py``) only for a
 tensor on the CPU; any other device raises. There is no fallback: a
-failed build or launch on the card raises.
+failed build or launch on the card raises. ``use_kernel=False`` takes
+the plain version on any device: the training mode's choice (the kernel
+has no backward), as the reference's ``use_pallas=False``.
 
 :func:`placement_route` remaps destinations logical → physical replica
 slot by exact round-robin of token position (the EPLB data plane,
@@ -43,7 +45,8 @@ def placement_route_local(dest, positions, replica_slots, n_replicas,
 
 def fused_route_pack(x, dest, valid=None, eid=None, *, k: int = 1,
                      n_dest: int, capacity: int, quantize: bool = False,
-                     count_ids=None, n_count: int = 0) -> RoutePack:
+                     count_ids=None, n_count: int = 0,
+                     use_kernel: bool = True) -> RoutePack:
     """Fused capacity rank + INT8 quantize + bucket scatter, and
     optionally EPLB Collect in the same launch.
 
@@ -54,11 +57,13 @@ def fused_route_pack(x, dest, valid=None, eid=None, *, k: int = 1,
     −1. Under EPLB placement ``dest`` carries physical slot ids and
     ``n_dest`` is the physical slot count. count_ids [N] int32/int64
     (optional): ids whose histogram over ``[0, n_count)`` the pack
-    returns as ``counts`` — the MoE layer's logical top-k ids."""
+    returns as ``counts`` — the MoE layer's logical top-k ids.
+    ``use_kernel=False``: the plain version, differentiable, on any
+    device."""
     kw = dict(k=k, n_dest=n_dest, capacity=capacity, quantize=quantize,
               count_ids=count_ids, n_count=n_count)
+    if not use_kernel or x.device.type == "cpu":
+        return route_pack_ref(x, dest, valid, eid, **kw)
     if x.device.type == "cuda":
         return route_pack_cuda(x, dest, valid, eid, **kw)
-    if x.device.type == "cpu":
-        return route_pack_ref(x, dest, valid, eid, **kw)
     raise ValueError(f"route_pack: no kernel for device {x.device}")

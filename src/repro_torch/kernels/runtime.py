@@ -14,6 +14,11 @@ run can show which kernels its path went through. A launch that also
 runs another kernel's body (route-pack's EPLB Collect block) counts once
 in ``LAUNCHES``, under its own name, and once in ``FUSED`` under the
 body's.
+
+No kernel has a backward. Every wrapper first refuses (:func:`refuse_grad`)
+an input that requires grad while grad mode is on: its output would
+leave the autograd graph without a word, and the layers before it would
+get no gradient. The training mode takes the plain versions instead.
 """
 from __future__ import annotations
 
@@ -135,6 +140,17 @@ def check_status(name: str, status: int) -> None:
     refused launch never runs, and a later synchronize would not say)."""
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
+
+
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise if grad mode is on and any of ``tensors`` requires grad: the
+    kernel has no backward. Called before any device or layout check."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and its output would "
+            f"be detached from the autograd graph; the training mode runs "
+            f"the plain version (use_kernel=False)")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -3,7 +3,7 @@ ring buffer), cross-attention over a fixed memory (VLM image layers and
 the encoder-decoder's decoder), and DeepSeek multi-head latent attention
 (MLA).
 
-Three execution modes, as in the reference:
+Four execution modes, as in the reference:
 
   * ``prefill`` — full sequence; returns the layer's cache (GQA: roped
     ``k``/``v`` [B, S, KV, hd], or with a window shorter than S its
@@ -11,6 +11,8 @@ Three execution modes, as in the reference:
     window``; MLA: latent ``ckv`` [B, S, kv_lora_rank], ``krope`` [B, S,
     rope_dim]). Above ``NAIVE_MAX_LEN`` tokens the scores go through
     ``blockwise_attention``, as in the reference.
+  * ``train``   — the prefill's computation without a cache: nothing is
+    built or written in place, so autograd can run through it.
   * ``chunk``   — chunked prefill: the chunk's K/V (or latents) are
     written IN PLACE into the layer's full-length cache buffer at
     ``offset``, and the chunk attends causally over the whole buffer
@@ -110,11 +112,13 @@ def attn_apply(params, x, *, cfg: ModelConfig, mode: str,
     positions. ``positions``: the chunk offset (an int) in ``chunk``
     mode, the new tokens' positions [B] in ``decode`` mode."""
     S = x.shape[1]
-    if mode == "prefill":
+    if mode in ("prefill", "train"):
         q, k, v = _project_qkv(params, x, cfg,
                                torch.arange(S, device=x.device))
         o = _prefill_attention(q, k, v, window)
         y = torch.einsum("bshk,hkd->bsd", o, params["wo"])
+        if mode == "train":
+            return y, None
         if window > 0 and S > window:
             # the trailing window, position p at ring slot p % window
             slots = (torch.arange(window, device=x.device)
@@ -182,20 +186,21 @@ def cross_attn_apply(params, x, *, cfg: ModelConfig, mode: str,
                      cache: Optional[Cache] = None
                      ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Attention of ``x`` over a memory, with no RoPE and no mask.
-    ``prefill``: ``memory`` [B, M, md] → K/V, returned as the cache.
+    ``prefill``: ``memory`` [B, M, md] → K/V, returned as the cache
+    (``train``: no cache).
     ``decode``: the cache's K/V, read only; every slot is attended (the
     kernel at ``positions = L - 1``), the zero-padded ones of a memory
     shorter than the slot too, as the reference's ``naive_attention``
     attends them."""
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    if mode == "prefill":
+    if mode in ("prefill", "train"):
         if memory is None:
-            raise ValueError("cross-attention prefill needs the memory")
+            raise ValueError(f"cross-attention {mode} needs the memory")
         k = torch.einsum("bmd,dhk->bmhk", memory, params["wk"])
         v = torch.einsum("bmd,dhk->bmhk", memory, params["wv"])
         o = naive_attention(q, k, v, causal=False)
-        return torch.einsum("bshk,hkd->bsd", o, params["wo"]), {"k": k,
-                                                                "v": v}
+        y = torch.einsum("bshk,hkd->bsd", o, params["wo"])
+        return y, ({"k": k, "v": v} if mode == "prefill" else None)
     if mode != "decode":
         raise ValueError(f"cross_attn_apply: unsupported mode {mode!r}")
     B, L = cache["k"].shape[:2]
@@ -276,11 +281,12 @@ def mla_apply(params, x, *, cfg: ModelConfig, mode: str,
     new tokens' positions [B] in ``decode`` mode."""
     m = cfg.mla
     B, S, _ = x.shape
-    if mode == "prefill":
+    if mode in ("prefill", "train"):
         pos = torch.arange(S, device=x.device)
         q_nope, q_rope, ckv, krope = _mla_qkv_latent(params, x, cfg, pos)
         y = _expand_attend(params, q_nope, q_rope, ckv, krope, cfg)
-        return y, {"ckv": ckv, "krope": krope}
+        return y, ({"ckv": ckv, "krope": krope} if mode == "prefill"
+                   else None)
     if mode == "chunk":
         return _mla_chunk(params, x, cfg=cfg, cache=cache, offset=positions)
     if mode != "decode":

@@ -1,4 +1,5 @@
-"""Shared building blocks: devices, initializers, norms, RoPE, attention."""
+"""Shared building blocks: devices, trees, initializers, norms, RoPE,
+attention and the chunked cross-entropy."""
 from __future__ import annotations
 
 import functools
@@ -34,6 +35,33 @@ def tree_map(fn, tree):
     if isinstance(tree, (tuple, list)) and not hasattr(tree, "_fields"):
         return tuple(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def _walk(tree, fn):
+    """Rebuild ``tree`` with ``fn`` applied to its leaves, visiting them
+    in the JAX package's flatten order: dict keys sorted, tuples in
+    order (a NamedTuple is a leaf). Dicts keep their own key order."""
+    if isinstance(tree, dict):
+        out = {k: _walk(tree[k], fn) for k in sorted(tree)}
+        return {k: out[k] for k in tree}
+    if isinstance(tree, (tuple, list)) and not hasattr(tree, "_fields"):
+        return tuple(_walk(v, fn) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and tuples in the JAX package's
+    order (``jax.tree.leaves`` of the same tree)."""
+    out: list = []
+    _walk(tree, out.append)
+    return out
+
+
+def tree_unflatten_like(tree, leaves):
+    """``tree``'s structure with :func:`tree_leaves`' positions filled
+    from ``leaves``, in order."""
+    it = iter(leaves)
+    return _walk(tree, lambda _: next(it))
 
 
 def microbatch_sizes(n: int, mb: int) -> Tuple[int, ...]:
@@ -233,3 +261,83 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1):
         a = torch.cat([a.narrow(dim, 0, d), a_prev * a_cur], dim)
         d *= 2
     return b
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy: never holds the [B, S, vocab] logits
+# ---------------------------------------------------------------------------
+def _xent_chunks(S: int, chunk: int):
+    """The reference's chunks: ``S // chunk`` of ``chunk`` positions,
+    then the remainder."""
+    n = S // chunk
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(n)]
+    if S > n * chunk:
+        bounds.append((n * chunk, S))
+    return bounds
+
+
+class _ChunkedXent(torch.autograd.Function):
+    """Sum over tokens of ``mask · (lse - gold logit)``, the logits made
+    a chunk at a time in float32. Forward keeps only each token's
+    log-sum-exp; backward makes a chunk's logits again, so autograd never
+    holds more than one ``[B, chunk, V]`` block. The unembedding is cast
+    to float32 once per pass, not once per chunk."""
+
+    @staticmethod
+    def forward(ctx, hidden, unembed, labels, mask, chunk: int):
+        B, S, _ = hidden.shape
+        w = unembed.float()
+        lse = torch.empty((B, S), dtype=torch.float32, device=hidden.device)
+        tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for s0, s1 in _xent_chunks(S, chunk):
+            logits = torch.matmul(hidden[:, s0:s1].float(), w)
+            l = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                labels[:, s0:s1, None].long())[..., 0]
+            tot = tot + torch.sum((l - gold) * mask[:, s0:s1])
+            lse[:, s0:s1] = l
+        ctx.save_for_backward(hidden, unembed, labels, mask, lse)
+        ctx.chunk = chunk
+        return tot
+
+    @staticmethod
+    def backward(ctx, g_tot):
+        hidden, unembed, labels, mask, lse = ctx.saved_tensors
+        need_h, need_w = ctx.needs_input_grad[:2]
+        B, S, d = hidden.shape
+        w = unembed.float()
+        dh = torch.empty_like(hidden) if need_h else None
+        dw = torch.zeros_like(w) if need_w else None
+        for s0, s1 in _xent_chunks(S, ctx.chunk):
+            h = hidden[:, s0:s1].float()
+            coef = (mask[:, s0:s1] * g_tot)[..., None]        # [B, c, 1]
+            # d(lse - gold)/d logits = softmax - onehot(label)
+            dlog = torch.exp(torch.matmul(h, w) - lse[:, s0:s1, None])
+            dlog.mul_(coef)
+            dlog.scatter_add_(-1, labels[:, s0:s1, None].long(), -coef)
+            if need_h:
+                dh[:, s0:s1] = torch.matmul(dlog, w.t()).to(hidden.dtype)
+            if need_w:
+                dw.addmm_(h.reshape(-1, d).t(),
+                          dlog.reshape(-1, dlog.shape[-1]))
+        return (dh, None if dw is None else dw.to(unembed.dtype), None, None,
+                None)
+
+
+def chunked_softmax_xent(hidden: torch.Tensor, labels: torch.Tensor,
+                         unembed: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None,
+                         chunk: int = 128):
+    """hidden [B, S, d], labels [B, S] int, unembed [d, V], mask [B, S]
+    (1.0 = count, default all) → (mean nll over the counted tokens,
+    their count), as the reference's scan over sequence chunks of
+    ``chunk`` positions and a remainder: ``tot / max(cnt, 1)``.
+    Differentiable in ``hidden`` and ``unembed``."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+    mask = mask.float()
+    tot = _ChunkedXent.apply(hidden, unembed, labels, mask, chunk)
+    cnt = mask.sum()
+    return tot / torch.clamp(cnt, min=1.0), cnt

@@ -5,8 +5,13 @@ one device (experts replicated): route in f32, pack capacity buckets
 through the fused route-pack kernel, which counts the routed logical ids
 per expert (EPLB Collect) in the same launch, run the grouped expert FFN
 kernel over the buckets, then combine with the routing weights in f32
-and add the shared expert. Decode, chunked prefill and prefill all take it, as
-they do in the reference whenever the EP degree is 1.
+and add the shared expert. Decode, chunked prefill, prefill and training
+all take it, as they do in the reference whenever the EP degree is 1.
+The training mode runs the plain route-pack and grouped FFN on every
+device (``use_kernel=False``, the reference's ``use_pallas=False``): the
+kernels have no backward. The aux losses keep the reference's
+gradients: the load-balance loss through the mean router probability
+only (the counts carry none), the z-loss through the router logits.
 
 EPLB placement (§4.5): ``moe_apply`` optionally takes a per-layer
 ``placement = (replica_slots [E, R], n_replicas [E], phys_owner
@@ -88,11 +93,13 @@ def combine_assignments(wa: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _moe_gather_local(x: torch.Tensor, params: Params, cfg: ModelConfig,
-                      microbatches: int = 1, placement=None):
+                      microbatches: int = 1, placement=None,
+                      use_kernel: bool = True):
     """x: [B, S, d] → (y [B, S, d], (lb, z, counts)), experts replicated
     on this device. ``microbatches >= 2`` splits the batch into §4.4
     ping-pong micro-batches, each running the full chain (stats become
-    token-weighted averages)."""
+    token-weighted averages). ``use_kernel=False``: the plain route-pack
+    and grouped FFN on any device (training)."""
     e = cfg.moe
 
     def run(x):
@@ -120,11 +127,12 @@ def _moe_gather_local(x: torch.Tensor, params: Params, cfg: ModelConfig,
             logical = dest
         # Collect counts logical experts, whatever slots dest names
         pack = fused_route_pack(xf, dest, k=k, n_dest=n_slots, capacity=cap,
-                                count_ids=logical, n_count=E)
+                                count_ids=logical, n_count=E,
+                                use_kernel=use_kernel)
         lb, z, counts = _aux_stats(probs, pack.counts, E, logits)
         out_b = expert_ffn(pack.buckets, params["we_gate"], params["we_up"],
-                           params["we_down"],
-                           phys_owner=owner).to(pack.buckets.dtype)
+                           params["we_down"], phys_owner=owner,
+                           use_kernel=use_kernel).to(pack.buckets.dtype)
         y_assign = out_b[dest.long(), pack.rank.long().clamp(0, cap - 1)]
         y_assign = torch.where(pack.keep[:, None], y_assign.float(),
                                torch.zeros((), device=x.device))
@@ -149,15 +157,16 @@ def moe_apply(params: Params, x: torch.Tensor, *, cfg: ModelConfig,
               mode: str, placement=None, microbatches: int = 1
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x [B, S, d] → (y [B, S, d], aux). ``mode`` is ``prefill``,
-    ``chunk`` or ``decode``; ``microbatches`` applies to decode only,
-    and so does ``placement``: the caller passes it only there."""
-    if mode not in ("prefill", "chunk", "decode"):
+    ``chunk``, ``decode`` or ``train`` (the plain versions of the
+    kernels); ``microbatches`` applies to decode only, and so does
+    ``placement``: the caller passes it only there."""
+    if mode not in ("prefill", "chunk", "decode", "train"):
         raise ValueError(f"moe_apply: unsupported mode {mode!r}")
     e = cfg.moe
     y, (lb, z, counts) = _moe_gather_local(
         x, params, cfg,
         microbatches=microbatches if mode == "decode" else 1,
-        placement=placement)
+        placement=placement, use_kernel=mode != "train")
     if "shared" in params:
         y = y + mlp_apply(params["shared"], x)
     aux = {"moe_lb_loss": lb * e.router_aux_coef,

@@ -105,11 +105,12 @@ def rglru_apply(params, x, *, cfg: ModelConfig, mode: str,
                 cache: Optional[Cache] = None
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """x [B, S, d] → (y [B, S, d], cache). ``prefill`` returns a fresh
-    cache; ``decode`` (S = 1) updates ``cache`` in place."""
+    cache, ``train`` none; ``decode`` (S = 1) updates ``cache`` in
+    place."""
     gate = F.gelu(torch.einsum("bsd,dw->bsw", x, params["w_gate_branch"]),
                   approximate="tanh")
     u = torch.einsum("bsd,dw->bsw", x, params["w_in"])
-    if mode not in ("prefill", "decode"):
+    if mode not in ("prefill", "train", "decode"):
         raise ValueError(f"rglru_apply: unsupported mode {mode!r}")
     hist = cache["conv"] if mode == "decode" else None
     u, new_hist = causal_conv(u, params["conv_w"], params["conv_b"], hist)
@@ -128,7 +129,8 @@ def rglru_apply(params, x, *, cfg: ModelConfig, mode: str,
         y, new_cache = h[:, None], cache
     else:
         y = linear_scan(a, b_t, dim=1)                         # h_t
-        new_cache = {"state": y[:, -1].contiguous(),
-                     "conv": new_hist.contiguous()}
+        new_cache = ({"state": y[:, -1].contiguous(),
+                      "conv": new_hist.contiguous()}
+                     if mode == "prefill" else None)
     y = (y * gate.float()).to(x.dtype)
     return torch.einsum("bsw,wd->bsd", y, params["w_out"]), new_cache

@@ -134,10 +134,11 @@ def ssm_apply(params, x, *, cfg: ModelConfig, mode: str,
               cache: Optional[Cache] = None
               ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """x [B, S, d] → (y [B, S, d], cache). ``prefill`` returns a fresh
-    cache; ``decode`` (S = 1) updates ``cache`` in place."""
+    cache, ``train`` none; ``decode`` (S = 1) updates ``cache`` in
+    place."""
     di, h, p, n, conv_dim = ssm_dims(cfg)
     Bsz, S, _ = x.shape
-    if mode not in ("prefill", "decode"):
+    if mode not in ("prefill", "train", "decode"):
         raise ValueError(f"ssm_apply: unsupported mode {mode!r}")
     proj = torch.einsum("bsd,de->bse", x, params["in_proj"])
     z, xr, Bc, Cc, dt = torch.split(proj, [di, di, n, n, h], dim=-1)
@@ -161,7 +162,8 @@ def ssm_apply(params, x, *, cfg: ModelConfig, mode: str,
     else:
         y, final = _ssd_chunked(xh, a_log_step, Bc.float(), Cc.float(),
                                 cfg.ssm.chunk_size)
-        new_cache = {"state": final, "conv": new_hist.contiguous()}
+        new_cache = ({"state": final, "conv": new_hist.contiguous()}
+                     if mode == "prefill" else None)
 
     # the D skip, on the conv output before the dt scaling
     y = y + xr.reshape(Bsz, S, h, p).float() * params["d_skip"][:, None]

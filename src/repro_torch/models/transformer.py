@@ -25,6 +25,12 @@ RMS norm — on the stubbed frontend's frames first. The cross-attention
 layers keep the memory's K/V as their decode cache. ``long_context=True``
 puts the configuration's ``long_context_window`` on global attention
 (``window_override``), as the reference's long-context serving does.
+
+Training (:meth:`Model.forward_train`) runs the ``train`` mode: the
+prefill's computation with no cache built or written, the MoE layers on
+the plain versions of their kernels, and the chunked cross-entropy;
+``remat="full"`` recomputes each superblock in backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import dataclasses
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import (ATTN, CROSS_ATTN, LOCAL_ATTN, MLA_ATTN,
                                       MLP, MOE, RGLRU, SSM, ModelConfig)
@@ -39,9 +46,9 @@ from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
-from repro_torch.models.common import (dense_init, dtype_of, embed_init,
-                                       naive_attention, resolve_device,
-                                       rms_norm, tree_map)
+from repro_torch.models.common import (chunked_softmax_xent, dense_init,
+                                       dtype_of, embed_init, naive_attention,
+                                       resolve_device, rms_norm, tree_map)
 
 PyTree = Any
 
@@ -57,6 +64,17 @@ class ParamSpec(NamedTuple):
 
 def _index(tree, i):
     return tree_map(lambda t: t[i], tree)
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` superblocks of a stacked tree of dicts, each leaf's
+    ``[i]`` a view. One ``unbind`` per leaf: under autograd a leaf's
+    gradient is then one stack of the ``n`` parts, where ``n`` separate
+    ``t[i]`` would each add a full-size zero tensor."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def attn_window(cfg: ModelConfig, mixer, window_override: int = 0) -> int:
@@ -138,7 +156,9 @@ def block_cache_spec(cfg: ModelConfig, kind, batch: int, max_len: int,
 def block_apply(params, x, *, cfg: ModelConfig, kind, mode: str,
                 cache=None, positions=None, memory=None, placement=None,
                 decode_microbatches: int = 1, window_override: int = 0):
-    """Returns (x_out, layer cache). ``memory``: what a cross-attention
+    """Returns (x_out, layer cache, the MoE layer's aux dict
+    (``moe_lb_loss``, ``moe_z_loss``, ``expert_counts``) or None).
+    ``memory``: what a cross-attention
     layer attends to in prefill (decode reads its cache);
     ``placement``: this layer's EPLB slice ``(replica_slots, n_replicas,
     phys_owner)`` or None;
@@ -165,16 +185,17 @@ def block_apply(params, x, *, cfg: ModelConfig, kind, mode: str,
         y, new_cache = apply(params["mixer"], h, cfg=cfg, mode=mode,
                              cache=cache)
     x = x + y
+    aux = None
     if ffn == MLP:
         h = rms_norm(x, params["ffn_norm"], cfg.norm_eps)
         x = x + F.mlp_apply(params["ffn"], h)
     elif ffn == MOE:
         h = rms_norm(x, params["ffn_norm"], cfg.norm_eps)
-        y, _ = F.moe_apply(params["ffn"], h, cfg=cfg, mode=mode,
-                           placement=placement,
-                           microbatches=decode_microbatches)
+        y, aux = F.moe_apply(params["ffn"], h, cfg=cfg, mode=mode,
+                             placement=placement,
+                             microbatches=decode_microbatches)
         x = x + y
-    return x, new_cache
+    return x, new_cache, aux
 
 
 # ===========================================================================
@@ -186,12 +207,17 @@ class Model:
     many §4.4 ping-pong micro-batches (1 = off). ``long_context=True``
     gives global attention the configuration's ``long_context_window``
     (``window_override``) where the architecture does not already avoid
-    a cache that grows with the sequence, as in the reference."""
+    a cache that grows with the sequence, as in the reference.
+    ``remat="full"`` recomputes each superblock's activations in the
+    backward pass of training (the reference's ``MeshCtx.remat``)."""
 
     def __init__(self, cfg: ModelConfig, *, decode_microbatches: int = 1,
-                 long_context: bool = False):
+                 long_context: bool = False, remat: str = "none"):
+        if remat not in ("none", "full"):
+            raise ValueError(f"remat must be 'none' or 'full', got {remat!r}")
         kinds = cfg.layer_kinds()
         self.cfg = cfg
+        self.remat = remat
         self.decode_microbatches = decode_microbatches
         self.dtype = dtype_of(cfg.dtype)
         self.window_override = (cfg.long_context_window
@@ -323,49 +349,79 @@ class Model:
     # ------------------------------------------------------------------
     def _apply_stack(self, params, x, *, mode, caches=None, positions=None,
                      memory=None, placement=None):
-        """``caches`` is updated in place in ``decode``/``chunk`` mode and
-        returned; ``prefill`` returns freshly built caches."""
+        """→ (x, caches, aux). ``caches`` is updated in place in
+        ``decode``/``chunk`` mode and returned; ``prefill`` returns
+        freshly built caches, ``train`` none. ``aux`` is None except in
+        ``train`` mode: (load-balance loss, z-loss, expert counts), the
+        MoE layers' coefficient-scaled losses added in layer order and
+        their counts summed ([E] float32; [1] zeros without MoE), as the
+        reference's ``aux_sum`` and ``counts``."""
         cfg = self.cfg
+        train = mode == "train"
         np_, pl_len = len(self.prefix_kinds), len(self.pattern)
         new_caches: Dict[str, PyTree] = {}
+        aux = (None,) * 3
+        if train:
+            zero = torch.zeros((), dtype=torch.float32, device=x.device)
+            aux = (zero, zero,
+                   torch.zeros((cfg.moe.num_experts if cfg.has_moe else 1,),
+                               dtype=torch.float32, device=x.device))
 
-        def layer(p, x, kind, c, gl):
+        def layer(p, x, kind, c, gl, aux):
             lp = None if placement is None else placement.layer(gl)
-            return block_apply(p, x, cfg=cfg, kind=kind, mode=mode, cache=c,
-                               positions=positions, memory=memory,
-                               placement=lp,
-                               decode_microbatches=self.decode_microbatches,
-                               window_override=self.window_override)
+            x, nc, moe = block_apply(
+                p, x, cfg=cfg, kind=kind, mode=mode, cache=c,
+                positions=positions, memory=memory, placement=lp,
+                decode_microbatches=self.decode_microbatches,
+                window_override=self.window_override)
+            if train and moe is not None:
+                aux = (aux[0] + moe["moe_lb_loss"], aux[1] + moe["moe_z_loss"],
+                       aux[2] + moe["expert_counts"])
+            return x, nc, aux
 
-        def unrolled(section, kinds, first, x):
+        def unrolled(section, kinds, first, x, aux):
             out = []
             for i, kind in enumerate(kinds):
                 c = None if caches is None else caches[section][i]
-                x, nc = layer(params[section][i], x, kind, c, first + i)
+                x, nc, aux = layer(params[section][i], x, kind, c, first + i,
+                                   aux)
                 out.append(nc)
-            if out:
+            if out and not train:
                 new_caches[section] = tuple(out)
-            return x
+            return x, aux
 
-        x = unrolled("prefix", self.prefix_kinds, 0, x)
+        def superblock(sb, sb_params, x, *aux):
+            ncs = {}
+            for i, kind in enumerate(self.pattern):
+                c = (None if caches is None
+                     else _index(caches["blocks"][f"pos{i}"], sb))
+                x, ncs[f"pos{i}"], aux = layer(sb_params[f"pos{i}"], x, kind,
+                                               c, np_ + sb * pl_len + i, aux)
+            return (x, *aux), ncs
+
+        x, aux = unrolled("prefix", self.prefix_kinds, 0, x, aux)
         if self.n_sb:
             per_sb = []
-            for sb in range(self.n_sb):
-                sb_params = _index(params["blocks"], sb)
-                ncs = {}
-                for i, kind in enumerate(self.pattern):
-                    c = (None if caches is None
-                         else _index(caches["blocks"][f"pos{i}"], sb))
-                    x, ncs[f"pos{i}"] = layer(sb_params[f"pos{i}"], x, kind,
-                                              c, np_ + sb * pl_len + i)
-                per_sb.append(ncs)
-            new_caches["blocks"] = (
-                caches["blocks"] if caches is not None else
-                {k: {n: torch.stack([c[k][n] for c in per_sb])
-                     for n in per_sb[0][k]} for k in per_sb[0]})
-        x = unrolled("tail", self.tail_kinds, np_ + self.n_sb * pl_len, x)
+            for sb, sb_params in enumerate(_unstack(params["blocks"],
+                                                    self.n_sb)):
+                if train and self.remat == "full":
+                    x, *aux = torch.utils.checkpoint.checkpoint(
+                        lambda *a, sb=sb: superblock(sb, *a)[0], sb_params,
+                        x, *aux, use_reentrant=False)
+                else:
+                    (x, *aux), ncs = superblock(sb, sb_params, x, *aux)
+                    per_sb.append(ncs)
+            if not train:
+                new_caches["blocks"] = (
+                    caches["blocks"] if caches is not None else
+                    {k: {n: torch.stack([c[k][n] for c in per_sb])
+                         for n in per_sb[0][k]} for k in per_sb[0]})
+        x, aux = unrolled("tail", self.tail_kinds,
+                          np_ + self.n_sb * pl_len, x, tuple(aux))
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return x, (caches if caches is not None else new_caches)
+        if train:
+            return x, None, tuple(aux)
+        return x, (caches if caches is not None else new_caches), None
 
     # ------------------------------------------------------------------
     # encoder (the encoder-decoder's stubbed audio frontend's frames)
@@ -408,21 +464,48 @@ class Model:
     def _logits(self, params, h):
         return torch.matmul(h.float(), self._unembed(params).float())
 
+    def _memory(self, params, memory):
+        """What the cross-attention layers read, in the model's dtype:
+        ``memory`` itself, or for an encoder-decoder the encoder's
+        output on it (its frames)."""
+        if memory is None:
+            raise ValueError(f"{self.cfg.name}: needs memory (its "
+                             f"cross-attention layers read it)")
+        memory = memory.to(self.dtype)
+        return self.encode(params, memory) if self.cfg.is_encdec else memory
+
+    def forward_train(self, params, tokens, labels, memory=None,
+                      loss_mask=None):
+        """tokens, labels [B, S] → (loss, metrics), differentiable in
+        ``params``: ``loss = nll + lb + z``, the chunked cross-entropy's
+        mean over the tokens ``loss_mask`` [B, S] counts (default all)
+        plus the MoE layers' aux losses. ``metrics``: ``nll``,
+        ``moe_lb_loss``, ``moe_z_loss``, ``tokens`` (the counted
+        tokens) and ``expert_counts`` (summed over the MoE layers). No
+        cache is built and no kernel launched: the MoE layers run the
+        plain versions. A model with cross-attention needs ``memory``,
+        as :meth:`prefill`."""
+        if self.has_cross:
+            memory = self._memory(params, memory)
+        x = self._embed(params, tokens)
+        x, _, (lb, z, counts) = self._apply_stack(params, x, mode="train",
+                                                  memory=memory)
+        nll, n_tok = chunked_softmax_xent(x, labels, self._unembed(params),
+                                          mask=loss_mask)
+        loss = nll + lb + z
+        return loss, {"nll": nll, "moe_lb_loss": lb, "moe_z_loss": z,
+                      "tokens": n_tok, "expert_counts": counts}
+
     def prefill(self, params, tokens, *, memory=None, last_pos=None):
         """tokens [B, S] → (logits at ``last_pos`` (default S-1) [B, V]
         f32, cache). A model with cross-attention needs ``memory`` [B,
         M, md]: the frames its encoder runs on (``cfg.is_encdec``), else
         the memory itself; it is taken in the model's dtype."""
         if self.has_cross:
-            if memory is None:
-                raise ValueError(f"{self.cfg.name}: prefill needs memory "
-                                 f"(its cross-attention layers read it)")
-            memory = memory.to(self.dtype)
-            if self.cfg.is_encdec:
-                memory = self.encode(params, memory)
+            memory = self._memory(params, memory)
         x = self._embed(params, tokens)
-        x, caches = self._apply_stack(params, x, mode="prefill",
-                                      memory=memory)
+        x, caches, _ = self._apply_stack(params, x, mode="prefill",
+                                         memory=memory)
         if last_pos is None:
             h = x[:, -1]
         else:
@@ -439,8 +522,8 @@ class Model:
             raise ValueError(f"{self.cfg.name}: chunked prefill runs no "
                              f"cross-attention or encoder")
         x = self._embed(params, tokens)
-        x, cache = self._apply_stack(params, x, mode="chunk", caches=cache,
-                                     positions=int(offset))
+        x, cache, _ = self._apply_stack(params, x, mode="chunk",
+                                        caches=cache, positions=int(offset))
         h = x[torch.arange(x.shape[0], device=x.device), last_pos]
         return self._logits(params, h), cache
 
@@ -458,9 +541,9 @@ class Model:
         ``[B, 1, d]``, the MTP head's conditioning input. ``decode_step``
         delegates here, so the two give bit-identical logits."""
         x = self._embed(params, tokens)
-        x, cache = self._apply_stack(params, x, mode="decode", caches=cache,
-                                     positions=positions,
-                                     placement=placement)
+        x, cache, _ = self._apply_stack(params, x, mode="decode",
+                                        caches=cache, positions=positions,
+                                        placement=placement)
         return self._logits(params, x[:, -1]), x[:, -1:], cache
 
     # ------------------------------------------------------------------
@@ -472,8 +555,8 @@ class Model:
         model's final hidden), next_tokens [B, 1] → (new hidden [B, 1,
         d], cache). With ``mtp_cache`` the block runs in decode mode at
         ``positions`` [B] and writes the cache in place; without one it
-        runs the prefill mode on the single token and keeps no cache
-        (the reference's train mode). The draft-cache fill pass calls
+        runs the train mode over the sequence it is given and keeps no
+        cache, as the reference. The draft-cache fill pass calls
         only this: eager PyTorch would run a discarded ``_logits``."""
         cfg = self.cfg
         mp = params["mtp"][mtp_index]
@@ -481,8 +564,8 @@ class Model:
         h = torch.cat([rms_norm(hidden, mp["norm_h"], cfg.norm_eps),
                        rms_norm(e, mp["norm_e"], cfg.norm_eps)], dim=-1)
         h = torch.matmul(h, mp["proj"])
-        mode = "prefill" if mtp_cache is None else "decode"
-        h, cache = block_apply(mp["block"], h, cfg=cfg, kind=self.mtp_kind,
+        mode = "train" if mtp_cache is None else "decode"
+        h, cache, _ = block_apply(mp["block"], h, cfg=cfg, kind=self.mtp_kind,
                                mode=mode, cache=mtp_cache,
                                positions=positions)
         return h, (None if mtp_cache is None else cache)

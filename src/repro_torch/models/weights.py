@@ -10,6 +10,10 @@ head's ``mtp.0.proj``, ``mtp.0.block.mixer.wq_a``, the encoder's
 ``encoder.blocks.0.mixer.wq`` and ``encoder.norm``, a cross-attention
 layer's ``blocks.pos4.mixer.wk`` [n_sb, md, KV, hd]). A missing or
 unexpected leaf, or a shape or dtype mismatch, raises.
+
+The same bridge carries the reference's gradients (the params' tree and
+dtypes) and, with ``dtype=torch.float32``, its AdamW moments;
+:func:`adamw_state_from_jax` loads a whole ``AdamWState``.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import resolve_device
 from repro_torch.models.transformer import Model
+from repro_torch.train.optimizer import AdamWState
 
 def flatten(tree, prefix: str = "") -> Dict[str, object]:
     """Dotted path → leaf for a tree of dicts and tuples/lists."""
@@ -54,9 +59,12 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
-def from_jax_params(tree, cfg: ModelConfig, device="cuda") -> Dict:
+def from_jax_params(tree, cfg: ModelConfig, device="cuda",
+                    dtype=None) -> Dict:
     """Map the JAX reference's parameter tree (numpy leaves) onto the
-    port's parameter tree on ``device``."""
+    port's parameter tree on ``device`` — or a tree of the params' shape,
+    such as their gradients; ``dtype`` (e.g. float32 for AdamW's
+    moments) replaces every leaf's expected dtype."""
     dev = resolve_device(device)
     spec = Model(cfg).param_spec()
     want = flatten(spec)
@@ -68,8 +76,19 @@ def from_jax_params(tree, cfg: ModelConfig, device="cuda") -> Dict:
     leaves = {}
     for path, s in want.items():
         t = _to_torch(np.asarray(got[path]))
-        if tuple(t.shape) != tuple(s.shape) or t.dtype != s.dtype:
+        dt = s.dtype if dtype is None else dtype
+        if tuple(t.shape) != tuple(s.shape) or t.dtype != dt:
             raise ValueError(f"weight bridge: {path} is {tuple(t.shape)} "
-                             f"{t.dtype}, expected {s.shape} {s.dtype}")
+                             f"{t.dtype}, expected {s.shape} {dt}")
         leaves[path] = t.to(dev)
     return _unflatten_like(spec, leaves)
+
+
+def adamw_state_from_jax(state, cfg: ModelConfig, device="cuda"):
+    """The reference's ``AdamWState`` (numpy leaves: ``step``, ``m``,
+    ``v``) → the port's, the float32 moments in the params' tree."""
+    dev = resolve_device(device)
+    return AdamWState(
+        step=_to_torch(np.asarray(state.step)).to(torch.int32).to(dev),
+        m=from_jax_params(state.m, cfg, dev, dtype=torch.float32),
+        v=from_jax_params(state.v, cfg, dev, dtype=torch.float32))

@@ -8,9 +8,9 @@ Per decode iteration the engine advances by 1 + (accepted drafts) tokens;
 with the paper's ~90% single-layer acceptance the effective TPOT is
 iteration time / 1.9 (§7.1). The batched engine path is
 :meth:`~repro_torch.serving.backend.TorchBackend.decode_sample_mtp`;
-:class:`MTPDecoder` is the single-sequence greedy loop. Training a
-second MTP layer (the reference's ``MTPTrainer``) needs autograd
-through the model and waits for the training slice.
+:class:`MTPDecoder` is the single-sequence greedy loop.
+:class:`MTPTrainer` implements §4.6 "Multiple MTPs": training one MTP
+layer with the main model and the other heads frozen.
 """
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ from typing import Any, List, Tuple
 
 import torch
 
+from repro_torch.models.common import (chunked_softmax_xent, tree_leaves,
+                                       tree_unflatten_like)
 from repro_torch.models.transformer import Model
 
 PyTree = Any
@@ -96,3 +98,47 @@ class MTPDecoder:
                 self.stats.tokens += 1
                 pos += 1
         return out[:n_tokens], cache
+
+
+# ---------------------------------------------------------------------------
+# §4.6 "Multiple MTPs": train one MTP layer with everything else frozen
+# ---------------------------------------------------------------------------
+class MTPTrainer:
+    """Plain SGD (``p - lr · g``, the gradient cast to the parameter's
+    dtype) on head ``mtp_index`` alone, teacher-forced on the main
+    stack's final hidden states: head position ``t`` predicts token
+    ``t + 2`` from hidden ``t`` and token ``t + 1``. The loss depends on
+    no other weight's gradient, so the frozen stack runs under
+    ``torch.no_grad()`` and keeps no activations."""
+
+    def __init__(self, model: Model, params: PyTree, mtp_index: int,
+                 lr: float = 1e-3):
+        self.model = model
+        self.mtp_index = mtp_index
+        self.lr = lr
+        self.params = params
+
+    def train_step(self, tokens: torch.Tensor) -> float:
+        """tokens [B, S] int on the params' device → the step's loss
+        (before the update)."""
+        model, params, idx = self.model, self.params, self.mtp_index
+        tokens = tokens.long()
+        with torch.no_grad():
+            x, _, _ = model._apply_stack(params, model._embed(params, tokens),
+                                         mode="train")
+        head = params["mtp"][idx]
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(head)]
+        mtps = list(params["mtp"])
+        mtps[idx] = tree_unflatten_like(head, leaves)
+        h, _ = model.mtp_hidden(dict(params, mtp=tuple(mtps)), idx,
+                                x[:, :-2], tokens[:, 1:-1], None)
+        loss, _ = chunked_softmax_xent(h, tokens[:, 2:],
+                                       model._unembed(params))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        with torch.no_grad():
+            new = [p - self.lr * g.to(p.dtype)
+                   for p, g in zip(tree_leaves(head), grads)]
+        mtps[idx] = tree_unflatten_like(head, new)
+        self.params = dict(params, mtp=tuple(mtps))
+        return float(loss.detach())

@@ -62,6 +62,11 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert {"repro_torch.sim", "repro_torch.sim.engine",
             "repro_torch.sim.events", "repro_torch.sim.fabric",
             "repro_torch.sim.metrics", "repro_torch.sim.workload"} <= on_disk
+    # training: the train package, its launcher and the step functions
+    assert {"repro_torch.train", "repro_torch.train.optimizer",
+            "repro_torch.train.data", "repro_torch.train.checkpoint",
+            "repro_torch.train.train_loop", "repro_torch.launch.train",
+            "repro_torch.launch.steps"} <= on_disk
 
 
 @pytest.mark.parametrize("needle", ["import jax", "from jax", "import repro.",
@@ -104,6 +109,21 @@ def test_backend_and_model_init_default_to_the_card():
         TorchBackend(model, params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.init_cache(1, 8)
+
+
+def test_training_entry_points_default_to_the_card(tmp_path):
+    _no_card()
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.train import (TrainConfig, Trainer, restore_checkpoint,
+                                   save_checkpoint)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(get_config("internlm2-1.8b-smoke"), TrainConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--smoke", "--steps", "1"])
+    save_checkpoint(str(tmp_path), 1, {"x": torch.zeros(1)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        restore_checkpoint(str(tmp_path))
 
 
 def test_kernel_wrappers_refuse_other_devices():

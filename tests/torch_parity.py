@@ -26,6 +26,9 @@ ARCH = "deepseek-v3-671b-smoke"
 #: plain smoke variant has G = 1).
 CONFIGS = {
     "deepseek-v3": (ARCH, {}),
+    # a second MTP head, the one ``MTPTrainer`` trains in the reference's
+    # own test
+    "deepseek-v3-mtp2": (ARCH, {"mtp_num_layers": 2}),
     "llama4-gqa": ("llama4-maverick-400b-a17b-smoke",
                    {"num_heads": 10, "num_kv_heads": 2, "head_dim": 32}),
     "llama4": ("llama4-maverick-400b-a17b-smoke", {}),
