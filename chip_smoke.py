@@ -185,8 +185,9 @@ E. disaggregated MoE-Attention (§5.2, ``DisaggregatedMoEAttention``)
 G. the port's launcher (``repro_torch.launch.serve.main``) in-process
    on the card: ``--arch deepseek-v3-671b`` and no other flag (the smoke
    config, 16 greedy tokens), then both modes on the smoke DeepSeek-V3
-   in float32 with its weights made on the CPU from the seed: the
-   printed lines and the token ids behind them equal the CPU's;
+   in float32, its weights made from the seed on either device (the
+   same weights): the printed lines and the token ids behind them equal
+   the CPU's;
 
 Llama-4 Maverick (GQA + top-1 MoE with a shared expert), after the
 DeepSeek-V3 engine is freed:
@@ -353,11 +354,45 @@ P. the SuperPod simulator (``repro_torch.sim``; host code, no kernel):
    turn), and the colocated run is repeated from that file: the cost
    model must carry both rows and every request finish. Its figures are
    the MODELED pod's, not the card's (only the two rows are);
+R. the multi-device layer (``models/mesh_ctx.py``, ``launch/mesh.py``,
+   ``launch/sharding.py``): R0 (in the DeepSeek-V3 stages, on the served
+   weights) ``Model.init(0)`` made on the card equals the same init on
+   the host CPU bit for bit, leaf by leaf (every element of a leaf up to
+   4 Mi elements, three blocks of about 1 Mi of each larger one); R1
+   (after the memory stages, in a process of its own, so that no NCCL
+   group lives in the main process) a live 1x1 mesh over NCCL on the
+   seed's weights of DeepSeek-V3 (depth 4) and Llama-4 (depth 2):
+   the mesh code path serves the one-device engine's greedy tokens with
+   its kernel launches, and prefill, chunk and decode logits
+   bit-identical; R2 (after the memory stages) two ranks as two
+   processes sharing the card over gloo — NCCL refuses two ranks on one
+   device — each making its blocks of the seed's weights: DeepSeek-V3
+   (depth 4, no MTP head) and Llama-4 (depth 2) at full width on (2,1)
+   (DP attention, EP 2 under ``DECODE_RULES``) and on (1,2) (TP 2, the
+   KV cache's slots sharded, all-to-all prefill), greedy serving with
+   the launch counts set to 0 just before and read just after, every
+   kernel launch replayed on its plain version (route-pack and Collect
+   exactly, the grouped FFNs and decode attention within 3e-2), the
+   ranks' tokens identical, the decode steps' logits of the rows
+   routed alike within 0.08 relative of a one-device model's on the
+   same weights, and so every logit (prefill, chunk, decode) of those
+   rows of a no-drop control (capacity factor 64, the gather strategy:
+   no pack drops an assignment on either side), and of every row once
+   one device takes the ranks' decode routing; the prefill and chunk
+   logits at the configuration's
+   capacity beside the assignments each side dropped; and each
+   rank's peak memory, wire bytes per collective of a decode step and
+   step time (the wire goes through host memory and the ranks
+   time-slice one card: not multi-GPU figures); and the decode-attention
+   kernel's partial output (a shard's max, sum and unnormalised output)
+   at Llama-4's shard shape (B 4, 40 heads on 8, hd 128, 512 of 1024
+   slots) held to its plain version and timed beside it and SDPA;
 
 13. print the card's name and power limit, one JSON line with every
     kernel's launches per path, error, times and bound (Collect's
-    launches are the route-pack launches that ran its body), then the
-    final ``{"ok": true, ...}`` line.
+    launches are the route-pack launches that ran its body; the partial
+    decode attention's are R2's), then the final ``{"ok": true, ...}``
+    line.
 """
 from __future__ import annotations
 
@@ -393,9 +428,12 @@ LLAMA_PROMPTS_EPLB = ["After the swap", "a hot expert has", "two replicas",
 DEEPSEEK, LLAMA = "deepseek-v3-671b", "llama4-maverick-400b-a17b"
 DEEPSEEK_INT8, LLAMA_INT8_KV = DEEPSEEK + "/int8", LLAMA + "/int8-kv"
 KERNELS = ("route_pack", "gmm", "placement_gmm", "decode_attention",
-           "quant_dispatch", "int8_matmul", "collect")
+           "quant_dispatch", "int8_matmul", "collect",
+           "decode_attention_partial")
 SOURCES = {n: f"src/repro_torch/kernels/csrc/{n}.cu" for n in KERNELS}
 SOURCES["placement_gmm"] = SOURCES["gmm"]
+#: the partial output (m, l, unnormalised acc) of a sequence shard
+SOURCES["decode_attention_partial"] = SOURCES["decode_attention"]
 #: Collect's body: run by route-pack's count block on the path, and by
 #: the standalone launch of csrc/collect.cu
 SOURCES["collect"] = "src/repro_torch/kernels/csrc/collect.cuh"
@@ -406,10 +444,13 @@ REPLACES = {"route_pack": "src/repro/kernels/route_pack/kernel.py:105",
                                 "kernel.py:67",
             "quant_dispatch": "src/repro/kernels/quant_dispatch/kernel.py:30",
             "int8_matmul": "src/repro/kernels/int8_matmul/kernel.py:38",
-            "collect": "src/repro/kernels/collect/kernel.py:38"}
+            "collect": "src/repro/kernels/collect/kernel.py:38",
+            "decode_attention_partial": "src/repro/kernels/"
+                                        "decode_attention/kernel.py:67"}
 #: the path whose measurements each kernel's entry of the kernels line
 #: carries (every path's own are under ``by_path``)
-TIMED_ON = {"quant_dispatch": DEEPSEEK_INT8, "int8_matmul": DEEPSEEK_INT8}
+TIMED_ON = {"quant_dispatch": DEEPSEEK_INT8, "int8_matmul": DEEPSEEK_INT8,
+            "decode_attention_partial": LLAMA + "/R2-1x2"}
 #: the INT8 stage's token counts M: a DP group's decode batch, the
 #: unpadded first prompt, its padded prefill bucket, and a 512 bucket
 INT8_M = (4, 37, 64, 512)
@@ -443,43 +484,115 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
+#: launches of the pad kernel at each end of a profiler window
+#: (:func:`device_window`)
+PAD_LAUNCHES = 256
+#: the pad kernel's name under the profiler, found on first use
+PAD_KERNEL = []
+#: every :func:`device_window` of the run: windows opened, the most pad
+#: events one window lost; and of the :func:`profile_calls` windows, the
+#: ones profiled again and the ones whose last try still showed fewer
+#: device kernels per call than the wrappers counted
+WINDOWS = {"windows": 0, "pads_lost_max": 0, "calls": 0, "retried": 0,
+           "short": 0}
+
+
+def _pad() -> None:
+    for _ in range(PAD_LAUNCHES):
+        torch.cuda._sleep(1)
+
+
+def _cuda_events(prof) -> list:
+    return [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.count]
+
+
+@contextlib.contextmanager
+def device_window(activities=None):
+    """A ``torch.profiler`` window (device activity only by default)
+    whose work is framed by :data:`PAD_LAUNCHES` launches of torch's
+    spin kernel (``torch.cuda._sleep``) after the window opens and again
+    after the work has synchronised. The profiler loses a window's first
+    or last kernel events, more as the process ages, whatever the time
+    the window is held open (``tools/profiler_drops.py``: 0-1 of 60 at
+    first, 10 after the DeepSeek-V3 stages; 50 ms of host time at each
+    end kept none of them): the pads take that loss. Yields a namespace
+    whose ``events``, set when the window closes, are the window's CUDA
+    events without the pads', and ``pads_lost`` the pad events the
+    profiler lost."""
+    import types
+
+    from torch.profiler import ProfilerActivity, profile
+
+    if not PAD_KERNEL:                  # early in the run: nothing lost
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _pad()
+            torch.cuda.synchronize()
+        names = {e.key for e in _cuda_events(prof)}
+        check(len(names) == 1, f"the pad kernel alone in its window "
+                               f"({names})")
+        PAD_KERNEL.append(names.pop())
+    w = types.SimpleNamespace(events=None, pads_lost=None)
+    with profile(activities=activities or [ProfilerActivity.CUDA]) as prof:
+        _pad()
+        yield w
+        torch.cuda.synchronize()
+        _pad()
+        torch.cuda.synchronize()
+    ev = _cuda_events(prof)
+    w.events = [e for e in ev if e.key != PAD_KERNEL[0]]
+    w.pads_lost = 2 * PAD_LAUNCHES - sum(e.count for e in ev
+                                         if e.key == PAD_KERNEL[0])
+    WINDOWS["windows"] += 1
+    WINDOWS["pads_lost_max"] = max(WINDOWS["pads_lost_max"], w.pads_lost)
+
+
 def profile_calls(fn, reps: int = 20, warm: int = 3, tries: int = 6) -> dict:
     """``fn`` under ``torch.profiler`` over ``reps`` calls after warm-up:
     ``device_ms``, the CUDA kernels' own time per call, ``per_call``, the
     device kernels and memsets per call, and their ``names``, all from
-    one window. Unlike :func:`time_ms` the time leaves out the host's
-    launch work, which sets the event-timed figure of a call shorter than
-    its launch cost. The profiler drops a single event now and then, so
-    each kernel counts as its mean time times its launches per call (its
-    count over ``reps``, rounded); more rarely it records nothing in a
-    window, or drops most of one kernel's events (seen in fewer than
-    half the calls), and the window is then profiled again, up to
-    ``tries`` times, each retry a little later than the last (one run
-    lost three windows in a row). After that the last window that
-    recorded anything is returned, or every figure is None: "not
-    measured", never 0."""
-    from torch.profiler import ProfilerActivity, profile
+    one window (:func:`device_window`). Unlike :func:`time_ms` the time
+    leaves out the host's launch work, which sets the event-timed figure
+    of a call shorter than its launch cost. The profiler drops a single
+    event now and then, so each kernel counts as its mean time times its
+    launches per call (its count over ``reps``, rounded); more rarely it
+    records nothing in a window, drops most of one kernel's events (seen
+    in half the calls or fewer), or loses every pad event at one end of
+    the window, and the window is then profiled again, up to ``tries``
+    times, each retry a little later than the last. After that the last
+    window that recorded anything is returned, or every figure is None:
+    "not measured", never 0.
+    ``counted_per_call``: the launches the port's wrappers counted per
+    call in the same window (0 for a library call)."""
+    from repro_torch.kernels import runtime
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    got = dict(device_ms=None, per_call=None, names=[])
+    got = dict(device_ms=None, per_call=None, names=[],
+               counted_per_call=None)
+    WINDOWS["calls"] += 1
     for attempt in range(tries):
         time.sleep(0.25 * attempt)       # spread the retries out in time
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        WINDOWS["retried"] += attempt == 1
+        before = sum(runtime.LAUNCHES.values())
+        with device_window() as w:
             for _ in range(reps):
                 fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA" and e.count]
+        counted = (sum(runtime.LAUNCHES.values()) - before) / reps
+        ev = w.events
         total = sum(e.self_device_time_total / e.count
                     * max(1, round(e.count / reps)) for e in ev)
         if total > 0:
             got = dict(device_ms=total / 1e3,
                        per_call=round(sum(e.count for e in ev) / reps, 2),
-                       names=sorted(e.key for e in ev))
-            if all(2 * e.count >= reps for e in ev):
-                return got
+                       names=sorted(e.key for e in ev),
+                       counted_per_call=counted)
+            if (w.pads_lost < PAD_LAUNCHES
+                    and all(2 * e.count > reps for e in ev)):
+                break
+    WINDOWS["short"] += bool(got["per_call"] is None
+                             or got["per_call"] < counted)
     return got
 
 
@@ -490,13 +603,17 @@ def device_ms(fn, reps: int = 20, warm: int = 3):
 
 def one_launch(prof: dict, name: str, what: str) -> None:
     """Hold a :func:`profile_calls` window to one device kernel per call,
-    the kernel ``name``: no memset, fill or second kernel beside it."""
+    the kernel ``name``: no memset, fill or second kernel beside it, and
+    one launch per call by the wrapper's own count in the same window."""
     check(prof["per_call"] is not None and prof["device_ms"] is not None,
           f"{what}: measured under the profiler")
     check(len(prof["names"]) == 1 and round(prof["per_call"]) == 1
           and name in prof["names"][0],
           f"{what}: one launch per call, got {prof['per_call']} of "
           f"{prof['names']}")
+    check(prof["counted_per_call"] == 1,
+          f"{what}: one counted launch per call, got "
+          f"{prof['counted_per_call']}")
 
 
 def profile_turns(fa, fb, reps: int = 20, warm: int = 3,
@@ -507,20 +624,16 @@ def profile_turns(fa, fb, reps: int = 20, warm: int = 3,
     its own first: the two must launch kernels of different names). A
     window that misses a kernel is profiled again, up to ``tries``
     times. Returns (a ms, b ms, a's window, b's window)."""
-    from torch.profiler import ProfilerActivity, profile
-
     pa, pb = profile_calls(fa, warm=warm), profile_calls(fb, warm=warm)
     na, nb = set(pa["names"]), set(pb["names"])
     check(bool(na) and bool(nb) and not na & nb,
           f"profile_turns: kernels told apart by name ({na} and {nb})")
     for attempt in range(tries):
         time.sleep(0.25 * attempt)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_window() as w:
             for i in range(2 * reps):
                 (fa, fb)[(i + i // 2) % 2]()
-            torch.cuda.synchronize()
-        ev = {e.key: e for e in prof.key_averages()
-              if e.device_type.name == "CUDA" and e.count}
+        ev = {e.key: e for e in w.events}
         if na | nb <= set(ev):
             break
     check(na | nb <= set(ev), f"profile_turns: {na | nb} recorded")
@@ -583,9 +696,10 @@ def pack_err(a, b, what: str) -> float:
             continue
         check(ta.shape == tb.shape and ta.dtype == tb.dtype,
               f"{what}: {name} shape and dtype")
-        if ta.numel():
+        if ta.numel() and not torch.equal(ta, tb):
             err = max(err, (ta.double() - tb.double()).abs().max().item())
-        check(torch.equal(ta, tb), f"{what}: {name} exact")
+        check(torch.equal(ta, tb), f"{what}: {name} exact (max abs "
+                                   f"difference {err})")
     return err
 
 
@@ -1455,7 +1569,7 @@ def profile_decode(engine, steps: int = 4,
     it adds little host time), and the host clock and the device busy
     are both read from that one window: ``overhead_step_ms`` and
     ``overhead_busy_ms`` (stage P's ``decode/iter_overhead`` row)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from repro_torch.serving.request import Request
 
@@ -1473,17 +1587,15 @@ def profile_decode(engine, steps: int = 4,
         engine.step()
     torch.cuda.synchronize()
     wall = (time.monotonic() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_window([ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as w:
         t0 = time.monotonic()
         for _ in range(steps):
             engine.step()
         torch.cuda.synchronize()
         prof_wall = (time.monotonic() - t0) / steps * 1e3
     kernels = sorted(((e.key, e.self_device_time_total / 1e3 / steps)
-                      for e in prof.key_averages()
-                      if e.device_type.name == "CUDA"
-                      and e.self_device_time_total > 0),
+                      for e in w.events if e.self_device_time_total > 0),
                      key=lambda kv: -kv[1])
     busy = sum(ms for _, ms in kernels)
     attention = sum(ms for k, ms in kernels if "decode_attention" in k)
@@ -1493,15 +1605,14 @@ def profile_decode(engine, steps: int = 4,
     if overhead_window:
         check(all(d.active == d.max_batch for d in engine.dps),
               "every slot decoding in the overhead window")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_window() as w:
             t0 = time.monotonic()
             for _ in range(steps):
                 engine.step()
             torch.cuda.synchronize()
             step_ms = (time.monotonic() - t0) / steps * 1e3
         busy_ms = sum(e.self_device_time_total / 1e3 / steps
-                      for e in prof.key_averages()
-                      if e.device_type.name == "CUDA")
+                      for e in w.events)
         check(0 < busy_ms <= step_ms, f"overhead window: device busy "
               f"{busy_ms} ms per step within its {step_ms} ms")
         window = dict(overhead_step_ms=step_ms, overhead_busy_ms=busy_ms)
@@ -2368,17 +2479,16 @@ def pd_small_reference() -> None:
     greedy tokens."""
     from repro_torch.configs import get_config
     from repro_torch.core import DisaggregatedPD
-    from repro_torch.models.common import tree_map
     from repro_torch.models.transformer import Model
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparison
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_config(DEEPSEEK + "-smoke"),
                               dtype="float32")
-    cpu_params = Model(cfg).init(0, device="cpu")
     out = []
     for dev in ("cpu", "cuda"):
-        pd = DisaggregatedPD(cfg, tree_map(lambda t: t.to(dev), cpu_params),
+        # one seed, the same weights on either device
+        pd = DisaggregatedPD(cfg, Model(cfg).init(0, device=dev),
                              device=dev, kv_pool=True, **PD_KW)
         rec = PDRecorder(pd)
         reqs = serve_pd(pd, PD_WAVES, 8)
@@ -2559,19 +2669,18 @@ def step_profile(fn, steps: int = 4) -> dict:
     """``fn`` (one decode step) ``steps`` times under ``torch.profiler``:
     device busy ms per step (the CUDA kernels' own time), the host-clock
     ms per step of the same window, and the device's idle share."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_window([ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as w:
         t0 = time.monotonic()
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
         wall = (time.monotonic() - t0) / steps * 1e3
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / 1e3 / steps
+    busy = sum(e.self_device_time_total for e in w.events) / 1e3 / steps
     check(0 < busy <= wall, f"device busy {busy} ms within the profiled "
                             f"step's {wall} ms")
     return dict(device_busy_ms=busy, profiled_step_ms=wall,
@@ -2957,11 +3066,9 @@ def moe_attn_small_reference() -> None:
     maps[moe_layers(cfg)[0]] = ExpertMap(E, {1: [1, E], 2: [2, E + 1]})
     table = build_placement_table(maps, E, pad_physical=E + 2,
                                   pad_replicas=2)
-    cpu_params = Model(cfg).init(0, device="cpu")
     out = {}
     for dev in ("cpu", "cuda"):
-        be = TorchBackend(Model(cfg), tree_map(lambda t: t.to(dev),
-                                               cpu_params),
+        be = TorchBackend(Model(cfg), Model(cfg).init(0, device=dev),
                           max_len=64, device=dev)
         tab = PlacementTable(*(torch.as_tensor(a, dtype=torch.int32,
                                                device=dev)
@@ -2998,16 +3105,14 @@ def launcher_stage() -> dict:
     """Stage G: ``repro_torch.launch.serve.main`` in-process on the card,
     first as ``--arch deepseek-v3-671b`` and no other flag (the smoke
     config in bf16, 16 greedy tokens), then in both modes on the smoke
-    DeepSeek-V3 in float32 with its weights made on the CPU from the
-    seed: the printed lines, and the token ids behind them, equal the
-    CPU's."""
+    DeepSeek-V3 in float32, its weights made from the seed on either
+    device (the same weights): the printed lines, and the token ids
+    behind them, equal the CPU's."""
     import io
     from unittest import mock
 
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as launch
-    from repro_torch.models.common import tree_map
-    from repro_torch.models.transformer import Model
     from repro_torch.serving.tokenizer import ByteTokenizer
 
     ids = []
@@ -3036,17 +3141,12 @@ def launcher_stage() -> dict:
     default_s = time.monotonic() - t0
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparison
     torch.backends.cudnn.allow_tf32 = False
-    real_init = Model.init
-
-    def cpu_init(self, seed=0, *, device="cuda"):
-        return tree_map(lambda t: t.to(device),
-                        real_init(self, seed, device="cpu"))
 
     def f32(name):
         return dataclasses.replace(get_config(name), dtype="float32")
     res = dict(default_lines=lines, default_s=default_s)
-    with mock.patch.object(launch, "get_config", f32), \
-            mock.patch.object(Model, "init", cpu_init):
+    # one seed gives the card and the CPU the same weights
+    with mock.patch.object(launch, "get_config", f32):
         for mode in ("colocated", "pd-disagg"):
             got = {}
             for dev in ("cpu", "cuda"):
@@ -3085,7 +3185,6 @@ def check_small_reference(arch: str, **overrides):
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.models.common import tree_map
     from repro_torch.models.transformer import Model, seeded_memory
     from repro_torch.serving.flowserve import FlowServeEngine
 
@@ -3094,11 +3193,10 @@ def check_small_reference(arch: str, **overrides):
     cfg = dataclasses.replace(get_config(arch + "-smoke"), dtype="float32",
                               **overrides)
     outs, blocks, tables = {}, {}, {}
-    cpu_params = Model(cfg).init(0, device="cpu")
     mem = (seeded_memory(cfg, torch.Generator().manual_seed(5), "cpu",
                          torch.float32) if Model(cfg).has_cross else None)
     for dev in ("cpu", "cuda"):
-        params = tree_map(lambda t: t.to(dev), cpu_params)
+        params = Model(cfg).init(0, device=dev)
         for k in (0, 2) if cfg.mtp_num_layers else (0,):
             eng = FlowServeEngine(cfg, params, device=dev, n_dp_groups=2,
                                   max_batch=2, mtp_k=k, memory=mem)
@@ -3642,8 +3740,12 @@ def deepseek_stages(get_config) -> dict:
 
     t0 = time.monotonic()
     moe_attn = moe_attn_stage(engine.dps[0].backend)
-    del engine
     free(f"MoE-Attention: {time.monotonic() - t0:.1f} s")
+
+    t0 = time.monotonic()
+    r0 = r0_init(cfg, engine.params)
+    del engine
+    free(f"R0: {time.monotonic() - t0:.1f} s")
 
     t0 = time.monotonic()
     check_small_reference(DEEPSEEK)
@@ -3652,7 +3754,8 @@ def deepseek_stages(get_config) -> dict:
     launch = launcher_stage()
     log(f"small reference and launcher: {time.monotonic() - t0:.1f} s")
     return {DEEPSEEK: (kern, path), DEEPSEEK + "/prefix": ({}, trio),
-            DEEPSEEK + "/pd": ({}, pd), **mtp,
+            DEEPSEEK + "/pd": ({}, pd),
+            DEEPSEEK + "/R0": ({}, dict(r0, launches={})), **mtp,
             DEEPSEEK + "/moe-attn": moe_attn,
             DEEPSEEK + "-smoke/launch": ({}, launch),
             DEEPSEEK_INT8: (int8.pop("kernels"), int8)}
@@ -4138,6 +4241,9 @@ def check_memory_attention(get_config) -> dict:
           and all("decode_attention" in n for n in prof["names"]),
           f"decode_attention: each of the {len(calls)} checks one launch "
           f"under the profiler, got {prof['per_call']} of {prof['names']}")
+    check(prof["counted_per_call"] == len(calls),
+          f"decode_attention: each of the {len(calls)} checks one counted "
+          f"launch, got {prof['counted_per_call']}")
     log(f"decode_attention: the {len(calls)} checks' calls are "
         f"{prof['per_call']} device kernels per round ({prof['names']})")
 
@@ -4265,7 +4371,6 @@ def train_parity(device: str = "cuda") -> dict:
     from repro_torch.kernels import runtime
     from repro_torch.kernels.gmm.ops import expert_ffn
     from repro_torch.kernels.route_pack.ops import fused_route_pack
-    from repro_torch.models.common import tree_map
     from repro_torch.models.transformer import Model, seeded_memory
     from repro_torch.models.weights import flatten
     from repro_torch.train import AdamWConfig, adamw_update, init_adamw
@@ -4280,7 +4385,6 @@ def train_parity(device: str = "cuda") -> dict:
         cfg = dataclasses.replace(get_config(arch + "-smoke"),
                                   dtype="float32", **kw)
         model = Model(cfg)
-        cpu_params = model.init(0, device="cpu")
         gen = torch.Generator().manual_seed(7)
         toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen)
         mask = (torch.rand((B, S), generator=gen) > 0.1).float()
@@ -4288,7 +4392,7 @@ def train_parity(device: str = "cuda") -> dict:
                if model.has_cross else None)
         res = {}
         for dev in ("cpu", device):
-            params = tree_map(lambda t: t.to(dev), cpu_params)
+            params = model.init(0, device=dev)     # one seed, same weights
             runtime.reset_launch_counts()
             (loss, met), grads = loss_and_grads(
                 model, params, toks[:, :-1].to(dev), toks[:, 1:].to(dev),
@@ -4349,8 +4453,6 @@ def train_run(cfg, steps: int, B: int, S: int, what: str,
     ``steps``) for ``steps`` steps of B × S tokens, logging every step;
     after :data:`TRAIN_WARM` steps the rest run under a profiler that
     records device activity only. → (rows, timing dict, trainer)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels import runtime
     from repro_torch.models.weights import flatten
     from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig,
@@ -4383,15 +4485,13 @@ def train_run(cfg, steps: int, B: int, S: int, what: str,
     tr.tcfg.steps = TRAIN_WARM
     tr.run(on_log=on_log)
     tr.tcfg.steps, last[0] = steps, 0.0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_window() as w:
         tr.run(on_log=on_log)
         torch.cuda.synchronize()
     no_kernel_launched(what)
     n_prof = steps - TRAIN_WARM
     kernels = sorted(((e.key, e.self_device_time_total / 1e3 / n_prof)
-                      for e in prof.key_averages()
-                      if e.device_type.name == "CUDA"
-                      and e.self_device_time_total > 0),
+                      for e in w.events if e.self_device_time_total > 0),
                      key=lambda kv: -kv[1])
     busy = sum(ms for _, ms in kernels)
     step_ms = statistics.mean(host[TRAIN_WARM:])
@@ -4737,6 +4837,672 @@ def sim_stage(results: dict, smi: str) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# stage R: the multi-device layer (mesh context, sharding rules, XCCL)
+# ---------------------------------------------------------------------------
+R_B, R_S, R_L, R_STEPS, R_NEW = 4, 32, 64, 4, 8
+#: R2's meshes of two ranks: name → (shape, EP axis, the decode rules)
+R2_MESHES = {"2x1": ((2, 1), ("data", "model"), True),
+             "1x2": ((1, 2), "model", False)}
+#: R2's models: arch → depth (no MTP head)
+R2_MODELS = {DEEPSEEK: 4, LLAMA: 2}
+R2_PROMPTS = {DEEPSEEK: PROMPTS, LLAMA: LLAMA_PROMPTS[1:]}
+#: R2's control: a capacity factor at which no MoE pack of its logits
+#: drops an assignment on either side (the gather strategy everywhere)
+R2_NO_DROP_CF = 64.0
+R0_BLOCK = 1 << 20
+
+
+def r_inputs(cfg):
+    """Seeded tokens: [R_B, R_S] prompts and R_STEPS decode rounds."""
+    gen = torch.Generator().manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (R_B, R_S), generator=gen)
+    dec = torch.randint(0, cfg.vocab_size, (R_STEPS, R_B, 1), generator=gen)
+    return toks, dec
+
+
+@torch.no_grad()
+def r_logits(model, params, toks, dec) -> dict:
+    """Global logits (f32, on the host) of a prefill, of the same prompts
+    in two chunks, and of R_STEPS decode steps from the chunked cache."""
+    dev = "cuda"
+    toks, dec = toks.to(dev), dec.to(dev)
+    out = {"prefill": model.prefill(params, toks)[0].float().cpu()}
+    cache = model.init_cache(R_B, R_L, device=dev)
+    half = R_S // 2
+    last = torch.full((R_B,), half - 1, device=dev)
+    _, cache = model.prefill_chunk(params, cache, toks[:, :half], 0, last)
+    lc, cache = model.prefill_chunk(params, cache, toks[:, half:], half, last)
+    out["chunk"] = lc.float().cpu()
+    cache = model.place_cache(cache, R_B)
+    for i in range(R_STEPS):
+        ld, cache = model.decode_step(
+            params, cache, dec[i],
+            torch.full((R_B,), R_S + i, dtype=torch.int32, device=dev))
+        out[f"decode{i}"] = ld.float().cpu()
+    torch.cuda.synchronize()
+    return out
+
+
+def r0_init(cfg, params) -> dict:
+    """R0: the weights ``init(0, "cuda")`` made (the served engine's)
+    against ``init(0, "cpu")``, leaf by leaf, bit for bit: every element
+    of a leaf up to 4 Mi elements, and of a larger leaf three blocks of
+    about 1 Mi elements (its first, middle and last indices along the
+    first dim whose single index spans at most 16 Mi elements): the host
+    draws tens of ns an element, so a whole 15.8 B-parameter tree takes
+    it minutes."""
+    from repro_torch.launch.sharding import PSpec
+    from repro_torch.models.common import dense_init, embed_init, part_seed
+    from repro_torch.models.transformer import Model
+    from repro_torch.models.weights import flatten
+
+    model, flat = Model(cfg), flatten(params)
+    t0 = time.monotonic()
+    n_leaves = whole = compared = 0
+    for i, (path, s) in enumerate(flatten(model.param_spec()).items()):
+        card = flat[path]
+        n_leaves += 1
+        if card.numel() <= 4 * R0_BLOCK or s.init not in ("dense", "embed"):
+            cpu = model.init_leaf(0, i, s, PSpec(), "cpu")
+            check(torch.equal(card.cpu(), cpu), f"R0 {path}: card == CPU")
+            whole += 1
+            compared += cpu.numel()
+            continue
+        shape = tuple(s.shape)
+        k = next(d for d in range(len(shape))
+                 if math.prod(shape) // shape[d] <= 16 * R0_BLOCK)
+        one = math.prod(shape) // shape[k]
+        r = max(1, R0_BLOCK // one)
+        for lo in sorted({0, (shape[k] - r) // 2, shape[k] - r}):
+            blk = (shape, k, lo, lo + r)
+            if s.init == "embed":
+                cpu = embed_init(shape, s.dtype, part_seed(0, i), "cpu",
+                                 block=blk)
+            else:
+                cpu = dense_init(shape, s.dtype, s.fan_in, part_seed(0, i),
+                                 "cpu", block=blk)
+            check(torch.equal(card.narrow(k, lo, r).cpu(), cpu),
+                  f"R0 {path} [{lo}, {lo + r}) of dim {k}: card == CPU")
+            compared += cpu.numel()
+    total = sum(t.numel() for t in flat.values())
+    res = dict(leaves=n_leaves, leaves_whole=whole, elements=total,
+               elements_compared=compared, seconds=time.monotonic() - t0)
+    log(f"R0: init(0, 'cuda') == init(0, 'cpu') bit for bit on {n_leaves} "
+        f"leaves ({whole} whole; {compared / 1e6:.1f} M of "
+        f"{total / 1e9:.2f} B elements) in {res['seconds']:.1f} s")
+    return res
+
+
+R1_PROMPTS = {DEEPSEEK: PROMPTS, LLAMA: LLAMA_PROMPTS[1:]}
+
+
+def r1_rank(rank, world, init):
+    """R1 in a process of its own (the NCCL group stays out of the main
+    process): for DeepSeek-V3 (depth 4, its MTP head) and Llama-4 (depth
+    2), the seed's weights made on the card, :func:`r1_world_one`."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.models.mesh_ctx import MeshCtx
+    from repro_torch.models.transformer import Model
+
+    mesh = init_mesh((1, 1), "nccl", "cuda", rank=rank, world_size=world,
+                     init_method=init)
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",), remat="none")
+    out = {}
+    for arch, depth in ((DEEPSEEK, 4), (LLAMA, 2)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+        params = Model(cfg).init(0, device="cuda")
+        out[arch] = r1_world_one(cfg, params, R1_PROMPTS[arch], ctx)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def r1_world_one(cfg, params, prompts, ctx) -> dict:
+    """R1: world size 1 over NCCL — ``ctx`` on a live 1×1 mesh, its
+    process group NCCL's — on one set of weights: the mesh serves the
+    same greedy tokens with the same kernel launches as the one-device
+    engine, and gives bit-identical prefill, chunk and decode logits."""
+    from repro_torch.kernels import runtime
+    from repro_torch.serving.flowserve import FlowServeEngine
+
+    toks, dec = r_inputs(cfg)
+    out = {}
+    for name, c in (("one_device", None), ("mesh", ctx)):
+        eng = FlowServeEngine(cfg, params, device="cuda", n_dp_groups=2,
+                              max_batch=4, ctx=c)
+        check(eng.model.sharded == (c is not None),
+              f"R1 {name}: the {'mesh' if c else 'one-device'} path")
+        runtime.reset_launch_counts()
+        reqs, wall = serve(eng, prompts, R_NEW)
+        launches, fused = dict(runtime.LAUNCHES), dict(runtime.FUSED)
+        out[name] = dict(tokens=[list(r.output_tokens) for r in reqs],
+                         launches=launches, fused=fused, serve_s=wall,
+                         logits=r_logits(eng.model, params, toks, dec))
+        eng.close()
+        del eng
+    a, b = out["one_device"], out["mesh"]
+    check(a["tokens"] == b["tokens"], f"R1: the mesh path's greedy tokens "
+          f"are the one-device engine's: {a['tokens']} vs {b['tokens']}")
+    check(a["launches"] == b["launches"] and a["fused"] == b["fused"],
+          f"R1: the same kernel launches: {a['launches']} vs "
+          f"{b['launches']}")
+    for k in a["logits"]:
+        check(torch.equal(a["logits"][k], b["logits"][k]),
+              f"R1: {k} logits bit-identical")
+    res = dict(tokens=a["tokens"], launches=a["launches"],
+               serve_s=[a["serve_s"], b["serve_s"]],
+               logits_compared=sorted(a["logits"]))
+    log(f"R1 {cfg.name}: a live 1x1 NCCL mesh serves the one-device "
+        f"engine's tokens with its launches {a['launches']}; prefill, "
+        f"chunk and {R_STEPS} decode logits bit-identical")
+    return res
+
+
+class Replayer:
+    """Stands in for the kernel wrappers that the ``ops`` modules call on
+    a rank of R2: each launch runs the kernel (counted by its wrapper),
+    then its plain version on the same inputs (uncounted), and holds the
+    two: route-pack exactly (its Collect counts too), the grouped FFNs
+    and decode attention within 3e-2 (bf16; decode attention's partial
+    output normalised by its own sum, and its max and sum beside it)."""
+
+    def __init__(self):
+        from repro_torch.kernels.decode_attention import ops as da_ops
+        from repro_torch.kernels.gmm import ops as gmm_ops
+        from repro_torch.kernels.route_pack import ops as rp_ops
+
+        self.mods = ((rp_ops, "route_pack_cuda", self.route_pack),
+                     (gmm_ops, "gmm_cuda", self.gmm),
+                     (da_ops, "decode_attention_cuda", self.attention))
+        self.real = {n: getattr(m, n) for m, n, _ in self.mods}
+        self.errs, self.calls = {}, {}
+        #: valid assignments the packs left out (over capacity)
+        self.drops = 0
+        #: False: pass the launches through, only counting drops
+        self.replay = True
+        #: each MoE layer call's routed expert ids [T, k] (the pack's
+        #: count ids), in call order
+        self.routes = []
+
+    def __enter__(self):
+        for m, n, fn in self.mods:
+            setattr(m, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, _ in self.mods:
+            setattr(m, n, self.real[n])
+
+    def note(self, name, err):
+        self.errs[name] = max(self.errs.get(name, 0.0), err)
+        self.calls[name] = self.calls.get(name, 0) + 1
+
+    def route_pack(self, x, dest, valid, eid, **kw):
+        from repro_torch.kernels.route_pack.ref import route_pack_ref
+
+        got = self.real["route_pack_cuda"](x, dest, valid, eid, **kw)
+        live = dest < kw["n_dest"]
+        if valid is not None:
+            live &= valid.bool()
+        self.drops += int((live & ~got.keep).sum())
+        if kw.get("count_ids") is not None:
+            self.routes.append(kw["count_ids"].view(-1, kw["k"]).cpu())
+        if not self.replay:
+            return got
+        self.note("route_pack", pack_err(
+            got, route_pack_ref(x, dest, valid, eid, **kw),
+            f"R2 route_pack T={x.shape[0]} n_dest={kw['n_dest']}"))
+        if kw.get("count_ids") is not None:
+            self.note("collect", 0.0)
+        return got
+
+    def gmm(self, b, wg, wu, wd, own=None):
+        from repro_torch.kernels.gmm.ref import gmm_ref, placement_gmm_ref
+
+        got = self.real["gmm_cuda"](b, wg, wu, wd, own)
+        if not self.replay:
+            return got
+        want = (gmm_ref(b, wg, wu, wd) if own is None
+                else placement_gmm_ref(b, wg, wu, wd, own))
+        err = (got - want).abs().max().item() if got.numel() else 0.0
+        name = "gmm" if own is None else "placement_gmm"
+        check(err <= 3e-2, f"R2 {name} {tuple(b.shape)}: max abs err {err}")
+        self.note(name, err)
+        return got
+
+    def attention(self, q, k, v, positions, *, window=0, partial=False):
+        from repro_torch.kernels.decode_attention.ref import (
+            decode_attention_partial_ref, decode_attention_ref)
+
+        got = self.real["decode_attention_cuda"](q, k, v, positions,
+                                                 window=window,
+                                                 partial=partial)
+        if not self.replay:
+            return got
+        what = f"R2 decode attention {tuple(k.shape)}"
+        if not partial:
+            err, _ = held_attention(got, decode_attention_ref(
+                q, k, v, positions, window=window), 3e-2, what)
+            self.note("decode_attention", err)
+            return got
+        acc, m, l = got
+        racc, rm, rl = decode_attention_partial_ref(q, k, v, positions,
+                                                    window=window)
+        err, _ = held_attention(acc / l.clamp(min=1e-30)[..., None],
+                                racc / rl.clamp(min=1e-30)[..., None],
+                                3e-2, what + " (partial)")
+        check(torch.equal(torch.isinf(m), torch.isinf(rm))
+              and float((m - rm).nan_to_num().abs().max()) <= 3e-2
+              and float(((l - rl).abs() / rl.clamp(min=1e-30)).max())
+              <= 3e-2, f"{what}: partial max and sum within 3e-2")
+        self.note("decode_attention_partial", err)
+        return got
+
+
+def r_logits_and_drops(model, params, toks, dec, rep,
+                       replay: bool = True) -> tuple:
+    """:func:`r_logits` and the assignments its MoE packs dropped; with
+    ``replay=False`` (the no-drop control, off the path) its launches
+    are not replayed on the plain versions."""
+    before, rep.replay, rep.routes = rep.drops, replay, []
+    try:
+        out = r_logits(model, params, toks, dec)
+    finally:
+        rep.replay = True
+    return out, rep.drops - before, rep.routes
+
+
+def last_routes(routes: list) -> dict:
+    """The sorted expert set [R_B, k] of each row's last token in the MoE
+    layer (the models' only one, their last layer: a token's logits read
+    no other token's MoE output) for each of :func:`r_logits`' keys,
+    from one rank's route list: prefill, chunk 1, chunk 2, decode steps
+    (an all-to-all rank holds a block of the sequence: the last block's
+    rank gives prefill and chunk)."""
+    keys = ["prefill", None, "chunk"] + [f"decode{i}"
+                                         for i in range(R_STEPS)]
+    check(len(routes) == len(keys), f"R2: one MoE call per step "
+                                    f"({len(routes)})")
+    return {key: r.view(R_B, -1, r.shape[-1])[:, -1].sort(-1).values
+            for key, r in zip(keys, routes) if key}
+
+
+def routed_alike(ref: list, got: list, alltoall: bool) -> dict:
+    """key → [R_B] bool: rows whose last token went to the same experts
+    on one device and on the ranks (``got``: each rank's routes)."""
+    want = last_routes(ref)
+    mine = last_routes(got[0])
+    if alltoall:                 # prefill and chunk: the last seq block
+        last = last_routes(got[-1])
+        mine.update(prefill=last["prefill"], chunk=last["chunk"])
+    return {k: (want[k] == mine[k]).all(-1) for k in want}
+
+
+def no_drop(cfg):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=R2_NO_DROP_CF))
+
+
+@torch.no_grad()
+def r_pinned_logits(cfg, params, toks, dec, routes) -> dict:
+    """:func:`r_logits` of the no-drop control on one device with each
+    decode step's MoE routing pinned to ``routes`` (one rank's no-drop
+    routes, in call order, as :func:`last_routes` reads them): the expert
+    ids the ranks chose for every row, weighted by this device's router
+    probabilities at those ids. The witness that a row routed otherwise
+    moves only by its routing."""
+    from repro_torch.models import ffn
+    from repro_torch.models.transformer import Model
+
+    check(len(routes) == 3 + R_STEPS, f"R2: one MoE call per step "
+                                      f"({len(routes)})")
+    pins = iter([None] * 3 + list(routes[3:]))
+    real = ffn._route
+
+    def route(x_flat, router_w, top_k):
+        idx, w, probs, logits = real(x_flat, router_w, top_k)
+        pin = next(pins)
+        if pin is not None:
+            check(tuple(pin.shape) == tuple(idx.shape),
+                  f"R2 pinned routes {tuple(pin.shape)} for "
+                  f"{tuple(idx.shape)}")
+            idx = pin.to(device=idx.device, dtype=idx.dtype)
+            w = probs.gather(-1, idx)
+            w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+        return idx, w, probs, logits
+    ffn._route = route
+    try:
+        return r_logits(Model(no_drop(cfg)), params, toks, dec)
+    finally:
+        ffn._route = real
+
+
+def r2_rank(rank, world, init, cases, inputs):
+    """One rank of R2 (a process; the two share the card over gloo): for
+    each (arch, mesh) of ``cases``, the model's blocks made from the seed
+    on this rank, every kernel launch replayed on its plain version
+    (:class:`Replayer`), greedy serving with the launch counts set to 0
+    just before and read just after, then the global logits of
+    :func:`r_logits` (and of the no-drop control, :data:`R2_NO_DROP_CF`
+    and the gather strategy, on the same weights), the bytes each
+    collective moves in one decode step, and this process's peak
+    memory."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.models.mesh_ctx import MeshCtx
+    from repro_torch.models.transformer import Model
+    from repro_torch.models.weights import flatten
+    from repro_torch.serving.flowserve import FlowServeEngine
+
+    out, meshes = {}, {}
+    for arch, mname in cases:
+        shape, ep, decode_rules = R2_MESHES[mname]
+        if shape not in meshes:
+            meshes[shape] = init_mesh(shape, "gloo", "cuda", rank=rank,
+                                      world_size=world, init_method=init)
+        mesh = meshes[shape]
+        ctx = MeshCtx(mesh=mesh, batch_axes=("data",), remat="none",
+                      ep_axis=ep)
+        rules = shd.DECODE_RULES if decode_rules else None
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=R2_MODELS[arch],
+                                  mtp_num_layers=0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        eng = FlowServeEngine(cfg, device="cuda", n_dp_groups=2,
+                              max_batch=R_B, seed=0, ctx=ctx, rules=rules)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        held = sum(t.numel() for t in flatten(eng.params).values())
+        with Replayer() as rep:
+            runtime.reset_launch_counts()
+            mesh.comm.sent.clear()
+            mesh.comm.staged.clear()
+            reqs, wall = serve(eng, R2_PROMPTS[arch], R_NEW)
+            launches, fused = dict(runtime.LAUNCHES), dict(runtime.FUSED)
+            replayed = dict(rep.calls)
+            serve_sent = dict(mesh.comm.sent)
+            toks, dec = inputs[arch]
+            logits, drops, routes = r_logits_and_drops(
+                eng.model, eng.params, toks, dec, rep)
+            control = Model(no_drop(cfg), ctx=dataclasses.replace(
+                ctx, moe_impl="gather"), rules=rules)
+            nd_logits, nd_drops, nd_routes = r_logits_and_drops(
+                control, eng.params, toks, dec, rep, replay=False)
+        # the wire of one decode step of R_B rows: from a placed cache
+        cache = eng.model.place_cache(
+            eng.model.prefill_chunk(
+                eng.params, eng.model.init_cache(R_B, R_L, device="cuda"),
+                toks.cuda(), 0,
+                torch.full((R_B,), R_S - 1, device="cuda"))[1], R_B)
+        mesh.comm.sent.clear()
+        mesh.comm.staged.clear()
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        with torch.no_grad():
+            eng.model.decode_step(eng.params, cache, dec[0].cuda(),
+                                  torch.full((R_B,), R_S, dtype=torch.int32,
+                                             device="cuda"))
+        torch.cuda.synchronize()
+        step_s = time.monotonic() - t1
+        out[(arch, mname)] = dict(
+            tokens=[list(r.output_tokens) for r in reqs], logits=logits,
+            drops=drops, no_drop_logits=nd_logits, no_drop_drops=nd_drops,
+            routes=routes, no_drop_routes=nd_routes,
+            launches=launches, fused=fused, replay_err=rep.errs,
+            replayed=replayed, params_held=held, init_s=init_s,
+            serve_s=wall, serve_sent=serve_sent,
+            step_sent=dict(mesh.comm.sent),
+            step_staged=dict(mesh.comm.staged), step_s=step_s,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        eng.close()
+        del eng, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_partial_attention() -> dict:
+    """The decode-attention kernel's partial output at a shard's shape:
+    Llama-4 decode, B 4, 40 heads on 8 KV heads, hd 128, bf16, 512 of the
+    cache's 1024 slots on each of 2 ranks (this rank the second, every
+    slot valid): held to its plain version, timed (CUDA events and device
+    time, one launch per call) beside the plain version and SDPA on the
+    same shard (SDPA returns no max or sum, so it is not a partial), and
+    its bytes bound at 3.35 TB/s."""
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_partial_ref
+
+    B, H, KV, hd, L = 4, 40, 8, 128, 512
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn((B, H, hd), generator=gen).to(torch.bfloat16).cuda()
+    k = torch.randn((B, L, KV, hd), generator=gen).to(torch.bfloat16).cuda()
+    v = torch.randn((B, L, KV, hd), generator=gen).to(torch.bfloat16).cuda()
+    pos = torch.full((B,), 1023 - 512, dtype=torch.int32, device="cuda")
+
+    def kernel():
+        return decode_attention_cuda(q, k, v, pos, partial=True)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            enable_gqa=True)
+    acc, m, l = kernel()
+    racc, rm, rl = decode_attention_partial_ref(q, k, v, pos)
+    err, scaled = held_attention(acc / l[..., None], racc / rl[..., None],
+                                 3e-2, "partial at the Llama-4 shard")
+    check(torch.equal(kernel()[0], acc), "partial: a repeat bit-identical")
+    prof = profile_calls(kernel)
+    one_launch(prof, "decode_attention_kernel", "partial at the Llama-4 "
+                                                "shard")
+    ms, lib_ms = time_pair(kernel, sdpa)
+    bnd, by = bound_ms(nbytes(q, k, v, pos) + nbytes(acc, m, l),
+                       4 * B * L * H * hd)
+    res = dict(ms=ms, device_ms=prof["device_ms"],
+               plain_ms=time_ms(lambda: decode_attention_partial_ref(
+                   q, k, v, pos), reps=5, warm=1),
+               library_ms=lib_ms, library_device_ms=device_ms(sdpa),
+               library_returns_lse=False, bound_ms=bnd, bound_by=by,
+               max_abs_err=err, scaled_err=scaled,
+               profiled_per_call=prof["per_call"],
+               shape=dict(B=B, H=H, KV=KV, hd=hd, L=L, of=2 * L))
+    log(f"decode attention partial [{B},{H},{KV},{hd}] x {L} slots: "
+        f"{ms:.4f} ms (device {prof['device_ms']}), plain "
+        f"{res['plain_ms']:.4f}, SDPA {lib_ms:.4f} (device "
+        f"{res['library_device_ms']}; no max or sum), bound {bnd:.4f} ms "
+        f"({by}); err {err:.3g}")
+    return res
+
+
+def r2_stage(get_config) -> dict:
+    """R1 (:func:`r1_rank`, spawned), then R2: two ranks as two
+    processes sharing the card over gloo (NCCL
+    refuses two ranks on one device), DeepSeek-V3 (depth 4, no MTP head)
+    and Llama-4 (depth 2) at full width on (2,1) — DP attention, EP 2
+    under ``DECODE_RULES`` — and (1,2) — TP 2, the KV cache's slots
+    sharded, all-to-all prefill. Each rank's kernel launches are
+    replayed on their plain versions, and the ranks' greedy tokens must
+    be identical (their agreement with the one-device engine's is
+    reported). The two-rank logits against a one-device model's on the
+    same seeded weights, bar 0.08 relative
+    (``tests/test_decode_consistency.py``'s): the decode steps' at the
+    configuration's capacity factor; every logit (prefill, chunk,
+    decode) of the no-drop control, where no pack on either side drops
+    an assignment. At the configuration's capacity the two sides drop
+    different assignments by the reference's rules (capacity per shard
+    with a 4x margin in the sharded gather, whose masked rows take slots
+    of local expert 0; per destination rank in the all-to-all), so the
+    prefill and chunk logits are reported beside the assignments each
+    side dropped. The witness for the rows a bf16 near-tie routes
+    otherwise: the no-drop control on one device with each decode step's
+    routing pinned to the ranks' (:func:`r_pinned_logits`), every row of
+    every logit within 0.08. Times are not multi-GPU numbers: the wire
+    goes through host memory and the ranks time-slice one card."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.flowserve import FlowServeEngine
+
+    inputs, want = {}, {}
+    for arch, depth in R2_MODELS.items():
+        cfg = dataclasses.replace(get_config(arch), num_layers=depth,
+                                  mtp_num_layers=0)
+        inputs[arch] = r_inputs(cfg)
+        eng = FlowServeEngine(cfg, device="cuda", n_dp_groups=2,
+                              max_batch=R_B, seed=0)
+        with Replayer() as rep:
+            reqs, _ = serve(eng, R2_PROMPTS[arch], R_NEW)
+            logits, drops, routes = r_logits_and_drops(
+                eng.model, eng.params, *inputs[arch], rep)
+            nd_logits, nd_drops, nd_routes = r_logits_and_drops(
+                Model(no_drop(cfg)), eng.params, *inputs[arch], rep,
+                replay=False)
+        check(nd_drops == 0, f"R2 {arch}: the control drops nothing on "
+                             f"one device ({nd_drops})")
+        want[arch] = dict(tokens=[list(r.output_tokens) for r in reqs],
+                          logits=logits, drops=drops, routes=routes,
+                          no_drop_logits=nd_logits, no_drop_routes=nd_routes)
+        eng.close()
+        del eng
+        free(f"R2 one-device reference {arch}")
+    partial = check_partial_attention()
+    t0 = time.monotonic()
+    r1 = spawn(r1_rank, 1, threads=8)[0]
+    log(f"R1 in its own process: {time.monotonic() - t0:.1f} s")
+    cases = [(a, m) for a in R2_MODELS for m in R2_MESHES]
+    t0 = time.monotonic()
+    ranks = spawn(r2_rank, 2, cases, inputs, threads=4)
+    spawn_s = time.monotonic() - t0
+    results = {}
+    for arch, mname in cases:
+        got = [r[(arch, mname)] for r in ranks]
+        ref = want[arch]
+        check(all(g["tokens"] == got[0]["tokens"] for g in got),
+              f"R2 {arch} {mname}: every rank emits the same tokens")
+        alltoall = not R2_MESHES[mname][2]     # (1,2): prefill all-to-all
+
+        def rel(key, alike=None):
+            """key → the largest relative error of a row (over rows
+            routed alike where ``alike`` is given) across the ranks."""
+            out = {}
+            for k in ref[key]:
+                rows = (torch.ones(R_B, dtype=torch.bool) if alike is None
+                        else alike[k])
+                d = torch.stack([(g[key][k] - ref[key][k]).abs().amax(-1)
+                                 for g in got]).amax(0)
+                out[k] = float(d[rows].max() / ref[key][k].abs().max()) \
+                    if bool(rows.any()) else None
+            return out
+        errs = rel("logits")
+        alike = routed_alike(ref["routes"], [g["routes"] for g in got],
+                             alltoall)
+        nd_alike = routed_alike(ref["no_drop_routes"],
+                                [g["no_drop_routes"] for g in got], False)
+        flips = {k: int((~v).sum()) for k, v in nd_alike.items()}
+        nd_errs = rel("no_drop_logits", nd_alike)
+        check(all(g["no_drop_drops"] == 0 for g in got),
+              f"R2 {arch} {mname}: the control drops nothing on 2 ranks")
+        check(all(e is None or e <= 0.08 for e in nd_errs.values())
+              and sum(flips.values()) <= len(flips) * R_B // 4,
+              f"R2 {arch} {mname}: with no assignment dropped, prefill, "
+              f"chunk and decode logits of the rows routed alike within "
+              f"0.08 of one rank's: {nd_errs}; rows routed otherwise (a "
+              f"bf16 near-tie) {flips}")
+        dec_errs = rel("logits", alike)
+        dec_errs = {k: e for k, e in dec_errs.items()
+                    if k.startswith("decode")}
+        check(all(e is None or e <= 0.08 for e in dec_errs.values()),
+              f"R2 {arch} {mname}: decode logits of the rows routed alike "
+              f"within 0.08 of one rank's: {dec_errs} (all rows {errs})")
+        flat_a = sum(ref["tokens"], [])
+        flat_b = sum(got[0]["tokens"], [])
+        agree = sum(x == y for x, y in zip(flat_a, flat_b)) / len(flat_a)
+        launches = {k: sum(g["launches"].get(k, 0) for g in got)
+                    for k in set().union(*(g["launches"] for g in got))}
+        fused = {k: sum(g["fused"].get(k, 0) for g in got)
+                 for k in set().union(*(g["fused"] for g in got))}
+        kern = {}
+        for n in set().union(*(g["replay_err"] for g in got)):
+            kern[n] = dict(max_abs_err=max(g["replay_err"].get(n, 0.0)
+                                           for g in got))
+            check(sum(g["replayed"].get(n, 0) for g in got)
+                  == (fused if n == "collect" else launches).get(n, 0),
+                  f"R2 {arch} {mname}: every {n} launch replayed")
+        if "decode_attention_partial" in kern:
+            kern["decode_attention_partial"] = dict(
+                partial, max_abs_err=max(
+                    partial["max_abs_err"],
+                    kern["decode_attention_partial"]["max_abs_err"]))
+        path = dict(
+            launches=launches, fused=fused, logits_rel_err=errs,
+            no_drop_logits_rel_err=nd_errs,
+            no_drop_rows_routed_otherwise=flips,
+            decode_rel_err_routed_alike=dec_errs,
+            rows_routed_otherwise={k: int((~v).sum())
+                                   for k, v in alike.items()},
+            drops=dict(one_device=ref["drops"],
+                       ranks=[g["drops"] for g in got]),
+            token_agreement=agree, tokens=got[0]["tokens"],
+            ranks=[{k: g[k] for k in ("params_held", "init_s", "serve_s",
+                                      "serve_sent", "step_sent",
+                                      "step_staged", "step_s", "peak_gib",
+                                      "replay_err", "replayed")}
+                   for g in got])
+        results[f"{arch}/R2-{mname}"] = (kern, path)
+        log(f"R2 {arch} {mname}: logits rel err {errs} (assignments "
+            f"dropped: one device {ref['drops']}, ranks "
+            f"{[g['drops'] for g in got]}); no-drop control {nd_errs} "
+            f"(bar 0.08; rows routed otherwise {flips}); decode rows "
+            f"routed alike {dec_errs}; greedy tokens agree "
+            f"{agree:.3f} with one device; "
+            f"launches {launches}; per rank peak "
+            f"{[round(g['peak_gib'], 2) for g in got]} GiB, decode-step "
+            f"wire bytes {[g['step_sent'] for g in got]}, host-staged "
+            f"{[g['step_staged'] for g in got]}, step "
+            f"{[round(g['step_s'], 4) for g in got]} s (host wire, one "
+            f"time-sliced card)")
+    # the witness: the no-drop control with the ranks' decode routing
+    # pinned on one device, every row of every logit within the bar
+    for arch, depth in R2_MODELS.items():
+        cfg = dataclasses.replace(get_config(arch), num_layers=depth,
+                                  mtp_num_layers=0)
+        params = Model(cfg).init(0, device="cuda")
+        for mname in R2_MESHES:
+            got = [r[(arch, mname)] for r in ranks]
+            pinned = r_pinned_logits(cfg, params, *inputs[arch],
+                                     got[0]["no_drop_routes"])
+            errs = {k: max(float((g["no_drop_logits"][k] - v).abs().max()
+                                 / v.abs().max()) for g in got)
+                    for k, v in pinned.items()}
+            check(all(e <= 0.08 for e in errs.values()),
+                  f"R2 {arch} {mname}: every logit of the no-drop control "
+                  f"within 0.08 of one device's with the ranks' decode "
+                  f"routing: {errs}")
+            results[f"{arch}/R2-{mname}"][1][
+                "no_drop_pinned_rel_err"] = errs
+            log(f"R2 {arch} {mname}: no-drop control, every row, against "
+                f"one device with the ranks' decode routing pinned: "
+                f"{errs} (bar 0.08)")
+        del params
+        free(f"R2 pinned witness {arch}")
+    check(any("decode_attention_partial" in k for k, _ in results.values()),
+          "R2 launched the partial decode attention")
+    for arch, res in r1.items():
+        results[f"{arch}/R1"] = ({}, res)
+    log(f"R2: {len(cases)} cases on 2 ranks in {spawn_s:.1f} s")
+    return results
+
+
 def kernel_line(results: dict) -> dict:
     """One entry per kernel: launches per path (and their sum), the
     largest error of any path, and the times and bound of the path named
@@ -4798,11 +5564,19 @@ def main() -> int:
 
     results = {**deepseek_stages(get_config), **llama_stages(get_config),
                **hybrid_stages(get_config), **memory_stages(get_config)}
+    t0 = time.monotonic()
+    results.update(r2_stage(get_config))
+    free(f"R2: {time.monotonic() - t0:.1f} s")
     for p, (_, path) in results.items():
         log(json.dumps({"path": p, **{k: v for k, v in path.items()
                                       if k != "text"}}))
     train_stages(get_config)
     log(json.dumps({"simulator": sim_stage(results, smi)}))
+    log(f"profiler windows: {WINDOWS['windows']}, at most "
+        f"{WINDOWS['pads_lost_max']} of a window's {2 * PAD_LAUNCHES} pad "
+        f"events lost; profile_calls windows {WINDOWS['calls']}, profiled "
+        f"again {WINDOWS['retried']}, still fewer device kernels than "
+        f"counted launches {WINDOWS['short']}")
     print(smi)
     print(json.dumps({"kernels": kernel_line(results)}))
     print(json.dumps({"ok": True, "device": {

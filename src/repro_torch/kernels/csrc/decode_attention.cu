@@ -10,7 +10,10 @@
 //     out    = sum_l cast_T(p[l]) v[b, l, kvh] / max(sum_l p[l], 1e-30)
 // with p the exp-weights of an online softmax whose max is guarded (the
 // safe_m / corr rules of the TPU kernel: a fully masked range gives
-// zeros). Output is float32 [B, H, hd].
+// zeros). Output is float32 [B, H, hd]. The partial form (ml given)
+// serves a shard of a sequence-sharded cache: out is left unnormalised
+// and ml holds each row's (m, l), which the ranks combine by log-sum-exp
+// weights outside the kernel.
 //
 // What bounds it on the H100: bytes. Each K/V element read feeds 2 * G
 // multiply-adds, far below the card's ~295 bf16 operations per byte, so
@@ -540,7 +543,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ positions,
                         float* __restrict__ ws, int* __restrict__ tickets,
-                        float* __restrict__ out, int H, int G_kv, int gpb,
+                        float* __restrict__ out, float* __restrict__ ml,
+                        int H, int G_kv, int gpb,
                         int L, int split_len, int n_split, int window,
                         float scale, long long ksb, long long ksl,
                         long long ksh, long long vsb, long long vsl,
@@ -590,7 +594,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int w = 0; w < DA_WARPS; ++w)
       a = fmaf(mb.m[w * G + g], mb.acc[w * GD + e], a);
     if (n_split == 1) {
-      out[row0 * HD + e] = a / fmaxf(bml[G + g], 1e-30f);
+      out[row0 * HD + e] = ml ? a : a / fmaxf(bml[G + g], 1e-30f);
     } else {
       wp[e] = a;
       if (e % HD == 0) {
@@ -599,7 +603,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
-  if (n_split == 1) return;
+  if (n_split == 1) {
+    if (ml && tid < G) {
+      ml[2 * (row0 + tid)] = bml[tid];
+      ml[2 * (row0 + tid) + 1] = bml[G + tid];
+    }
+    return;
+  }
 
   // the last block of (b, kvh, group) to arrive merges the parts
   __threadfence();
@@ -617,6 +627,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (tid < G) {
     float M;
     lse_weights(ms, ms + G, 2 * G, n_split, tid, M, lf[tid]);
+    if (ml) {
+      ml[2 * (row0 + tid)] = M;
+      ml[2 * (row0 + tid) + 1] = lf[tid];
+    }
   }
   __syncthreads();
   for (int e = tid; e < GD; e += DA_THREADS) {
@@ -624,7 +638,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float a = 0.f;
     for (int j = 0; j < n_split; ++j)
       a = fmaf(ms[j * 2 * G + g], __ldcg(wq + j * part + e), a);
-    out[row0 * HD + e] = a / fmaxf(lf[g], 1e-30f);
+    out[row0 * HD + e] = ml ? a : a / fmaxf(lf[g], 1e-30f);
   }
   if (tid == 0) tickets[pair] = 0;                // ready for the next call
 }
@@ -639,9 +653,10 @@ static int smem_bytes() {
 template <typename T, int HD>
 static int launch(const void* q, const void* k, const void* v,
                   const int* positions, float* ws, int* tickets, float* out,
-                  int B, int H, int KV, int gpb, int L, int split_len,
-                  int n_split, int window, long long ksb, long long ksl,
-                  long long ksh, long long vsb, long long vsl, long long vsh,
+                  float* ml, int B, int H, int KV, int gpb, int L,
+                  int split_len, int n_split, int window, long long ksb,
+                  long long ksl, long long ksh, long long vsb, long long vsl,
+                  long long vsh,
                   cudaStream_t stream) {
   const int G = H / KV, n_grp = (G + gpb - 1) / gpb;
   if (gpb * HD > DA_MAX_GD || (long long)KV * n_grp > 65535)
@@ -663,8 +678,8 @@ static int launch(const void* q, const void* k, const void* v,
   const dim3 grid(n_split, KV * n_grp, B);
   decode_attention_kernel<T, HD><<<grid, DA_THREADS, smem, stream>>>(
       reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(k),
-      reinterpret_cast<const T*>(v), positions, ws, tickets, out, H, G, gpb,
-      L, split_len, n_split, window, 1.0f / sqrtf((float)HD), ksb, ksl, ksh,
+      reinterpret_cast<const T*>(v), positions, ws, tickets, out, ml, H, G,
+      gpb, L, split_len, n_split, window, 1.0f / sqrtf((float)HD), ksb, ksl, ksh,
       vsb, vsl, vsh);
   return (int)cudaGetLastError();
 }
@@ -672,12 +687,12 @@ static int launch(const void* q, const void* k, const void* v,
 template <typename T>
 static int launch_hd(int hd, const void* q, const void* k, const void* v,
                      const int* positions, float* ws, int* tickets,
-                     float* out, int B, int H, int KV, int gpb, int L,
-                     int split_len, int n_split, int window, long long ksb,
+                     float* out, float* ml, int B, int H, int KV, int gpb,
+                     int L, int split_len, int n_split, int window, long long ksb,
                      long long ksl, long long ksh, long long vsb,
                      long long vsl, long long vsh, cudaStream_t stream) {
 #define DA_LAUNCH(HD)                                                        \
-  launch<T, HD>(q, k, v, positions, ws, tickets, out, B, H, KV, gpb, L,      \
+  launch<T, HD>(q, k, v, positions, ws, tickets, out, ml, B, H, KV, gpb, L,  \
                 split_len, n_split, window, ksb, ksl, ksh, vsb, vsl, vsh,    \
                 stream)
   switch (hd) {
@@ -695,13 +710,17 @@ static int launch_hd(int hd, const void* q, const void* k, const void* v,
 // query heads per block (n_grp = ceil(G / gpb) groups per KV head,
 // G = H / KV); ws float32 [B, KV, n_grp, n_split, gpb * hd + 2 gpb]
 // scratch and tickets int32 [B, KV, n_grp], all 0 before the first call
-// (every call leaves them 0); out [B, H, hd] float32. dtype: 0 =
+// (every call leaves them 0); out [B, H, hd] float32. ml: null, or
+// float32 [B, H, 2] for the partial result of a shard of a cache: each
+// row's max score m and sum l of exp(s - m), with out then holding the
+// unnormalised sum_l exp(s - m) cast_T(p) v (no division by l). dtype: 0 =
 // float32, 1 = bfloat16. hd must be 32, 64, 128 or 256, gpb * hd <=
 // 1024, split_len a multiple of 64 with (n_split - 1) * split_len < L
 // <= n_split * split_len.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const int* positions,
-    float* ws, int* tickets, float* out, int B, int H, int KV, int hd,
+    float* ws, int* tickets, float* out, float* ml, int B, int H, int KV,
+    int hd,
     int gpb, int L, int split_len, int n_split, int window, long long ksb,
     long long ksl, long long ksh, long long vsb, long long vsl,
     long long vsh, int dtype, cudaStream_t stream) {
@@ -712,11 +731,11 @@ extern "C" int decode_attention_launch(
     return (int)cudaErrorInvalidValue;
   if (dtype == 1)
     return launch_hd<__nv_bfloat16>(hd, q, k, v, positions, ws, tickets, out,
-                                    B, H, KV, gpb, L, split_len, n_split,
+                                    ml, B, H, KV, gpb, L, split_len, n_split,
                                     window, ksb, ksl, ksh, vsb, vsl, vsh,
                                     stream);
   if (dtype == 0)
-    return launch_hd<float>(hd, q, k, v, positions, ws, tickets, out, B, H,
+    return launch_hd<float>(hd, q, k, v, positions, ws, tickets, out, ml, B, H,
                             KV, gpb, L, split_len, n_split, window, ksb, ksl,
                             ksh, vsb, vsl, vsh, stream);
   return (int)cudaErrorInvalidValue;

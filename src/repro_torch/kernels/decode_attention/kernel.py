@@ -31,7 +31,7 @@ def _n_sms(device: torch.device) -> int:
 @functools.cache
 def _fn():
     fn = runtime.library("decode_attention").decode_attention_launch
-    fn.argtypes = ([_P] * 7 + [_I] * 9 + [_LL] * 6 + [_I, _P])
+    fn.argtypes = ([_P] * 8 + [_I] * 9 + [_LL] * 6 + [_I, _P])
     fn.restype = _I
     return fn
 
@@ -108,13 +108,19 @@ def _workspace(dev: torch.device, stream: int, n_part: int, n_pair: int):
     return ws, tickets
 
 
-def decode_attention_cuda(q, k, v, positions, *, window: int = 0):
+def decode_attention_cuda(q, k, v, positions, *, window: int = 0,
+                          partial: bool = False):
     """q [B, H, hd]; k/v [B, L, KV, hd] (a view of a stacked cache is
     read in place: the last stride must be 1, the others and the base
     16-byte aligned); positions [B] → [B, H, hd] f32. hd must be 32, 64,
     128 or 256; a KV head's query heads are taken in groups of at most
     ``1024 // hd`` (:func:`head_groups`). One kernel launch: the splits
-    of the cache and the groups are combined inside it."""
+    of the cache and the groups are combined inside it.
+
+    ``partial=True`` (a shard of a sequence-sharded cache) returns
+    ``(acc, m, l)``: the unnormalised ``acc`` [B, H, hd] f32, each
+    row's max score ``m`` and exp-sum ``l`` [B, H] f32, counted as
+    ``decode_attention_partial``."""
     runtime.refuse_grad("decode_attention", q, k, v)
     B, H, hd = q.shape
     Bk, L, KV, hdk = k.shape
@@ -149,11 +155,17 @@ def decode_attention_cuda(q, k, v, positions, *, window: int = 0):
     ws, tickets = _workspace(dev, stream,
                              pairs * n_split * (gpb * hd + 2 * gpb), pairs)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
+    ml = (torch.empty((B, H, 2), dtype=torch.float32, device=dev)
+          if partial else None)
     status = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    positions.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
-                   out.data_ptr(), B, H, KV, hd, gpb, L, p["split_len"],
+                   out.data_ptr(), None if ml is None else ml.data_ptr(),
+                   B, H, KV, hd, gpb, L, p["split_len"],
                    n_split, int(window), *k.stride()[:3], *v.stride()[:3],
                    _DTYPES[q.dtype], stream)
     runtime.check_status("decode_attention", status)
+    if partial:
+        runtime.count_launch("decode_attention_partial")
+        return out, ml[..., 0], ml[..., 1]
     runtime.count_launch("decode_attention")
     return out

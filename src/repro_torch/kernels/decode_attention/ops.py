@@ -9,7 +9,8 @@ and the ring-window mode run in the kernel too.
 from __future__ import annotations
 
 from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_partial_ref, decode_attention_ref)
 
 
 def decode_attention(q, k, v, positions, *, window: int = 0):
@@ -20,4 +21,17 @@ def decode_attention(q, k, v, positions, *, window: int = 0):
         return decode_attention_cuda(q, k, v, positions, window=window)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, positions, window=window)
+    raise ValueError(f"decode_attention: no kernel for device {q.device}")
+
+
+def decode_attention_partial(q, k, v, positions, *, window: int = 0):
+    """The partial result over ``k``/``v``, one rank's shard of a
+    sequence-sharded cache: → (acc [B, H, hd] f32 unnormalised, m [B,
+    H] f32, l [B, H] f32), for a log-sum-exp combine across ranks."""
+    if q.device.type == "cuda":
+        return decode_attention_cuda(q, k, v, positions, window=window,
+                                     partial=True)
+    if q.device.type == "cpu":
+        return decode_attention_partial_ref(q, k, v, positions,
+                                            window=window)
     raise ValueError(f"decode_attention: no kernel for device {q.device}")

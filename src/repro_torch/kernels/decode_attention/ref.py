@@ -28,9 +28,12 @@ def valid_slots(positions: torch.Tensor, L: int,
     return slots <= pos
 
 
-def decode_attention_ref(q, k, v, positions, *, window: int = 0):
-    """q [B, H, hd]; k/v [B, L, KV, hd]; positions [B] int (the new
-    token's position) → [B, H, vd] float32."""
+def decode_attention_partial_ref(q, k, v, positions, *, window: int = 0):
+    """The partial result over the cache ``k``/``v`` (one rank's shard of
+    a sequence-sharded cache, ``_local_partial_attention`` in the JAX
+    package): → (acc [B, H, vd] f32, unnormalised; m [B, H] f32, each
+    row's max score, -inf with no valid slot; l [B, H] f32, the sum of
+    exp(s - m))."""
     B, H, hd = q.shape
     L, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -48,5 +51,13 @@ def decode_attention_ref(q, k, v, positions, *, window: int = 0):
     # slot times p = 0 would be NaN)
     v = torch.where(valid[:, :, None, None], v, torch.zeros((), dtype=v.dtype))
     acc = torch.einsum("bkgl,blkd->bkgd", p.to(v.dtype).float(), v.float())
-    out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.reshape(B, H, v.shape[-1])
+    return (acc.reshape(B, H, v.shape[-1]), m.reshape(B, H),
+            l.reshape(B, H))
+
+
+def decode_attention_ref(q, k, v, positions, *, window: int = 0):
+    """q [B, H, hd]; k/v [B, L, KV, hd]; positions [B] int (the new
+    token's position) → [B, H, vd] float32."""
+    acc, _, l = decode_attention_partial_ref(q, k, v, positions,
+                                             window=window)
+    return acc / torch.clamp(l[..., None], min=1e-30)

@@ -33,9 +33,26 @@ that cache and never writes it, attending over every slot through the
 decode-attention kernel.
 
 The per-layer cache is a dict of tensors; in-place writes through views
-of the stacked superblock cache update the stack itself. The
-reference's tensor-parallel head padding has no counterpart on one
-card.
+of the stacked superblock cache update the stack itself.
+
+GQA and MLA take one code path on one device and on a mesh (``ctx``,
+one process per rank; ``specs`` the layer's parameter specs as the rank
+holds them), the reference's ``shard_map`` bodies; on one device every
+collective is the identity and nothing is cut:
+  * prefill / chunk: heads tensor-parallel over ``ctx.tp_axis`` — each
+    rank holds its heads' ``wq``/``wk``/``wv``/``wo`` blocks, attends
+    over them (``head_sharded``; a head count that does not divide the
+    axis is padded first, K/V repeated per query head:
+    ``_pad_heads_for_tp``), and the ``wo`` products are summed over the
+    axis. The prefill cache keeps every KV head (all-gathered).
+  * decode: the cache is this rank's batch block and, over
+    ``ctx.seq_axis``, its block of slots (flash-decoding):
+    :func:`decode_attention_distributed` writes the new token only on
+    the rank that owns its slot, each rank computes the partial result
+    over its slots (the decode-attention kernel's partial output for
+    GQA; plain tensor code for MLA, as in the reference), and the
+    partials combine by ``pmax`` then ``psum`` with log-sum-exp weights.
+Cross-attention is not ported to a mesh.
 """
 from __future__ import annotations
 
@@ -45,11 +62,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention, decode_attention_partial)
 from repro_torch.models.common import (apply_rope, blockwise_attention,
                                        naive_attention, rms_norm)
+from repro_torch.models.mesh_ctx import make_smoke_ctx
 
 Cache = Dict[str, torch.Tensor]
+#: the context of one device: every collective the identity
+ONE_DEVICE = make_smoke_ctx()
 #: longest prompt the naive prefill attention takes (above it, blockwise
 #: attention, as in the reference)
 NAIVE_MAX_LEN = 2048
@@ -106,60 +127,83 @@ def _project_qkv(params, x, cfg: ModelConfig, positions):
 
 def attn_apply(params, x, *, cfg: ModelConfig, mode: str,
                window: int = 0, cache: Optional[Cache] = None,
-               positions: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, Optional[Cache]]:
+               positions: Optional[torch.Tensor] = None, ctx=None,
+               specs=None) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Causal GQA, global (``window == 0``) or over the last ``window``
     positions. ``positions``: the chunk offset (an int) in ``chunk``
-    mode, the new tokens' positions [B] in ``decode`` mode."""
-    S = x.shape[1]
-    if mode in ("prefill", "train"):
-        q, k, v = _project_qkv(params, x, cfg,
-                               torch.arange(S, device=x.device))
-        o = _prefill_attention(q, k, v, window)
+    mode, the new tokens' positions [B] in ``decode`` mode. ``ctx`` /
+    ``specs``: the mesh (default: one device) and the layer's parameter
+    specs (see the module docstring)."""
+    ctx = ONE_DEVICE if ctx is None else ctx
+    qa, ka, wa = (_tp(ctx, specs, "wq", 1), _tp(ctx, specs, "wk", 1),
+                  _tp(ctx, specs, "wo", 0))
+    B, S, _ = x.shape
+    if mode == "train" and ctx.sharded:
+        raise NotImplementedError("attention: training on a mesh is not "
+                                  "ported")
+    if mode == "decode":
+        q, k_new, v_new = _project_qkv(params, x, cfg, positions[:, None])
+        if qa is not None:
+            q = ctx.all_gather(q, qa, 2)
+        if ka is not None:
+            k_new = ctx.all_gather(k_new, ka, 2)
+            v_new = ctx.all_gather(v_new, ka, 2)
+        o = decode_attention_distributed(q, k_new, v_new, cache, positions,
+                                         ctx, window=window)
+        o = o.to(q.dtype)[:, None]
+        if wa is not None:
+            o = head_sharded(ctx, o)
         y = torch.einsum("bshk,hkd->bsd", o, params["wo"])
-        if mode == "train":
-            return y, None
-        if window > 0 and S > window:
-            # the trailing window, position p at ring slot p % window
-            slots = (torch.arange(window, device=x.device)
-                     + (S - window)) % window
-            ring = {}
-            for n, t in (("k", k), ("v", v)):
-                ring[n] = torch.empty_like(t[:, :window])
-                ring[n][:, slots] = t[:, S - window:]
-            return y, ring
-        return y, {"k": k, "v": v}
+        return _tp_sum(y, ctx, wa), cache
     if mode == "chunk":
         if window:
             raise ValueError("chunked prefill needs global attention "
                              f"(window {window})")
-        return _attn_chunk(params, x, cfg=cfg, cache=cache, offset=positions)
-    if mode != "decode":
+        L = cache["k"].shape[1]
+        offset = positions
+        if offset + S > L:
+            raise ValueError(f"chunk [{offset}, {offset + S}) exceeds "
+                             f"buffer {L}")
+        pos = offset + torch.arange(S, device=x.device)
+    elif mode in ("prefill", "train"):
+        pos = torch.arange(S, device=x.device)
+    else:
         raise ValueError(f"attn_apply: unsupported mode {mode!r}")
-    q, k_new, v_new = _project_qkv(params, x, cfg, positions[:, None])
-    slot = torch.remainder(positions, window) if window > 0 else positions
-    _write_new_token(cache["k"], k_new[:, 0], slot)
-    _write_new_token(cache["v"], v_new[:, 0], slot)
-    o = decode_attention(q[:, 0], cache["k"], cache["v"], positions,
-                         window=window).to(q.dtype)
-    return torch.einsum("bshk,hkd->bsd", o[:, None], params["wo"]), cache
-
-
-def _attn_chunk(params, x, *, cfg: ModelConfig, cache: Cache, offset: int):
-    """Write the chunk's roped K/V into the buffer at ``offset`` (in
-    place), then attend causally over the whole buffer with explicit
-    position masks."""
-    B, S, _ = x.shape
-    L = cache["k"].shape[1]
-    if offset + S > L:
-        raise ValueError(f"chunk [{offset}, {offset + S}) exceeds buffer {L}")
-    pos = offset + torch.arange(S, device=x.device)
     q, k, v = _project_qkv(params, x, cfg, pos)
-    cache["k"][:, offset:offset + S] = k.to(cache["k"].dtype)
-    cache["v"][:, offset:offset + S] = v.to(cache["v"].dtype)
-    o = naive_attention(q, cache["k"], cache["v"], q_positions=pos,
-                        kv_positions=torch.arange(L, device=x.device))
-    return torch.einsum("bshk,hkd->bsd", o, params["wo"]), cache
+    if ka is not None:        # the cache keeps every KV head
+        k_all, v_all = ctx.all_gather(k, ka, 2), ctx.all_gather(v, ka, 2)
+    else:
+        k_all, v_all = k, v
+    if mode == "chunk":
+        # write the chunk's roped K/V into the buffer at ``offset`` (in
+        # place), then attend causally over the whole buffer with
+        # explicit position masks
+        cache["k"][:, offset:offset + S] = k_all.to(cache["k"].dtype)
+        cache["v"][:, offset:offset + S] = v_all.to(cache["v"].dtype)
+        kk, vv = cache["k"], cache["v"]
+        if ka is not None:
+            kk, vv = head_sharded(ctx, kk), head_sharded(ctx, vv)
+        ql, kl, vl, wo = _local_heads(q, kk, vv, params["wo"], ctx, qa, ka,
+                                      wa)
+        o = naive_attention(ql, kl, vl, q_positions=pos,
+                            kv_positions=torch.arange(L, device=x.device))
+        y = torch.einsum("bshk,hkd->bsd", o, wo)
+        return _tp_sum(y, ctx, ctx.tp_axis), cache
+    ql, kl, vl, wo = _local_heads(q, k, v, params["wo"], ctx, qa, ka, wa)
+    o = _prefill_attention(ql, kl, vl, window)
+    y = _tp_sum(torch.einsum("bshk,hkd->bsd", o, wo), ctx, ctx.tp_axis)
+    if mode == "train":
+        return y, None
+    if window > 0 and S > window:
+        # the trailing window, position p at ring slot p % window
+        slots = (torch.arange(window, device=x.device)
+                 + (S - window)) % window
+        ring = {}
+        for n, t in (("k", k_all), ("v", v_all)):
+            ring[n] = torch.empty_like(t[:, :window])
+            ring[n][:, slots] = t[:, S - window:]
+        return y, ring
+    return y, {"k": k_all, "v": v_all}
 
 
 # ===========================================================================
@@ -259,7 +303,7 @@ def _expand_attend(params, q_nope, q_rope, ckv, krope, cfg: ModelConfig,
     a prefill (no positions) above ``NAIVE_MAX_LEN`` tokens is
     blockwise."""
     B, L, _ = ckv.shape
-    H = cfg.num_heads
+    H = params["wk_b"].shape[1]            # this rank's heads on a mesh
     k_nope = torch.einsum("bsr,rhk->bshk", ckv, params["wk_b"])
     v = torch.einsum("bsr,rhk->bshk", ckv, params["wv_b"])
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -275,61 +319,220 @@ def _expand_attend(params, q_nope, q_rope, ckv, krope, cfg: ModelConfig,
 
 def mla_apply(params, x, *, cfg: ModelConfig, mode: str,
               cache: Optional[Cache] = None,
-              positions: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, Optional[Cache]]:
+              positions: Optional[torch.Tensor] = None, ctx=None,
+              specs=None) -> Tuple[torch.Tensor, Optional[Cache]]:
     """``positions``: the chunk offset (an int) in ``chunk`` mode, the
-    new tokens' positions [B] in ``decode`` mode."""
+    new tokens' positions [B] in ``decode`` mode. ``ctx`` / ``specs``:
+    the mesh (default: one device) and the layer's parameter specs (see
+    the module docstring)."""
+    ctx = ONE_DEVICE if ctx is None else ctx
     m = cfg.mla
+    qa = _tp(ctx, specs, "wq_b", 1)
+    if not (qa == _tp(ctx, specs, "wk_b", 1) == _tp(ctx, specs, "wv_b", 1)
+            == _tp(ctx, specs, "wo", 0)):
+        raise ValueError("MLA on a mesh: wq_b, wk_b, wv_b and wo must "
+                         "share one head layout")
     B, S, _ = x.shape
+    if mode == "train" and ctx.sharded:
+        raise NotImplementedError("MLA: training on a mesh is not ported")
     if mode in ("prefill", "train"):
         pos = torch.arange(S, device=x.device)
         q_nope, q_rope, ckv, krope = _mla_qkv_latent(params, x, cfg, pos)
         y = _expand_attend(params, q_nope, q_rope, ckv, krope, cfg)
-        return y, ({"ckv": ckv, "krope": krope} if mode == "prefill"
-                   else None)
+        return _tp_sum(y, ctx, qa), ({"ckv": ckv, "krope": krope}
+                                     if mode == "prefill" else None)
     if mode == "chunk":
-        return _mla_chunk(params, x, cfg=cfg, cache=cache, offset=positions)
+        # write the chunk's latents into the buffer at ``offset`` (in
+        # place), then attend over the whole buffer with explicit
+        # position masks
+        L = cache["ckv"].shape[1]
+        offset = positions
+        if offset + S > L:
+            raise ValueError(f"chunk [{offset}, {offset + S}) exceeds "
+                             f"buffer {L}")
+        pos = offset + torch.arange(S, device=x.device)
+        q_nope, q_rope, ckv, krope = _mla_qkv_latent(params, x, cfg, pos)
+        cache["ckv"][:, offset:offset + S] = ckv.to(cache["ckv"].dtype)
+        cache["krope"][:, offset:offset + S] = krope.to(
+            cache["krope"].dtype)
+        y = _expand_attend(params, q_nope, q_rope, cache["ckv"],
+                           cache["krope"], cfg, q_positions=pos,
+                           kv_positions=torch.arange(L, device=x.device))
+        return _tp_sum(y, ctx, qa), cache
     if mode != "decode":
         raise ValueError(f"mla_apply: unsupported mode {mode!r}")
     q_nope, q_rope, ckv_new, krope_new = _mla_qkv_latent(
         params, x, cfg, positions[:, None])
     # absorbed: q' = q_nope · wk_b^T → latent-space scores against ckv
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params["wk_b"])
-    o_lat = _mla_decode(q_lat, q_rope, ckv_new, krope_new, cache, positions,
-                        scale_dim=m.qk_nope_head_dim + m.qk_rope_head_dim)
+    if qa is not None:
+        q_lat = ctx.all_gather(q_lat, qa, 2)
+        q_rope = ctx.all_gather(q_rope, qa, 2)
+    o_lat = _mla_decode_distributed(
+        q_lat, q_rope, ckv_new, krope_new, cache, positions, ctx,
+        scale_dim=m.qk_nope_head_dim + m.qk_rope_head_dim)
+    if qa is not None:
+        o_lat = head_sharded(ctx, o_lat)
     o = torch.einsum("bshr,rhk->bshk", o_lat, params["wv_b"])
-    return torch.einsum("bshk,hkd->bsd", o, params["wo"]), cache
+    y = torch.einsum("bshk,hkd->bsd", o, params["wo"])
+    return _tp_sum(y, ctx, qa), cache
 
 
-def _mla_chunk(params, x, *, cfg: ModelConfig, cache: Cache, offset: int):
-    """Write the chunk's latents into the buffer at ``offset`` (in place),
-    then attend over the whole buffer with explicit position masks."""
-    B, S, _ = x.shape
-    L = cache["ckv"].shape[1]
-    if offset + S > L:
-        raise ValueError(f"chunk [{offset}, {offset + S}) exceeds buffer {L}")
-    pos = offset + torch.arange(S, device=x.device)
-    q_nope, q_rope, ckv, krope = _mla_qkv_latent(params, x, cfg, pos)
-    cache["ckv"][:, offset:offset + S] = ckv.to(cache["ckv"].dtype)
-    cache["krope"][:, offset:offset + S] = krope.to(cache["krope"].dtype)
-    y = _expand_attend(params, q_nope, q_rope, cache["ckv"], cache["krope"],
-                       cfg, q_positions=pos,
-                       kv_positions=torch.arange(L, device=x.device))
-    return y, cache
+# ===========================================================================
+# Heads and sequence shards (one process per rank; identities on one
+# device)
+# ===========================================================================
+def _tp(ctx, specs, name: str, dim: int):
+    """``ctx.tp_axis`` when this rank holds its block of ``name``'s dim
+    ``dim`` over it (the heads of a weight), else None."""
+    if specs is None or ctx.tp_size <= 1:
+        return None
+    return ctx.tp_axis if specs[name].entry(dim) == ctx.tp_axis else None
 
 
-def _mla_decode(q_lat, q_rope, ckv_new, krope_new, cache: Cache, positions,
-                scale_dim: int):
-    """Write each row's new latents at ``positions`` (in place; a row
-    whose position lies outside the buffer keeps the buffer unchanged),
-    then attend over slots ``<= position``. Returns [B, 1, H, r]."""
+def _tp_sum(y, ctx, axis):
+    """The tensor-parallel sum of partial outputs, in float32."""
+    if axis is None or ctx.axis_size(axis) == 1:
+        return y
+    return ctx.psum(y.float(), axis).to(y.dtype)
+
+
+def head_sharded(ctx, t: torch.Tensor) -> torch.Tensor:
+    """This rank's block of the heads of q/k/v/o [B, S, H, hd] over the
+    TP axis when they divide it, else ``t`` (the reference pins the same
+    layout with a sharding constraint)."""
+    if ctx.tp_size <= 1 or t.shape[2] % ctx.tp_size:
+        return t
+    return ctx.take_block(t, 2, ctx.tp_axis)
+
+
+def _pad_heads_for_tp(q, k, v, wo, tp: int):
+    """A head count that does not divide the TP axis (Llama-4: 40 heads
+    on 16): pad the query heads to the next multiple of ``tp`` and
+    repeat K/V per query head (MHA), with zero ``wo`` rows for the pads,
+    so the heads shard and the epilogue stays exact."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    Hp = -(-H // tp) * tp
+    if G > 1:
+        k = torch.repeat_interleave(k, G, dim=2)
+        v = torch.repeat_interleave(v, G, dim=2)
+    pad = Hp - H
+    if pad:
+        def padh(t):
+            return torch.nn.functional.pad(t, (0, 0, 0, pad))
+        q, k, v = padh(q), padh(k), padh(v)
+        wo = torch.nn.functional.pad(wo, (0, 0, 0, 0, 0, pad))
+    return q, k, v, wo
+
+
+def _local_heads(q, k, v, wo, ctx, qa, ka, wa):
+    """q [B, S, ·, hd], k/v [B, L, ·, hd], wo [·, hd, d] as this rank
+    holds them (``qa``/``ka``/``wa``: the TP axis where the heads are
+    its block, else None) → this rank's query heads, the K/V each of
+    them reads, and their ``wo`` rows."""
+    n, tp = ctx.tp_size, ctx.tp_axis
+    if n == 1:
+        return q, k, v, wo
+    if qa is None and q.shape[2] % n:
+        if ka is not None:
+            k, v = ctx.all_gather(k, tp, 2), ctx.all_gather(v, tp, 2)
+        if wa is not None:
+            wo = ctx.all_gather(wo, tp, 0)
+        q, k, v, wo = _pad_heads_for_tp(q, k, v, wo, n)
+        return (head_sharded(ctx, q), head_sharded(ctx, k),
+                head_sharded(ctx, v), ctx.take_block(wo, 0, tp))
+    if qa is None:
+        q = head_sharded(ctx, q)
+    if wa is None:
+        wo = ctx.take_block(wo, 0, tp)
+    if ka is None:
+        # every KV head is here: give each local query head its own
+        Hl = q.shape[2]
+        G = Hl * n // k.shape[2]
+        h0 = ctx.axis_index(tp) * Hl
+        if Hl % G == 0:
+            k = k[:, :, h0 // G:(h0 + Hl) // G]
+            v = v[:, :, h0 // G:(h0 + Hl) // G]
+        else:
+            idx = torch.div(h0 + torch.arange(Hl, device=k.device), G,
+                            rounding_mode="floor")
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return q, k, v, wo
+
+
+def _seq_block(ctx, L_local: int):
+    """(seq axis or None, first global slot of this rank's block): the
+    decode cache is this rank's block of slots over ``ctx.seq_axis``
+    whenever ``shard_kv_seq`` and the axis has more than one rank."""
+    if not ctx.shard_kv_seq or ctx.axis_size(ctx.seq_axis) <= 1:
+        return None, 0
+    return ctx.seq_axis, ctx.axis_index(ctx.seq_axis) * L_local
+
+
+def _local_slots(ctx, L_local: int):
+    """(seq axis or None, ``local``): :func:`_seq_block`'s axis, and
+    ``local(t)``, a global slot or position ``t`` counted from this
+    rank's first slot."""
+    axis, s0 = _seq_block(ctx, L_local)
+    return axis, ((lambda t: t) if axis is None else (lambda t: t - s0))
+
+
+def _lse_combine(acc, m, l, ctx, axis):
+    """Partials (acc [B, H, r] f32 unnormalised, m, l [B, H]) of the
+    ranks of ``axis`` → the normalised output: weights exp(m - max_m),
+    summed over the axis."""
+    if axis is not None:
+        gm = ctx.pmax(m, axis)
+        w = torch.exp(m - gm)
+        acc = ctx.psum(acc * w[..., None], axis)
+        l = ctx.psum(l * w, axis)
+    return acc / torch.clamp(l[..., None], min=1e-30)
+
+
+def decode_attention_distributed(q, k_new, v_new, cache: Cache, positions,
+                                 ctx, *, window: int = 0):
+    """q [B, 1, H, hd] (every head), k_new / v_new [B, 1, KV, hd] (every
+    KV head); ``cache`` k/v [B, L_local, KV, hd], this rank's block of
+    slots over the sequence axis; positions [B] the new token's. The new
+    token is written (in place) only by the rank that owns its slot
+    (``positions % window`` with a ring); each rank computes the partial
+    result over its slots with the decode-attention kernel, and the
+    partials combine across the axis by log-sum-exp weights. → [B, H,
+    hd] f32. A ring's slot holds a position at most ``pos`` exactly when
+    its global index is at most ``pos`` (slots < window), so a rank's
+    block is attended as a global cache at ``positions - first slot``."""
+    L_loc = cache["k"].shape[1]
+    axis, local = _local_slots(ctx, L_loc)
+    slot = torch.remainder(positions, window) if window > 0 else positions
+    _write_new_token(cache["k"], k_new[:, 0], local(slot))
+    _write_new_token(cache["v"], v_new[:, 0], local(slot))
+    if axis is None:
+        return decode_attention(q[:, 0], cache["k"], cache["v"], positions,
+                                window=window)
+    acc, m, l = decode_attention_partial(q[:, 0], cache["k"], cache["v"],
+                                         local(positions))
+    return _lse_combine(acc, m, l, ctx, axis)
+
+
+def _mla_decode_distributed(q_lat, q_rope, ckv_new, krope_new, cache: Cache,
+                            positions, ctx, scale_dim: int):
+    """Absorbed MLA decode, flash-decoding over this rank's block of the
+    latent cache: each row's new latents written in place at its
+    position where this rank owns the slot (a row whose position lies
+    outside the block keeps it unchanged), the partial softmax over the
+    local slots ``<= position`` (plain tensor code, as in the
+    reference), combined over the sequence axis by log-sum-exp weights.
+    → [B, 1, H, r]."""
     ckv_c, krope_c = cache["ckv"], cache["krope"]
-    L = ckv_c.shape[1]
+    L_loc = ckv_c.shape[1]
+    axis, local = _local_slots(ctx, L_loc)
     scale = 1.0 / np.sqrt(scale_dim)
-    _write_new_token(ckv_c, ckv_new[:, 0], positions)
-    _write_new_token(krope_c, krope_new[:, 0], positions)
-    valid = torch.arange(L, device=positions.device)[None, :] \
-        <= positions[:, None]
+    pos = local(positions)
+    _write_new_token(ckv_c, ckv_new[:, 0], pos)
+    _write_new_token(krope_c, krope_new[:, 0], pos)
+    valid = torch.arange(L_loc, device=positions.device)[None, :] \
+        <= pos[:, None]
     s = (torch.einsum("bhr,blr->bhl", q_lat[:, 0].float(), ckv_c.float())
          + torch.einsum("bhk,blk->bhl", q_rope[:, 0].float(),
                         krope_c.float())) * scale
@@ -341,5 +544,5 @@ def _mla_decode(q_lat, q_rope, ckv_new, krope_new, cache: Cache, positions,
     l = p.sum(dim=-1)
     acc = torch.einsum("bhl,blr->bhr", p.to(ckv_c.dtype).float(),
                        ckv_c.float())
-    out = (acc / torch.clamp(l[..., None], min=1e-30))[:, None]
+    out = _lse_combine(acc, mx, l, ctx, axis)[:, None]
     return out.to(q_lat.dtype)

@@ -2,8 +2,10 @@
 attention and the chunked cross-entropy."""
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import math
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -73,42 +75,128 @@ def microbatch_sizes(n: int, mb: int) -> Tuple[int, ...]:
 
 # ---------------------------------------------------------------------------
 # Initializers (same distributions as the JAX package, not the same draws).
-# Filled in flat slices so float32 temporaries stay small even for
-# DeepSeek-V3's [256, 7168, 2048] expert stacks.
+#
+# Element i of a leaf is a function of (seed, i) alone, computed with
+# operations that round the same way on every device: a counter-based
+# hash in exact integer arithmetic (products stay below 2^63) gives a
+# 24-bit uniform draw, and a tabulated inverse CDF (65536 intervals,
+# made in float64 on the host) interpolated with one multiply and one add
+# maps it to the distribution. So a seed gives the same weights on the
+# card and on the CPU, drawn where the leaf lives, in slices that keep
+# int64 temporaries small even for DeepSeek-V3's [256, 7168, 2048] expert
+# stacks; and a rank of a mesh draws only its block of a leaf.
 # ---------------------------------------------------------------------------
-_FILL_ELEMS = 1 << 26
+_FILL_ELEMS = 1 << 24
+_HOST_ELEMS = 1 << 16
+_M32 = (1 << 32) - 1
+_BINS = 1 << 16
 
 
-def _fill_(out: torch.Tensor, draw) -> None:
-    """Fill ``out`` (contiguous) in flat slices with ``draw(shape)``."""
+def part_seed(*keys: int) -> int:
+    """A 63-bit seed from integer keys (seed, leaf)."""
+    return int(np.random.SeedSequence([int(k) for k in keys])
+               .generate_state(1, np.uint64)[0]) >> 1
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit mixing round on int64 values in [0, 2^32): xor-shifts
+    and multiplies by odd constants below 2^31, masked to 32 bits."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x68E31DA5) & _M32
+    return x ^ (x >> 16)
+
+
+def _uniform24(idx: torch.Tensor, seed: int) -> torch.Tensor:
+    """int64 indices → int64 draws in [0, 2^24), a function of (seed,
+    index) only."""
+    lo, hi = seed & _M32, (seed >> 32) & _M32
+    h = _mix32(idx & _M32 ^ lo)
+    return _mix32(h ^ (idx >> 32) ^ hi) >> 8
+
+
+@functools.lru_cache(maxsize=None)
+def _quantiles(kind: str, device: torch.device):
+    """(knots [BINS + 1], steps [BINS]) float32 on ``device``: the
+    inverse CDF at ``j / BINS`` of the normal truncated to ±2σ
+    (``"truncated"``) or of the normal at the bin midpoints' range
+    ``(j + 0.5) / (BINS + 1)`` (``"normal"``), computed in float64 on
+    the host, and each interval's rise."""
+    j = torch.arange(_BINS + 1, dtype=torch.float64)
+    if kind == "truncated":
+        lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+        p = lo + (1.0 - 2.0 * lo) * j / _BINS
+        q = torch.special.ndtri(p).clamp(-2.0, 2.0)
+    else:
+        q = torch.special.ndtri((j + 0.5) / (_BINS + 1))
+    knots = q.float()
+    return knots.to(device), (knots[1:] - knots[:-1]).to(device)
+
+
+def _fill_(out: torch.Tensor, kind: str, scale: float, seed: int,
+           block=None) -> None:
+    """Fill ``out`` (contiguous) with ``scale`` times draws of ``kind``
+    (:func:`_quantiles`), element ``i`` of the leaf from ``(seed, i)``.
+    ``block = (shape, dim, lo, hi)``: ``out`` is the block ``[lo, hi)``
+    along ``dim`` of a leaf of ``shape`` whose later dims are whole (a
+    rank's block on a mesh): its elements take the leaf's indices."""
     flat = out.view(-1)
-    for i in range(0, flat.numel(), _FILL_ELEMS):
-        part = flat[i:i + _FILL_ELEMS]
-        part.copy_(draw(part.shape))
+    dev = out.device
+    knots, steps = _quantiles(kind, dev)
+    if block is not None:
+        shape, dim, lo, hi = block
+        inner = math.prod(shape[dim + 1:])
+        run, stride = (hi - lo) * inner, shape[dim] * inner
+
+    def one(a: int) -> None:
+        i = torch.arange(a, min(a + size, flat.numel()), dtype=torch.int64,
+                         device=dev)
+        if block is not None:       # the leaf's index of each element
+            i = (i // run) * stride + lo * inner + i % run
+        m = _uniform24(i, seed)
+        frac = (m & 255).to(torch.float32) * (1.0 / 256.0)
+        bins = m >> 8
+        z = knots[bins] + frac * steps[bins]
+        flat[a:a + i.numel()] = (z * scale).to(out.dtype)
+    if dev.type != "cpu":
+        size = _FILL_ELEMS
+        for a in range(0, flat.numel(), size):
+            one(a)
+        return
+    # on the host: slices that stay in cache, on a pool of threads (the
+    # operators release the GIL)
+    size = _HOST_ELEMS
+    starts = range(0, flat.numel(), size)
+    if len(starts) <= 1:
+        for a in starts:
+            one(a)
+        return
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(one, starts))
 
 
-def dense_init(shape: Sequence[int], dtype, fan_in: int,
-               generator: torch.Generator, device) -> torch.Tensor:
-    """Truncated-normal (±2σ) fan-in init, ``std = 1/sqrt(fan_in)``,
-    by inverting the normal CDF over uniform draws."""
-    out = torch.empty(tuple(shape), dtype=dtype, device=device)
-    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
-    scale = 1.0 / math.sqrt(max(fan_in, 1))
+def _block_shape(shape, block):
+    if block is None:
+        return tuple(shape)
+    full, dim, lo, hi = block
+    return tuple(hi - lo if i == dim else s for i, s in enumerate(full))
 
-    def draw(shape):
-        u = torch.rand(shape, generator=generator, device=out.device)
-        z = torch.erfinv(lo + (hi - lo) * u) * math.sqrt(2.0)
-        return torch.clamp(z, -2.0, 2.0) * scale
-    _fill_(out, draw)
+
+def dense_init(shape: Sequence[int], dtype, fan_in: int, seed: int,
+               device, block=None) -> torch.Tensor:
+    """Truncated-normal (±2σ) fan-in init, ``std = 1/sqrt(fan_in)``.
+    ``block``: only that block of the leaf (:func:`_fill_`)."""
+    out = torch.empty(_block_shape(shape, block), dtype=dtype, device=device)
+    _fill_(out, "truncated", 1.0 / math.sqrt(max(fan_in, 1)), seed, block)
     return out
 
 
-def embed_init(shape: Sequence[int], dtype, generator: torch.Generator,
-               device) -> torch.Tensor:
+def embed_init(shape: Sequence[int], dtype, seed: int, device,
+               block=None) -> torch.Tensor:
     """Normal init with std 0.02."""
-    out = torch.empty(tuple(shape), dtype=dtype, device=device)
-    _fill_(out, lambda shape: torch.randn(
-        shape, generator=generator, device=out.device) * 0.02)
+    out = torch.empty(_block_shape(shape, block), dtype=dtype, device=device)
+    _fill_(out, "normal", 0.02, seed, block)
     return out
 
 

@@ -46,9 +46,12 @@ from repro_torch.models import attention as A
 from repro_torch.models import ffn as F
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
+from repro_torch.launch import sharding as shd
+from repro_torch.models.mesh_ctx import make_smoke_ctx
 from repro_torch.models.common import (chunked_softmax_xent, dense_init,
                                        dtype_of, embed_init, naive_attention,
-                                       resolve_device, rms_norm, tree_map)
+                                       part_seed, resolve_device, rms_norm,
+                                       tree_map)
 
 PyTree = Any
 
@@ -153,9 +156,19 @@ def block_cache_spec(cfg: ModelConfig, kind, batch: int, max_len: int,
             else S.ssm_cache_spec)(cfg, batch, dtype)
 
 
+def _tp_hidden(ctx, specs, name: str):
+    """The TP axis when this rank holds its block of the hidden dim of
+    the SwiGLU ``specs[name]`` (a dense MLP or a shared expert)."""
+    if specs is None or name not in specs or ctx.tp_size <= 1:
+        return None
+    return ctx.tp_axis if specs[name]["wo"].entry(0) == ctx.tp_axis \
+        else None
+
+
 def block_apply(params, x, *, cfg: ModelConfig, kind, mode: str,
                 cache=None, positions=None, memory=None, placement=None,
-                decode_microbatches: int = 1, window_override: int = 0):
+                decode_microbatches: int = 1, window_override: int = 0,
+                ctx=None, specs=None, sp_axis=None):
     """Returns (x_out, layer cache, the MoE layer's aux dict
     (``moe_lb_loss``, ``moe_z_loss``, ``expert_counts``) or None).
     ``memory``: what a cross-attention
@@ -165,36 +178,51 @@ def block_apply(params, x, *, cfg: ModelConfig, kind, mode: str,
     ``decode_microbatches``: the §4.4 ping-pong split of a decode MoE
     batch (1 = off; ``moe_apply`` applies it at decode only), as
     ``MeshCtx.decode_microbatches`` in the reference;
-    ``window_override``: the window of global attention (0 = none)."""
+    ``window_override``: the window of global attention (0 = none).
+    ``ctx``: the mesh context, and ``specs`` the layer's parameter specs
+    as this rank holds them (None on one device); ``sp_axis``: ``x`` is
+    this rank's block of the sequence over that axis (the
+    sequence-parallel residual): each sublayer reads the gathered
+    sequence and adds back its own block."""
     mixer, ffn = kind
-    h = rms_norm(x, params["mixer_norm"], cfg.norm_eps)
+
+    def full(h):
+        return h if sp_axis is None else ctx.all_gather(h, sp_axis, dim=1)
+
+    def mine(y):
+        return y if sp_axis is None else ctx.take_block(y, 1, sp_axis)
+    mesh = {} if specs is None else dict(ctx=ctx, specs=specs["mixer"])
+    h = full(rms_norm(x, params["mixer_norm"], cfg.norm_eps))
     if mixer in (ATTN, LOCAL_ATTN):
         y, new_cache = A.attn_apply(
             params["mixer"], h, cfg=cfg, mode=mode,
             window=attn_window(cfg, mixer, window_override),
-            cache=cache, positions=positions)
+            cache=cache, positions=positions, **mesh)
     elif mixer == CROSS_ATTN:
         y, new_cache = A.cross_attn_apply(params["mixer"], h, cfg=cfg,
                                           mode=mode, memory=memory,
                                           cache=cache)
     elif mixer == MLA_ATTN:
         y, new_cache = A.mla_apply(params["mixer"], h, cfg=cfg, mode=mode,
-                                   cache=cache, positions=positions)
+                                   cache=cache, positions=positions, **mesh)
     else:
         apply = R.rglru_apply if mixer == RGLRU else S.ssm_apply
         y, new_cache = apply(params["mixer"], h, cfg=cfg, mode=mode,
                              cache=cache)
-    x = x + y
+    x = x + mine(y)
     aux = None
     if ffn == MLP:
-        h = rms_norm(x, params["ffn_norm"], cfg.norm_eps)
-        x = x + F.mlp_apply(params["ffn"], h)
+        h = full(rms_norm(x, params["ffn_norm"], cfg.norm_eps))
+        x = x + mine(F.mlp_apply(params["ffn"], h, ctx=ctx,
+                                 tp_axis=_tp_hidden(ctx, specs, "ffn")))
     elif ffn == MOE:
-        h = rms_norm(x, params["ffn_norm"], cfg.norm_eps)
-        y, aux = F.moe_apply(params["ffn"], h, cfg=cfg, mode=mode,
-                             placement=placement,
-                             microbatches=decode_microbatches)
-        x = x + y
+        h = full(rms_norm(x, params["ffn_norm"], cfg.norm_eps))
+        y, aux = F.moe_apply(
+            params["ffn"], h, cfg=cfg, mode=mode, placement=placement,
+            microbatches=decode_microbatches, ctx=ctx,
+            tp_axis=_tp_hidden(ctx, None if specs is None
+                               else specs["ffn"], "shared"))
+        x = x + mine(y)
     return x, new_cache, aux
 
 
@@ -209,16 +237,38 @@ class Model:
     (``window_override``) where the architecture does not already avoid
     a cache that grows with the sequence, as in the reference.
     ``remat="full"`` recomputes each superblock's activations in the
-    backward pass of training (the reference's ``MeshCtx.remat``)."""
+    backward pass of training (the reference's ``MeshCtx.remat``).
 
-    def __init__(self, cfg: ModelConfig, *, decode_microbatches: int = 1,
+    ``ctx`` (default: the 1×1 smoke context, the one-device path) is the
+    mesh: on more than one rank (one process each, SPMD) every rank holds
+    its block of each parameter under the rules ``rules`` resolve
+    (``launch/sharding.py``; default ``LOGICAL_RULES``, ``DECODE_RULES``
+    for the decode profile), gathers at use the dims its computation does
+    not shard (the FSDP ``embed`` dim), and runs heads tensor-parallel,
+    experts over the EP axes and the decode cache over the sequence axis.
+    Inputs and outputs stay global: each rank takes its batch block where
+    the batch divides the batch axes (replicated otherwise, as
+    ``batch_pspec``), and the logits are all-gathered, so every rank
+    samples the same token. Caches: a prefill or chunk buffer is the
+    batch block with every slot; the decode cache
+    (``init_cache(local=True)`` or :meth:`place_cache`) also only this
+    rank's slots. GQA, ring-window GQA and MLA mixers with MLP and MoE
+    are ported to a mesh; training, the MTP head, cross-attention, the
+    recurrent blocks and the encoder raise there."""
+
+    def __init__(self, cfg: ModelConfig, *, ctx=None, rules=None,
+                 decode_microbatches: Optional[int] = None,
                  long_context: bool = False, remat: str = "none"):
         if remat not in ("none", "full"):
             raise ValueError(f"remat must be 'none' or 'full', got {remat!r}")
         kinds = cfg.layer_kinds()
         self.cfg = cfg
         self.remat = remat
-        self.decode_microbatches = decode_microbatches
+        self.ctx = make_smoke_ctx() if ctx is None else ctx
+        self.sharded = self.ctx.sharded
+        self.decode_microbatches = (self.ctx.decode_microbatches
+                                    if decode_microbatches is None
+                                    else decode_microbatches)
         self.dtype = dtype_of(cfg.dtype)
         self.window_override = (cfg.long_context_window
                                 if long_context
@@ -235,6 +285,16 @@ class Model:
         # rule: the head has no memory)
         mixer = self.pattern[-1][0]
         self.mtp_kind = (ATTN if mixer == CROSS_ATTN else mixer, MLP)
+        #: mixers not ported to a mesh (raise when run on one)
+        self._off_mesh = sorted({m for m, _ in kinds}
+                                - {ATTN, LOCAL_ATTN, MLA_ATTN}
+                                | ({"encoder"} if cfg.is_encdec else set()))
+        #: each parameter's spec under ``rules`` on ``ctx.mesh``
+        self.specs = shd.param_pspecs(self.param_spec(), self.ctx.mesh,
+                                      rules)
+        self._sb_specs = (tree_map(lambda sp: shd.PSpec(*sp[1:]),
+                                   self.specs["blocks"])
+                          if self.n_sb else None)
 
     # ------------------------------------------------------------------
     # parameters
@@ -276,33 +336,73 @@ class Model:
         return spec
 
     def init(self, seed: int = 0, *, device="cuda") -> PyTree:
-        """Random weights made on ``device`` from a seeded generator, with
-        the reference's distributions (truncated-normal fan-in, 0.02
-        embeddings, zero norm deviations)."""
+        """Random weights from ``seed`` with the reference's
+        distributions (truncated-normal fan-in, 0.02 embeddings, zero
+        norm deviations), the same on every device: leaf ``i``
+        (:meth:`init_leaf`) is a function of ``(seed, i)``, drawn where it
+        lives, one leaf at a time. On a mesh each rank keeps only its
+        block of each leaf: drawn alone where one dim is cut, else made
+        whole in host memory and cut there."""
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        count = iter(range(1 << 30))
+        return shd.spec_tree_map(
+            lambda s, spec: self.init_leaf(seed, next(count), s, spec, dev),
+            self.param_spec(), self.specs)
 
-        def make(s: ParamSpec):
-            if callable(s.init):
-                return s.init(s.shape, gen, dev).to(s.dtype)
-            if s.init == "zeros":
-                return torch.zeros(s.shape, dtype=s.dtype, device=dev)
+    def init_leaf(self, seed: int, i: int, s: ParamSpec, spec,
+                  device) -> torch.Tensor:
+        """Leaf ``i`` (in :meth:`param_spec` order) of :meth:`init`, this
+        rank's block of it under ``spec``, on ``device``."""
+        ctx = self.ctx
+        dims = [k for k in range(len(s.shape)) if spec.entry(k) is not None
+                and ctx.axis_size(spec.entry(k)) > 1]
+        if s.init in ("dense", "embed") and len(dims) == 1:
+            # one dim cut, the ones after it whole: draw the block alone
+            k = dims[0]
+            size = s.shape[k] // ctx.axis_size(spec.entry(k))
+            lo = ctx.axis_index(spec.entry(k)) * size
+            blk = (tuple(s.shape), k, lo, lo + size)
             if s.init == "embed":
-                return embed_init(s.shape, s.dtype, gen, dev)
-            return dense_init(s.shape, s.dtype, s.fan_in, gen, dev)
-        return tree_map(make, self.param_spec())
+                return embed_init(s.shape, s.dtype, part_seed(seed, i),
+                                  device, block=blk)
+            return dense_init(s.shape, s.dtype, s.fan_in,
+                              part_seed(seed, i), device, block=blk)
+        where = device if not dims else "cpu"
+        if callable(s.init):
+            gen = torch.Generator().manual_seed(part_seed(seed, i))
+            t = s.init(s.shape, gen, "cpu").to(s.dtype)
+        elif s.init == "zeros":
+            t = torch.zeros(s.shape, dtype=s.dtype, device=where)
+        elif s.init == "embed":
+            t = embed_init(s.shape, s.dtype, part_seed(seed, i), where)
+        else:
+            t = dense_init(s.shape, s.dtype, s.fan_in, part_seed(seed, i),
+                           where)
+        if dims:
+            t = shd.take_local(t, spec, ctx)
+        return t.to(device)
 
     # ------------------------------------------------------------------
     # caches
     # ------------------------------------------------------------------
+    def cache_spec(self, batch: int, max_len: int, *,
+                   mem_len: Optional[int] = None) -> PyTree:
+        """The global cache's leaves as ``meta`` tensors (shape and dtype
+        stand-ins), in :meth:`init_cache`'s layout."""
+        return self.init_cache(batch, max_len, mem_len=mem_len,
+                               device="meta")
+
     def init_cache(self, batch: int, max_len: int, *,
-                   mem_len: Optional[int] = None, device="cuda") -> PyTree:
+                   mem_len: Optional[int] = None, device="cuda",
+                   local: bool = False) -> PyTree:
         """Zeros in each block's cache layout (:func:`block_cache_spec`):
         ``prefix`` and ``tail`` per layer, ``blocks`` stacked; a
         cross-attention layer keeps ``mem_len`` slots (default
-        ``cfg.num_frontend_tokens``)."""
-        dev = resolve_device(device)
+        ``cfg.num_frontend_tokens``). On a mesh: this rank's batch block
+        where the batch divides the batch axes, every slot; with
+        ``local=True`` the decode layout (``cache_pspecs``), only this
+        rank's block of slots too."""
+        dev = device if device == "meta" else resolve_device(device)
         mem_len = mem_len or self.cfg.num_frontend_tokens
 
         def zeros(kind, lead=()):
@@ -311,6 +411,13 @@ class Model:
                                     mem_len)
             return {n: torch.zeros(lead + s, dtype=dt, device=dev)
                     for n, (s, dt) in spec.items()}
+        if self.sharded and dev != "meta":
+            full = self.cache_spec(batch, max_len, mem_len=mem_len)
+            return shd.spec_tree_map(
+                lambda t, sp: torch.zeros(shd.local_shape(t.shape, sp,
+                                                          self.ctx),
+                                          dtype=t.dtype, device=dev),
+                full, self._layout_specs(full, local))
         cache: Dict[str, PyTree] = {}
         if self.prefix_kinds:
             cache["prefix"] = tuple(zeros(k) for k in self.prefix_kinds)
@@ -320,6 +427,52 @@ class Model:
         if self.tail_kinds:
             cache["tail"] = tuple(zeros(k) for k in self.tail_kinds)
         return cache
+
+    def _layout_specs(self, full: PyTree, local: bool) -> PyTree:
+        """Specs of a global cache ``full`` (leaves with ``.shape``): the
+        decode layout (``local``: ``cache_pspecs``) or the prefill layout
+        (the batch only). The decode layout must cut the slots wherever
+        the sequence axis has ranks and ``shard_kv_seq`` is on, as the
+        reference's decode ``shard_map`` requires."""
+        ctx = self.ctx
+        seq_on = ctx.shard_kv_seq and ctx.axis_size(ctx.seq_axis) > 1
+
+        def pick(keys, sp):
+            if keys[-1] not in ("k", "v", "ckv", "krope"):
+                return sp
+            dim = 2 if "blocks" in keys else 1
+            if not local:
+                return shd.PSpec(*(None if i == dim else e
+                                   for i, e in enumerate(sp)))
+            if seq_on and sp.entry(dim) is None:
+                raise ValueError(f"decode cache {keys}: its slots do not "
+                                 f"divide the {ctx.seq_axis!r} axis")
+            return sp
+        return shd.map_with_paths(shd.cache_pspecs(full, ctx), pick)
+
+    def place_cache(self, cache: PyTree, batch: int) -> PyTree:
+        """A cache in the prefill layout (this rank's batch block of a
+        global batch of ``batch`` rows, every slot) → the decode layout:
+        this rank's block of slots, copied out."""
+        if not self.sharded:
+            return cache
+
+        def glob(keys, t):
+            shape = list(t.shape)
+            shape[1 if "blocks" in keys else 0] = batch
+            return torch.empty(shape, dtype=t.dtype, device="meta")
+        specs = self._layout_specs(shd.map_with_paths(cache, glob), True)
+
+        flat: Dict[tuple, Any] = {}
+        shd.map_with_paths(specs, lambda k, sp: flat.__setitem__(k, sp))
+
+        def cut(keys, t):
+            if keys[-1] not in ("k", "v", "ckv", "krope"):
+                return t
+            dim = 2 if "blocks" in keys else 1
+            e = flat[keys].entry(dim)
+            return t if e is None else self.ctx.take_block(t, dim, e).clone()
+        return shd.map_with_paths(cache, cut)
 
     def _mtp_kv_spec(self, batch: int, max_len: int):
         # no window_override, as the reference's MTP block
@@ -347,8 +500,68 @@ class Model:
     # ------------------------------------------------------------------
     # core stack application
     # ------------------------------------------------------------------
+    def _view(self, p, spec):
+        """A layer's parameters as it computes with them, and their specs:
+        on a mesh every sharded dim is all-gathered except the heads and
+        hidden dims on the TP axis and the expert dim on the EP axes
+        (None, None on one device)."""
+        if not self.sharded:
+            return p, None
+        ctx = self.ctx
+        ep = ctx.ep_axis
+        if not isinstance(ep, str):
+            ep = tuple(ep) if len(ep) > 1 else ep[0]
+
+        def walk(p, sp, keys):
+            if isinstance(p, dict):
+                parts = {k: walk(p[k], sp[k], keys + (k,)) for k in p}
+                return ({k: v[0] for k, v in parts.items()},
+                        {k: v[1] for k, v in parts.items()})
+            if isinstance(p, tuple):
+                parts = [walk(a, b, keys + (i,))
+                         for i, (a, b) in enumerate(zip(p, sp))]
+                return tuple(a for a, _ in parts), tuple(b for _, b in parts)
+            rule = shd.PARAM_RULES.get((keys[-1], p.dim())) or ()
+            kept = []
+            for dim in range(p.dim()):
+                e = sp.entry(dim)
+                lg = rule[dim] if dim < len(rule) else None
+                if e is None or (lg in ("heads", "kv_heads", "mlp")
+                                 and e == ctx.tp_axis) or (
+                                     lg == "expert" and e == ep):
+                    kept.append(e)
+                else:
+                    p = ctx.all_gather(p, e, dim=dim)
+                    kept.append(None)
+            return p, shd.PSpec(*kept)
+        return walk(p, spec, ())
+
+    def _batch_ctx(self, batch: int):
+        """(ctx, sharded): the context a global batch of ``batch`` rows
+        runs under — batch axes only where they divide it (the rows are
+        replicated otherwise, as ``batch_pspec``)."""
+        ctx = self.ctx
+        if not self.sharded or (ctx.dp_size > 1 and batch % ctx.dp_size == 0):
+            return ctx, ctx.dp_size > 1
+        return dataclasses.replace(ctx, batch_axes=()), False
+
+    def _rows(self, ctx, sharded: bool, *ts):
+        """This rank's batch block of each tensor (or the tensor)."""
+        if not sharded:
+            return ts
+        return tuple(ctx.take_block(t, 0, ctx.batch_axes) for t in ts)
+
+    def _residual_constraint(self, x, mode: str, ctx):
+        """The sequence-parallel residual in prefill: ``x`` cut to this
+        rank's block of the sequence over the TP axis where it divides;
+        → (x, axis or None)."""
+        if (self.sharded and mode in ("train", "prefill", "chunk")
+                and ctx.tp_size > 1 and x.shape[1] % ctx.tp_size == 0):
+            return ctx.take_block(x, 1, ctx.tp_axis), ctx.tp_axis
+        return x, None
+
     def _apply_stack(self, params, x, *, mode, caches=None, positions=None,
-                     memory=None, placement=None):
+                     memory=None, placement=None, ctx=None, sp_axis=None):
         """→ (x, caches, aux). ``caches`` is updated in place in
         ``decode``/``chunk`` mode and returned; ``prefill`` returns
         freshly built caches, ``train`` none. ``aux`` is None except in
@@ -357,6 +570,9 @@ class Model:
         their counts summed ([E] float32; [1] zeros without MoE), as the
         reference's ``aux_sum`` and ``counts``."""
         cfg = self.cfg
+        if self.sharded and self._off_mesh:
+            raise NotImplementedError(f"{cfg.name}: {self._off_mesh} are "
+                                      f"not ported to a mesh")
         train = mode == "train"
         np_, pl_len = len(self.prefix_kinds), len(self.pattern)
         new_caches: Dict[str, PyTree] = {}
@@ -367,13 +583,17 @@ class Model:
                    torch.zeros((cfg.moe.num_experts if cfg.has_moe else 1,),
                                dtype=torch.float32, device=x.device))
 
-        def layer(p, x, kind, c, gl, aux):
+        ctx = self.ctx if ctx is None else ctx
+
+        def layer(p, x, kind, c, gl, aux, spec):
             lp = None if placement is None else placement.layer(gl)
+            p, lspec = self._view(p, spec)
             x, nc, moe = block_apply(
                 p, x, cfg=cfg, kind=kind, mode=mode, cache=c,
                 positions=positions, memory=memory, placement=lp,
                 decode_microbatches=self.decode_microbatches,
-                window_override=self.window_override)
+                window_override=self.window_override, ctx=ctx, specs=lspec,
+                sp_axis=sp_axis)
             if train and moe is not None:
                 aux = (aux[0] + moe["moe_lb_loss"], aux[1] + moe["moe_z_loss"],
                        aux[2] + moe["expert_counts"])
@@ -384,7 +604,7 @@ class Model:
             for i, kind in enumerate(kinds):
                 c = None if caches is None else caches[section][i]
                 x, nc, aux = layer(params[section][i], x, kind, c, first + i,
-                                   aux)
+                                   aux, self.specs[section][i])
                 out.append(nc)
             if out and not train:
                 new_caches[section] = tuple(out)
@@ -395,8 +615,10 @@ class Model:
             for i, kind in enumerate(self.pattern):
                 c = (None if caches is None
                      else _index(caches["blocks"][f"pos{i}"], sb))
-                x, ncs[f"pos{i}"], aux = layer(sb_params[f"pos{i}"], x, kind,
-                                               c, np_ + sb * pl_len + i, aux)
+                x, ncs[f"pos{i}"], aux = layer(
+                    sb_params[f"pos{i}"], x, kind, c, np_ + sb * pl_len + i,
+                    aux, None if self._sb_specs is None
+                    else self._sb_specs[f"pos{i}"])
             return (x, *aux), ncs
 
         x, aux = unrolled("prefix", self.prefix_kinds, 0, x, aux)
@@ -418,6 +640,8 @@ class Model:
                          for n in per_sb[0][k]} for k in per_sb[0]})
         x, aux = unrolled("tail", self.tail_kinds,
                           np_ + self.n_sb * pl_len, x, tuple(aux))
+        if sp_axis is not None:
+            x = ctx.all_gather(x, sp_axis, dim=1)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         if train:
             return x, None, tuple(aux)
@@ -458,11 +682,54 @@ class Model:
             return params["embed"].T
         return params["lm_head"]
 
-    def _embed(self, params, tokens):
-        return params["embed"][tokens].to(self.dtype)
+    def _embed(self, params, tokens, ctx=None):
+        """tokens [B, S] (this rank's rows) → [B, S, d]. On a mesh the
+        table is this rank's block of the vocabulary (and of d, gathered):
+        each rank looks up the ids in its block, zeros elsewhere, and a
+        float32 ``psum`` over the vocab axes adds the one non-zero row —
+        over the tokens of every rank of those axes that holds other
+        rows, sliced back after."""
+        if not self.sharded:
+            return params["embed"][tokens].to(self.dtype)
+        ctx = self.ctx if ctx is None else ctx
+        spec = self.specs["embed"]
+        table = shd.gather_local(params["embed"], spec, ctx, dims=(1,))
+        ve = spec.entry(0)
+        if ve is None:
+            return table[tokens].to(self.dtype)
+        ve_t = (ve,) if isinstance(ve, str) else tuple(ve)
+        over = tuple(a for a in ve_t if a in ctx.batch_axes)
+        if over:
+            tokens = ctx.all_gather(tokens, over, dim=0)
+        n_v = table.shape[0]
+        local = tokens.long() - ctx.axis_index(ve) * n_v
+        inside = (local >= 0) & (local < n_v)
+        x = torch.where(inside[..., None], table[local.clamp(0, n_v - 1)],
+                        torch.zeros((), dtype=table.dtype,
+                                    device=table.device))
+        x = ctx.psum(x.float(), ve).to(self.dtype)
+        return ctx.take_block(x, 0, over) if over else x
 
-    def _logits(self, params, h):
-        return torch.matmul(h.float(), self._unembed(params).float())
+    def _logits(self, params, h, ctx=None):
+        """h [B, d] (this rank's rows) → logits [B_global, V] f32. On a
+        mesh: the rows all-gathered over the batch axes, the product with
+        this rank's block of the vocabulary, all-gathered over the vocab
+        axes — so every rank holds the same logits."""
+        if not self.sharded:
+            return torch.matmul(h.float(), self._unembed(params).float())
+        ctx = self.ctx if ctx is None else ctx
+        if self.cfg.tie_embeddings:
+            w = params["embed"].T
+            sp = self.specs["embed"]
+            spec = shd.PSpec(sp.entry(1), sp.entry(0))
+        else:
+            w, spec = params["lm_head"], self.specs["lm_head"]
+        w = shd.gather_local(w, spec, ctx, dims=(0,))
+        if ctx.batch_axes:
+            h = ctx.all_gather(h, ctx.batch_axes, dim=0)
+        logits = torch.matmul(h.float(), w.float())
+        ve = spec.entry(1)
+        return logits if ve is None else ctx.all_gather(logits, ve, dim=1)
 
     def _memory(self, params, memory):
         """What the cross-attention layers read, in the model's dtype:
@@ -485,6 +752,9 @@ class Model:
         cache is built and no kernel launched: the MoE layers run the
         plain versions. A model with cross-attention needs ``memory``,
         as :meth:`prefill`."""
+        if self.sharded:
+            raise NotImplementedError("forward_train on a mesh is not "
+                                      "ported")
         if self.has_cross:
             memory = self._memory(params, memory)
         x = self._embed(params, tokens)
@@ -503,14 +773,19 @@ class Model:
         the memory itself; it is taken in the model's dtype."""
         if self.has_cross:
             memory = self._memory(params, memory)
-        x = self._embed(params, tokens)
+        ctx, rows = self._batch_ctx(tokens.shape[0])
+        (tokens,) = self._rows(ctx, rows, tokens)
+        if last_pos is not None:
+            (last_pos,) = self._rows(ctx, rows, last_pos)
+        x = self._embed(params, tokens, ctx)
+        x, sp = self._residual_constraint(x, "prefill", ctx)
         x, caches, _ = self._apply_stack(params, x, mode="prefill",
-                                         memory=memory)
+                                         memory=memory, ctx=ctx, sp_axis=sp)
         if last_pos is None:
             h = x[:, -1]
         else:
             h = x[torch.arange(x.shape[0], device=x.device), last_pos]
-        return self._logits(params, h), caches
+        return self._logits(params, h, ctx), caches
 
     def prefill_chunk(self, params, cache, tokens, offset: int, last_pos):
         """Run one contiguous chunk [B, S_chunk] of a prompt against the
@@ -521,11 +796,15 @@ class Model:
         if self.has_cross:
             raise ValueError(f"{self.cfg.name}: chunked prefill runs no "
                              f"cross-attention or encoder")
-        x = self._embed(params, tokens)
+        ctx, rows = self._batch_ctx(tokens.shape[0])
+        tokens, last_pos = self._rows(ctx, rows, tokens, last_pos)
+        x = self._embed(params, tokens, ctx)
+        x, sp = self._residual_constraint(x, "chunk", ctx)
         x, cache, _ = self._apply_stack(params, x, mode="chunk",
-                                        caches=cache, positions=int(offset))
+                                        caches=cache, positions=int(offset),
+                                        ctx=ctx, sp_axis=sp)
         h = x[torch.arange(x.shape[0], device=x.device), last_pos]
-        return self._logits(params, h), cache
+        return self._logits(params, h, ctx), cache
 
     def decode_step(self, params, cache, tokens, positions, placement=None):
         """tokens [B, 1]; positions [B] → (logits [B, V] f32, cache); the
@@ -540,11 +819,13 @@ class Model:
         """:meth:`decode_step` that also returns the final hidden state
         ``[B, 1, d]``, the MTP head's conditioning input. ``decode_step``
         delegates here, so the two give bit-identical logits."""
-        x = self._embed(params, tokens)
+        ctx, rows = self._batch_ctx(tokens.shape[0])
+        tokens, positions = self._rows(ctx, rows, tokens, positions)
+        x = self._embed(params, tokens, ctx)
         x, cache, _ = self._apply_stack(params, x, mode="decode",
                                         caches=cache, positions=positions,
-                                        placement=placement)
-        return self._logits(params, x[:, -1]), x[:, -1:], cache
+                                        placement=placement, ctx=ctx)
+        return self._logits(params, x[:, -1], ctx), x[:, -1:], cache
 
     # ------------------------------------------------------------------
     # MTP draft head (§4.6): h' = Block(proj([norm(h); norm(e_next)]))
@@ -558,6 +839,8 @@ class Model:
         runs the train mode over the sequence it is given and keeps no
         cache, as the reference. The draft-cache fill pass calls
         only this: eager PyTorch would run a discarded ``_logits``."""
+        if self.sharded:
+            raise NotImplementedError("the MTP head on a mesh is not ported")
         cfg = self.cfg
         mp = params["mtp"][mtp_index]
         e = self._embed(params, next_tokens)
@@ -577,6 +860,14 @@ class Model:
         h, cache = self.mtp_hidden(params, mtp_index, hidden, next_tokens,
                                    positions, mtp_cache)
         return self._logits(params, h[:, -1]), h, cache
+
+
+def build_model(cfg: ModelConfig, ctx, long_context: bool = False,
+                rules=None) -> Model:
+    """The reference's entry: a model on ``ctx`` (its ``remat`` and
+    ``decode_microbatches`` too)."""
+    return Model(cfg, ctx=ctx, rules=rules, long_context=long_context,
+                 remat=ctx.remat)
 
 
 def seeded_memory(cfg: ModelConfig, generator: torch.Generator, device,

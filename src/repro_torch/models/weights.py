@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.sharding import take_local
 from repro_torch.models.common import resolve_device
 from repro_torch.models.transformer import Model
 from repro_torch.train.optimizer import AdamWState
@@ -60,13 +61,17 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
 
 
 def from_jax_params(tree, cfg: ModelConfig, device="cuda",
-                    dtype=None) -> Dict:
+                    dtype=None, ctx=None, rules=None) -> Dict:
     """Map the JAX reference's parameter tree (numpy leaves) onto the
     port's parameter tree on ``device`` — or a tree of the params' shape,
     such as their gradients; ``dtype`` (e.g. float32 for AdamW's
-    moments) replaces every leaf's expected dtype."""
+    moments) replaces every leaf's expected dtype. With a mesh context
+    ``ctx`` each leaf is cut to this rank's block under the specs
+    ``rules`` resolve (``Model(cfg, ctx=ctx, rules=rules).specs``)."""
     dev = resolve_device(device)
-    spec = Model(cfg).param_spec()
+    model = Model(cfg, ctx=ctx, rules=rules)
+    spec = model.param_spec()
+    specs = flatten(model.specs) if model.sharded else None
     want = flatten(spec)
     got = flatten(tree)
     missing = sorted(set(want) - set(got))
@@ -80,6 +85,8 @@ def from_jax_params(tree, cfg: ModelConfig, device="cuda",
         if tuple(t.shape) != tuple(s.shape) or t.dtype != dt:
             raise ValueError(f"weight bridge: {path} is {tuple(t.shape)} "
                              f"{t.dtype}, expected {s.shape} {dt}")
+        if specs is not None:
+            t = take_local(t, specs[path], model.ctx)
         leaves[path] = t.to(dev)
     return _unflatten_like(spec, leaves)
 

@@ -255,18 +255,21 @@ def _bucket_len(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:
     return -(-n // 2048) * 2048
 
 
-def _map_pairs(fn, full, one):
+def _map_pairs(fn, full, one, names: bool = False):
     """Apply ``fn(full_leaf, one_leaf, stacked)`` over two cache trees of
-    the model's layout (``stacked`` for the ``blocks`` leaves)."""
+    the model's layout (``stacked`` for the ``blocks`` leaves); with
+    ``names`` also the leaf's name."""
     for section, sub in full.items():
         if section == "blocks":
             for pos, leaves in sub.items():
                 for n, t in leaves.items():
-                    fn(t, one[section][pos][n], True)
+                    fn(t, one[section][pos][n], True, *((n,) if names
+                                                        else ()))
         else:
             for i, leaves in enumerate(sub):
                 for n, t in leaves.items():
-                    fn(t, one[section][i][n], False)
+                    fn(t, one[section][i][n], False, *((n,) if names
+                                                       else ()))
 
 
 class TorchBackend(ExecutionBackend):
@@ -281,7 +284,12 @@ class TorchBackend(ExecutionBackend):
     drafts per iteration; it needs a model with an MTP head. ``memory``
     [B, M, md]: what a model with cross-attention reads (a VLM's patch
     embeddings, an encoder-decoder's frames), moved to the device; each
-    prefill takes its first row, as the reference's ``JAXBackend``."""
+    prefill takes its first row, as the reference's ``JAXBackend``.
+
+    On a mesh (the model's ``ctx``) each rank runs its own backend on the
+    same inputs: the decode cache is this rank's block (``init_cache``,
+    ``write_slot``), the logits come back all-gathered, so every rank
+    draws the same tokens; prefix KV and MTP are not ported there."""
 
     def __init__(self, model, params: PyTree, *, max_len: int = 256,
                  memory: Optional[torch.Tensor] = None, seed: int = 0,
@@ -298,14 +306,21 @@ class TorchBackend(ExecutionBackend):
             raise ValueError(
                 f"mtp_k={mtp_k} requires a model with an MTP head "
                 f"(cfg.mtp_num_layers > 0)")
+        if self.mtp_k and model.sharded:
+            raise NotImplementedError("MTP serving on a mesh is not ported")
         self.vocab_size = model.cfg.vocab_size
         self._placement = None
+        self._cache_batch = 0
 
     def _ints(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
 
     def init_cache(self, max_batch: int, max_len: int) -> PyTree:
-        return self.model.init_cache(max_batch, max_len, device=self.device)
+        """The decode cache; on a mesh in the decode layout (this rank's
+        slots)."""
+        self._cache_batch = max_batch
+        return self.model.init_cache(max_batch, max_len, device=self.device,
+                                     local=True)
 
     @torch.no_grad()
     def prefill(self, tokens: List[int]) -> Tuple[PyTree, np.ndarray]:
@@ -359,8 +374,9 @@ class TorchBackend(ExecutionBackend):
 
     @property
     def supports_prefix_kv(self) -> bool:
-        """Seeding rides the incremental-prefill machinery."""
-        return self.supports_chunked_prefill
+        """Seeding rides the incremental-prefill machinery (not ported to
+        a mesh)."""
+        return self.supports_chunked_prefill and not self.model.sharded
 
     def slice_prefill_kv(self, cache: PyTree, tokens: List[int],
                          start: int, end: int) -> PyTree:
@@ -394,7 +410,12 @@ class TorchBackend(ExecutionBackend):
         ring into the slot's [L, ...], a memory's [M, ...] cross K/V into
         the slot's ``num_frontend_tokens``; a recurrent ``state`` or
         ``conv`` history has the slot's shape already) and cast to its
-        dtype."""
+        dtype. On a mesh the decode cache is this rank's block: the rank
+        that owns the slot's row writes its block of the slots, and the
+        others write nothing."""
+        if self.model.sharded:
+            return self._write_slot_sharded(cache, cache1, slot)
+
         def one(full, part, stacked):
             # the batch axis: 1 in stacked leaves [n_sb, B, ...], else 0
             dst = full[:, slot] if stacked else full[slot]
@@ -406,6 +427,36 @@ class TorchBackend(ExecutionBackend):
             dst.zero_()
             dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
         _map_pairs(one, cache, cache1)
+        return cache
+
+    def _write_slot_sharded(self, cache: PyTree, cache1: PyTree,
+                            slot: int) -> PyTree:
+        from repro_torch.models.attention import _seq_block
+
+        ctx = self.model.ctx
+        B = self._cache_batch
+        if ctx.dp_size > 1 and B % ctx.dp_size == 0:
+            b_loc = B // ctx.dp_size
+            if slot // b_loc != ctx.axis_index(ctx.batch_axes):
+                return cache
+            slot = slot % b_loc
+
+        def one(full, part, stacked, name):
+            dst = full[:, slot] if stacked else full[slot]
+            src = part[:, 0] if stacked else part[0]
+            ax = 1 if stacked else 0         # the slots, in dst and src
+            s0 = 0
+            if name in ("k", "v", "ckv", "krope"):
+                s0 = _seq_block(ctx, dst.shape[ax])[1]
+            n = max(0, min(src.shape[ax] - s0, dst.shape[ax]))
+            src = src.narrow(ax, min(s0, src.shape[ax]), n)
+            if src.dim() != dst.dim() or any(
+                    s > d for s, d in zip(src.shape, dst.shape)):
+                raise ValueError(f"write_slot: a {tuple(src.shape)} leaf "
+                                 f"does not fit a {tuple(dst.shape)} slot")
+            dst.zero_()
+            dst[tuple(slice(0, m) for m in src.shape)].copy_(src)
+        _map_pairs(one, cache, cache1, names=True)
         return cache
 
     def apply_placement(self, table: Optional[Any]) -> None:

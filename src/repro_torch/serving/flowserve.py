@@ -10,6 +10,15 @@ with §4.6 MTP speculative decoding: each decode iteration drafts
 ``memory`` is what a model with cross-attention reads (a VLM's patch
 embeddings, an encoder-decoder's frames), handed to every group's
 backend.
+
+``ctx`` (as the reference's ``FlowServeEngine(ctx=)``) serves on a mesh:
+one process per rank, each running this engine on the same requests.
+The model holds this rank's parameter blocks (``rules``, default
+``LOGICAL_RULES``; given ``params`` must be in that layout, as
+``Model.init`` or ``from_jax_params(ctx=)`` make them) and each DP
+group's decode cache is this rank's block. Every rank samples from the
+same all-gathered logits with the same seeds, so every rank emits the
+same tokens.
 """
 from __future__ import annotations
 
@@ -34,10 +43,11 @@ class FlowServeEngine:
                  max_len: int = 256, seed: int = 0,
                  token_budget: int = 8192,
                  chunk_tokens: Optional[int] = None, mtp_k: int = 0,
-                 memory=None):
+                 memory=None, ctx=None, rules=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = Model(cfg)
+        self.model = Model(cfg, ctx=ctx, rules=rules)
+        self.ctx = self.model.ctx
         if params is None:
             params = self.model.init(seed, device=self.device)
         self.params = params

@@ -67,6 +67,11 @@ def test_import_loads_no_jax_and_no_reference_package():
             "repro_torch.train.data", "repro_torch.train.checkpoint",
             "repro_torch.train.train_loop", "repro_torch.launch.train",
             "repro_torch.launch.steps"} <= on_disk
+    # the multi-device layer: the mesh context, meshes and sharding
+    # rules, and the §3.1 ring-buffer protocol
+    assert {"repro_torch.models.mesh_ctx", "repro_torch.launch.mesh",
+            "repro_torch.launch.sharding",
+            "repro_torch.xccl.primitives"} <= on_disk
 
 
 @pytest.mark.parametrize("needle", ["import jax", "from jax", "import repro.",
