@@ -387,11 +387,33 @@ R. the multi-device layer (``models/mesh_ctx.py``, ``launch/mesh.py``,
    kernel's partial output (a shard's max, sum and unnormalised output)
    at Llama-4's shard shape (B 4, 40 heads on 8, hd 128, 512 of 1024
    slots) held to its plain version and timed beside it and SDPA;
+S. serving on a mesh, the rest of DeepSeek-V3's path: S1 (in R1's
+   process, on its DeepSeek-V3 weights, depth 4 with the MTP head) on
+   the live 1x1 NCCL mesh, MTP serving at k 1 and 2, prefix seeding
+   (the same split cold and seeded, then a remote and a local pod hit)
+   and ``DisaggregatedPD(ctx=)`` (the pod directory, MTP k 1): tokens,
+   hits, streams and launches the one-device runs', the prefix logits
+   bit for bit; then two ranks sharing the card over gloo (after R2):
+   S2 DeepSeek-V3 on (2,1) under ``DECODE_RULES`` (EP 2, DP attention:
+   the paper's decode deployment) serving with MTP k 1, every launch
+   replayed on its plain version: both ranks' tokens and accepted
+   counts equal, the head's draft logits and the verify chain's logits
+   of the rows routed alike within 0.08 of one device's, each
+   iteration's wire and host-staged bytes, each rank's peak memory and
+   launches; S4 that model's 512-token prefill KV from rank 0 to rank 1
+   over the ``pd`` axis of a (2,1,1) mesh (``KVLayout``), bit-equal,
+   its bytes and host-staged ms (not a wire figure), then
+   ``DisaggregatedPD(ctx=)`` on (2,1), its greedy tokens against the
+   one-device PD run's (reported); S3 Llama-4 (depth 2) on (1,2),
+   prefix seeding: seeded and cold prefill device ms, the seeded logits
+   bit-identical to the cold split, the seeded slot decoding through the
+   partial decode attention;
 
 13. print the card's name and power limit, one JSON line with every
     kernel's launches per path, error, times and bound (Collect's
     launches are the route-pack launches that ran its body; the partial
-    decode attention's are R2's), then the final ``{"ok": true, ...}``
+    decode attention's are R2's and S3's), then the final
+    ``{"ok": true, ...}``
     line.
 """
 from __future__ import annotations
@@ -4940,7 +4962,8 @@ R1_PROMPTS = {DEEPSEEK: PROMPTS, LLAMA: LLAMA_PROMPTS[1:]}
 def r1_rank(rank, world, init):
     """R1 in a process of its own (the NCCL group stays out of the main
     process): for DeepSeek-V3 (depth 4, its MTP head) and Llama-4 (depth
-    2), the seed's weights made on the card, :func:`r1_world_one`."""
+    2), the seed's weights made on the card, :func:`r1_world_one`; on
+    DeepSeek-V3's, S1 (:func:`s1_world_one`). → path → result."""
     sys.path.insert(0, str(ROOT / "src"))
     torch.cuda.set_device(0)
     from repro_torch.configs import get_config
@@ -4955,7 +4978,9 @@ def r1_rank(rank, world, init):
     for arch, depth in ((DEEPSEEK, 4), (LLAMA, 2)):
         cfg = dataclasses.replace(get_config(arch), num_layers=depth)
         params = Model(cfg).init(0, device="cuda")
-        out[arch] = r1_world_one(cfg, params, R1_PROMPTS[arch], ctx)
+        out[f"{arch}/R1"] = r1_world_one(cfg, params, R1_PROMPTS[arch], ctx)
+        if arch == DEEPSEEK:
+            out[f"{arch}/S1"] = s1_world_one(cfg, params, ctx)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -5497,9 +5522,508 @@ def r2_stage(get_config) -> dict:
         free(f"R2 pinned witness {arch}")
     check(any("decode_attention_partial" in k for k, _ in results.values()),
           "R2 launched the partial decode attention")
-    for arch, res in r1.items():
-        results[f"{arch}/R1"] = ({}, res)
+    for path, res in r1.items():
+        results[path] = ({}, res)
     log(f"R2: {len(cases)} cases on 2 ranks in {spawn_s:.1f} s")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# stage S: serving on a mesh — MTP, prefix-KV seeding, disaggregated PD —
+# and the KV moved between rank groups
+# ---------------------------------------------------------------------------
+#: S's disaggregated PD: one prefill TE of two DP groups, one decode TE,
+#: the pod-pooled directory and MTP k 1 on the decode side
+S_PD_KW = dict(PD_KW, n_prefill_te=1, kv_pool=True, mtp_k=1)
+#: S2's verify chain and S4's transfer: the prompt of one request
+S4_LEN = 512
+#: S1's prefix split (DeepSeek-V3: PD_WAVES' first prompt, 84 tokens)
+#: and S3's (Llama-4: LLAMA_PROMPTS[0], 826 tokens)
+S1_STOPS, S3_STOPS = (64, 84), (512, 816, 826)
+
+
+@torch.no_grad()
+def s_prefix(model, params, toks, stops, max_len: int) -> dict:
+    """Prefix seeding on ``model``'s mesh: ``toks`` prefilled cold in
+    chunks ending at ``stops``, then seeded from the cold cache's
+    16-token block payloads up to the last stop but one and only the
+    suffix prefilled (logits and valid-region KV bit-identical, the same
+    split); then the pod path: a DP group caches the prompt's head,
+    another seeds from its blocks (a remote hit) and then from its own
+    (a local hit)."""
+    from repro_torch.serving.backend import TorchBackend
+    from repro_torch.serving.dp_group import DPGroup
+    from repro_torch.serving.kv_cache import PodKVDirectory
+    from repro_torch.serving.request import Request
+    from repro_torch.xccl.pd_transfer import pytree_bytes, slice_kv_chunk
+
+    n, seed = len(toks), stops[-2]
+    be = TorchBackend(model, params, max_len=max_len, device="cuda")
+    check(be.supports_prefix_kv, f"{model.cfg.name}: prefix KV on its mesh")
+
+    def cold():
+        return chunked(be, toks, stops)
+
+    def seeded():
+        return be.prefill_chunk(
+            be.seed_prefill_cache(be.read_remote_kv(payloads), seed, n),
+            toks[seed:], seed, n)
+    cache_c, log_c = cold()
+    payloads = [slice_kv_chunk(cache_c, b * 16, (b + 1) * 16)
+                for b in range(seed // 16)]
+    cache_s, log_s = seeded()
+    check((log_c == log_s).all() and kv_equal(slice_kv_chunk(cache_s, 0, n),
+                                              slice_kv_chunk(cache_c, 0, n)),
+          f"{model.cfg.name} prefix on its mesh: seeded at {seed} == cold "
+          f"split at {stops}, logits and KV bit for bit")
+    res = dict(cold_logits=log_c, seeded_logits=log_s,
+               cold_ms=time_ms(cold, reps=3, warm=1),
+               seeded_ms=time_ms(seeded, reps=3, warm=1),
+               payload_bytes=sum(pytree_bytes(p) for p in payloads))
+    pod = PodKVDirectory()
+    dps = [DPGroup(i, TorchBackend(model, params, max_len=max_len,
+                                   device="cuda"), max_batch=2,
+                   max_len=max_len, pod_directory=pod) for i in (0, 1)]
+    try:
+        dps[0].run_prefill(Request(prompt_tokens=toks[:seed + 4],
+                                   max_new_tokens=1))
+        remote = Request(prompt_tokens=list(toks), max_new_tokens=1)
+        _, res["remote_logits"] = dps[1].run_prefill(remote)
+        local = Request(prompt_tokens=list(toks), max_new_tokens=1)
+        _, res["local_logits"] = dps[1].run_prefill(local)
+        res["hits"] = (remote.prefix_hit_tokens, local.prefix_hit_tokens,
+                       dps[1].n_remote_hits, pod.n_remote_acquires,
+                       pod.n_releases)
+    finally:
+        for d in dps:
+            d.close()
+    check(res["hits"][0] == seed and res["hits"][2] == 1
+          and res["hits"][1] >= seed and res["hits"][3] == res["hits"][4],
+          f"{model.cfg.name} prefix on its mesh: a remote hit of {seed} "
+          f"tokens, then a local one, every pin released: {res['hits']}")
+    return res
+
+
+def s1_world_one(cfg, params, ctx) -> dict:
+    """S1: on ``ctx``, a live 1×1 NCCL mesh, MTP serving at k 1 and 2,
+    prefix seeding and ``DisaggregatedPD(ctx=)`` (the pod directory, MTP
+    k 1) against the one-device runs on the same weights: the same
+    tokens, hits and streams, the same kernel launches, the prefix
+    logits bit for bit."""
+    from repro_torch.core import DisaggregatedPD
+    from repro_torch.kernels import runtime
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.flowserve import FlowServeEngine
+    from repro_torch.serving.tokenizer import ByteTokenizer
+
+    toks = ByteTokenizer().encode(PD_WAVES[0][0])
+    check(len(toks) == S1_STOPS[-1], f"S1: an {S1_STOPS[-1]}-token prompt")
+    out = {}
+    for name, c in (("one_device", None), ("mesh", ctx)):
+        run = {}
+        for k in (1, 2):
+            eng = FlowServeEngine(cfg, params, device="cuda", n_dp_groups=2,
+                                  max_batch=4, mtp_k=k, ctx=c)
+            runtime.reset_launch_counts()
+            reqs, wall = serve(eng, PROMPTS, R_NEW)
+            run[f"mtp{k}"] = dict(tokens=[list(r.output_tokens)
+                                          for r in reqs],
+                                  launches=dict(runtime.LAUNCHES),
+                                  fused=dict(runtime.FUSED), serve_s=wall)
+            eng.close()
+        runtime.reset_launch_counts()
+        pre = s_prefix(Model(cfg, ctx=c), params, toks, S1_STOPS, 256)
+        run["prefix"] = dict(pre, launches=dict(runtime.LAUNCHES),
+                             fused=dict(runtime.FUSED))
+        pd = DisaggregatedPD(cfg, params, device="cuda", ctx=c, **S_PD_KW)
+        runtime.reset_launch_counts()
+        try:
+            reqs = serve_pd(pd, PD_WAVES, R_NEW)
+            run["pd"] = dict(summary=pd_summary(pd, reqs),
+                             launches=dict(runtime.LAUNCHES),
+                             fused=dict(runtime.FUSED))
+        finally:
+            pd.close()
+        out[name] = run
+        free(f"S1 {name}")
+    a, b = out["one_device"], out["mesh"]
+    for part in ("mtp1", "mtp2", "prefix", "pd"):
+        x, y = a[part], b[part]
+        check(x["launches"] == y["launches"] and x["fused"] == y["fused"],
+              f"S1 {part}: the mesh launches the one-device kernels: "
+              f"{x['launches']} vs {y['launches']}")
+    for k in (1, 2):
+        check(a[f"mtp{k}"]["tokens"] == b[f"mtp{k}"]["tokens"],
+              f"S1 MTP k {k}: the one-device tokens")
+    check(a["pd"]["summary"] == b["pd"]["summary"],
+          "S1 PD: the one-device TE choices, hits, streams and tokens")
+    for key in ("cold_logits", "seeded_logits", "remote_logits",
+                "local_logits"):
+        check((a["prefix"][key] == b["prefix"][key]).all(),
+              f"S1 prefix {key} bit for bit")
+    check(a["prefix"]["hits"] == b["prefix"]["hits"], "S1 prefix hits")
+    launches = collections_sum([b[p]["launches"] for p in b])
+    fused = collections_sum([b[p]["fused"] for p in b])
+    res = dict(launches=launches, fused=fused,
+               tokens={f"mtp{k}": b[f"mtp{k}"]["tokens"] for k in (1, 2)},
+               launches_by_part={p: b[p]["launches"] for p in b},
+               prefix_hits=b["prefix"]["hits"],
+               pd=b["pd"]["summary"],
+               prefix_ms={n: dict(cold=out[n]["prefix"]["cold_ms"],
+                                  seeded=out[n]["prefix"]["seeded_ms"])
+                          for n in out},
+               serve_s={n: [out[n][f"mtp{k}"]["serve_s"] for k in (1, 2)]
+                        for n in out})
+    log(f"S1 {cfg.name}: a live 1x1 NCCL mesh serves MTP k 1 and 2, "
+        f"prefix seeding and disaggregated PD with the one-device "
+        f"engine's tokens and launches ({launches}); prefix logits bit "
+        f"for bit; hits {res['prefix_hits']}")
+    return res
+
+
+def collections_sum(dicts) -> dict:
+    """Key-wise sum of count dicts."""
+    out: dict = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def s_cfg(get_config, arch: str, depth: int):
+    """S's models: full width, cut to ``depth`` layers (DeepSeek-V3 with
+    its MTP head)."""
+    return dataclasses.replace(get_config(arch), num_layers=depth)
+
+
+@torch.no_grad()
+def s_verify(model, params, toks, dec, drafts, rep) -> dict:
+    """One MTP iteration's chain from the prefill of ``toks`` [R_B, R_S]:
+    the head's draft logits on ``dec`` [R_B, 1] (a zero hidden), and the
+    verify chain's two decode steps on ``dec`` then ``drafts`` (given,
+    so both sides verify the same tokens), with each step's routes
+    (``rep``). Global logits, f32 on the host."""
+    dev = "cuda"
+    toks, dec, drafts = toks.to(dev), dec.to(dev), drafts.to(dev)
+    cache = model.place_cache(model.prefill_chunk(
+        params, model.init_cache(R_B, R_L, device=dev), toks, 0,
+        torch.full((R_B,), R_S - 1, device=dev))[1], R_B)
+    mtp = model.init_mtp_cache(R_B, R_L, device=dev, local=True)
+    pos = torch.full((R_B,), R_S, dtype=torch.int32, device=dev)
+    out = {"draft": model.mtp_step(params, 0, mtp["hidden"], dec, pos,
+                                   mtp["kv"])[0].float().cpu()}
+    before, rep.replay, rep.routes = rep.drops, False, []
+    try:
+        for j, tok in enumerate((dec, drafts[:, None])):
+            out[f"verify{j}"] = model.decode_step_hidden(
+                params, cache, tok, pos + j)[0].float().cpu()
+    finally:
+        rep.replay = True
+    out["routes"] = rep.routes
+    out["drops"] = rep.drops - before
+    torch.cuda.synchronize()
+    return out
+
+
+def s_rank(rank, world, init, inputs):
+    """One rank of S2-S4 (a process; the two share the card over gloo).
+    S2: DeepSeek-V3 (depth 4, its MTP head) on (2,1) under
+    ``DECODE_RULES`` — EP 2 over the data axis, DP attention: the
+    paper's decode deployment — serving with MTP k 1 (each launch
+    replayed on its plain version), counts set to 0 just before and read
+    just after; every iteration's blocks, accepted counts and wire and
+    host-staged bytes; :func:`s_verify`; a 512-token prefill's chunk
+    buffer (the same global KV on both ranks); then ``DisaggregatedPD``
+    on the mesh. S4: that KV from rank 0 to rank 1 over the ``pd`` axis
+    of a (2,1,1) mesh, hashed on both sides. S3: Llama-4 (depth 2) on
+    (1,2) (TP 2, the decode cache's slots cut), :func:`s_prefix`, then
+    decode steps of the seeded slot."""
+    import hashlib
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    from repro_torch.configs import get_config
+    from repro_torch.core import DisaggregatedPD
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import PD_AXES, init_mesh
+    from repro_torch.models.mesh_ctx import MeshCtx
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.backend import TorchBackend
+    from repro_torch.serving.dp_group import DPGroup
+    from repro_torch.serving.flowserve import FlowServeEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.tokenizer import ByteTokenizer
+    from repro_torch.xccl.pd_transfer import (KVLayout, execute_transfer,
+                                              plan_transfer)
+
+    out = {}
+    mesh = init_mesh((2, 1), "gloo", "cuda", rank=rank, world_size=world,
+                     init_method=init)
+    comm = mesh.comm
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",), remat="none",
+                  ep_axis=("data", "model"))
+    cfg = s_cfg(get_config, DEEPSEEK, 4)
+    torch.cuda.reset_peak_memory_stats()
+    eng = FlowServeEngine(cfg, device="cuda", n_dp_groups=2, max_batch=R_B,
+                          seed=0, ctx=ctx, rules=shd.DECODE_RULES, mtp_k=1)
+    iters = []
+    for dp in eng.dps:
+        def spy(*a, _real=dp.backend.decode_sample_mtp, **kw):
+            sent, staged = sum(comm.sent.values()), sum(comm.staged.values())
+            got = _real(*a, **kw)
+            iters.append((got[0].tolist(), got[1].tolist(),
+                          sum(comm.sent.values()) - sent,
+                          sum(comm.staged.values()) - staged))
+            return got
+        dp.backend.decode_sample_mtp = spy
+    with Replayer() as rep:
+        runtime.reset_launch_counts()
+        comm.sent.clear()
+        comm.staged.clear()
+        reqs, wall = serve(eng, PROMPTS, R_NEW)
+        launches, fused = dict(runtime.LAUNCHES), dict(runtime.FUSED)
+        replayed, errs = dict(rep.calls), dict(rep.errs)
+        serve_sent = dict(comm.sent)
+        verify = s_verify(eng.model, eng.params, *inputs["verify"], rep)
+    # a buffer of the prompt's length (the engine's is 256)
+    be = TorchBackend(eng.model, eng.params, max_len=S4_LEN, device="cuda")
+    toks = list(range(3, 3 + S4_LEN))
+    kv, _ = be.prefill_chunk(None, toks, 0, S4_LEN)
+    for dp in eng.dps:
+        del dp.backend.decode_sample_mtp
+    out["S2"] = dict(
+        tokens=[list(r.output_tokens) for r in reqs], iters=iters,
+        launches=launches, fused=fused, replayed=replayed, replay_err=errs,
+        serve_s=wall, serve_sent=serve_sent, verify=verify,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    # S4: the prefill KV across the pd axis, rank 0 to rank 1
+    pd_mesh = init_mesh((2, 1, 1), "gloo", "cuda", axis_names=PD_AXES,
+                        rank=rank, world_size=world, init_method=init)
+    pctx = MeshCtx(mesh=pd_mesh, batch_axes=("data",), remat="none")
+    layout = KVLayout(pctx, axis="pd", device="cuda")
+    src = kv if pd_mesh.comm.coords["pd"] == 0 else shd.map_with_paths(
+        kv, lambda _k, t: torch.empty(t.shape, dtype=t.dtype,
+                                      device="meta"))
+
+    def digest(tree) -> str:
+        h = hashlib.sha256()
+        for t in kv_leaves(tree):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+        return h.hexdigest()
+    moved = execute_transfer(src, layout)
+    torch.cuda.synchronize()
+    pd_mesh.comm.sent.clear()
+    pd_mesh.comm.staged.clear()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        execute_transfer(src, layout)
+    torch.cuda.synchronize()
+    out["S4"] = dict(
+        bytes=plan_transfer(src).total_bytes,
+        digest=digest(kv if moved is None else moved),
+        received=moved is not None,
+        host_staged_ms=(time.perf_counter() - t0) * 1e3 / 3,
+        sent=dict(pd_mesh.comm.sent), staged=dict(pd_mesh.comm.staged))
+    del kv, moved, src
+    # S4, then: disaggregated PD on the (2,1) mesh, on the served weights
+    pd = DisaggregatedPD(cfg, eng.params, device="cuda", ctx=ctx,
+                         rules=shd.DECODE_RULES, **S_PD_KW)
+    try:
+        runtime.reset_launch_counts()
+        preqs = serve_pd(pd, PD_WAVES, R_NEW)
+        out["S4"]["pd"] = dict(summary=pd_summary(pd, preqs),
+                               launches=dict(runtime.LAUNCHES),
+                               fused=dict(runtime.FUSED))
+    finally:
+        pd.close()
+    eng.close()
+    # the loop's last group and spy (its bound method) hold the weights
+    del eng, be, pd, dp, spy
+    free(f"S2/S4 rank {rank}")
+    # S3: Llama-4 on (1,2), prefix seeding
+    mesh12 = init_mesh((1, 2), "gloo", "cuda", rank=rank, world_size=world,
+                       init_method=init)
+    lctx = MeshCtx(mesh=mesh12, batch_axes=("data",), remat="none")
+    lcfg = s_cfg(get_config, LLAMA, 2)
+    model = Model(lcfg, ctx=lctx)
+    params = model.init(0, device="cuda")
+    ltoks = ByteTokenizer().encode(LLAMA_PROMPTS[0])
+    check(len(ltoks) == S3_STOPS[-1], f"S3: a {S3_STOPS[-1]}-token prompt")
+    # the prefix timings run unreplayed (a replay adds its plain versions'
+    # device work to the window); the seeded slot's decode is replayed
+    pre = s_prefix(model, params, ltoks, S3_STOPS, 1024)
+    with Replayer() as rep:
+        dp = DPGroup(0, TorchBackend(model, params, max_len=1024,
+                                     device="cuda"),
+                     max_batch=R_B, max_len=1024)
+        try:
+            req = Request(prompt_tokens=list(ltoks), max_new_tokens=8,
+                          ignore_eos=True)
+            cache1, logits = dp.run_prefill(req)
+            runtime.reset_launch_counts()
+            dp.admit(req, cache1, logits)
+            while dp.active:
+                dp.decode_step_all()
+            dp.drain()
+            torch.cuda.synchronize()
+            dlaunches, dfused = dict(runtime.LAUNCHES), dict(runtime.FUSED)
+        finally:
+            dp.close()
+        lerrs, lcalls = dict(rep.errs), dict(rep.calls)
+    out["S3"] = dict(
+        {k: v for k, v in pre.items() if not k.endswith("_logits")},
+        logits_bit_identical=True, tokens=list(req.output_tokens),
+        decode_launches=dlaunches, decode_fused=dfused, replay_err=lerrs,
+        replayed=lcalls,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del model, params
+    free(f"S3 rank {rank}")
+    return out
+
+
+def s_stage(get_config) -> dict:
+    """S2-S4 (:func:`s_rank`, two ranks sharing the card over gloo),
+    held against one device on the same seeded weights: S2's tokens and
+    accepted counts the same on both ranks, the head's draft logits and
+    the verify chain's logits of the rows routed alike within 0.08 of
+    one device's (``tests/test_decode_consistency.py``'s bar), each
+    launch replayed on its plain version; S3's seeded logits
+    bit-identical to the cold split (checked on the ranks); S4's moved
+    KV bit-equal to the source, and the PD run's tokens against the
+    one-device PD run's. Times are not multi-GPU numbers: the wire goes
+    through host memory and the ranks time-slice one card."""
+    from repro_torch.core import DisaggregatedPD
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.transformer import Model
+
+    cfg = s_cfg(get_config, DEEPSEEK, 4)
+    params = Model(cfg).init(0, device="cuda")
+    toks, dec = r_inputs(cfg)
+    with Replayer() as rep:
+        ref = s_verify(Model(cfg), params, toks, dec[0],
+                       torch.zeros(R_B, dtype=torch.int64), rep)
+        drafts = ref["draft"].argmax(-1)
+        ref = s_verify(Model(cfg), params, toks, dec[0], drafts, rep)
+    pd = DisaggregatedPD(cfg, params, device="cuda", **S_PD_KW)
+    try:
+        want_pd = pd_summary(pd, serve_pd(pd, PD_WAVES, R_NEW))
+    finally:
+        pd.close()
+    del params, pd
+    free("S one-device references")
+    t0 = time.monotonic()
+    ranks = spawn(s_rank, 2, {"verify": (toks, dec[0], drafts)}, threads=4)
+    spawn_s = time.monotonic() - t0
+    results = {}
+    # S2
+    s2 = [r["S2"] for r in ranks]
+    check(all(g["tokens"] == s2[0]["tokens"] for g in s2)
+          and all([i[:2] for i in g["iters"]]
+                  == [i[:2] for i in s2[0]["iters"]] for g in s2),
+          "S2: both ranks emit the same tokens and accept the same counts")
+    drafts_err = max(float((g["verify"]["draft"] - ref["draft"]).abs().max()
+                           / ref["draft"].abs().max()) for g in s2)
+    check(drafts_err <= 0.08, f"S2: the head's draft logits within 0.08 of "
+                              f"one device's ({drafts_err:.4g})")
+    verify_err, alike_rows = {}, {}
+    for j in range(2):
+        want = ref[f"verify{j}"]
+        wr = ref["routes"][j].view(R_B, -1, ref["routes"][j].shape[-1])
+        gr = s2[0]["verify"]["routes"][j]
+        gr = gr.view(R_B, -1, gr.shape[-1])
+        alike = (wr[:, -1].sort(-1).values
+                 == gr[:, -1].sort(-1).values).all(-1)
+        d = torch.stack([(g["verify"][f"verify{j}"] - want).abs().amax(-1)
+                         for g in s2]).amax(0)
+        alike_rows[j] = int(alike.sum())
+        verify_err[j] = (float(d[alike].max() / want.abs().max())
+                         if bool(alike.any()) else None)
+    check(all(e is None or e <= 0.08 for e in verify_err.values())
+          and sum(alike_rows.values()) > 0,
+          f"S2: verify logits of the rows routed alike within 0.08 of one "
+          f"device's: {verify_err} ({alike_rows} of {R_B} rows alike)")
+    for n, c in collections_sum([g["replayed"] for g in s2]).items():
+        check(c == collections_sum(
+            [g["fused" if n == "collect" else "launches"] for g in s2]
+        ).get(n, 0), f"S2: every {n} launch replayed")
+    n_acc = [i[1] for i in s2[0]["iters"]]
+    per_iter = [dict(wire=[g["iters"][t][2] for g in s2],
+                     staged=[g["iters"][t][3] for g in s2])
+                for t in range(len(s2[0]["iters"]))]
+    launches = collections_sum([g["launches"] for g in s2])
+    fused = collections_sum([g["fused"] for g in s2])
+    check(launches.get("route_pack", 0) > 0 and launches.get("gmm", 0) > 0,
+          f"S2: route-pack and gmm launched ({launches})")
+    results[f"{DEEPSEEK}/S2-2x1-mtp1"] = (
+        {n: dict(max_abs_err=max(g["replay_err"].get(n, 0.0) for g in s2))
+         for n in set().union(*(g["replay_err"] for g in s2))},
+        dict(launches=launches, fused=fused, tokens=s2[0]["tokens"],
+             n_accepted=n_acc, per_iteration=per_iter,
+             draft_rel_err=drafts_err, verify_rel_err_routed_alike=verify_err,
+             rows_routed_alike=alike_rows,
+             peak_gib=[g["peak_gib"] for g in s2],
+             serve_s=[g["serve_s"] for g in s2],
+             serve_sent=[g["serve_sent"] for g in s2]))
+    log(f"S2 {DEEPSEEK} (2,1) DECODE_RULES, MTP k 1: both ranks emit the "
+        f"same tokens, accepted counts {n_acc}; draft logits rel err "
+        f"{drafts_err:.4g}, verify rows routed alike {verify_err} "
+        f"({alike_rows} of {R_B}); launches {launches}; per iteration "
+        f"wire bytes {[p['wire'] for p in per_iter]}, host-staged "
+        f"{[p['staged'] for p in per_iter]}; peak "
+        f"{[round(g['peak_gib'], 2) for g in s2]} GiB per rank")
+    # S4
+    s4 = [r["S4"] for r in ranks]
+    check(not s4[0]["received"] and s4[1]["received"]
+          and s4[0]["digest"] == s4[1]["digest"],
+          "S4: the prefill KV reached rank 1 over the pd axis, bit-equal")
+    agree = [x == y for x, y in zip(
+        sum((r[4] for r in want_pd["requests"]), []),
+        sum((r[4] for r in s4[0]["pd"]["summary"]["requests"]), []))]
+    check(all(g["pd"]["summary"] == s4[0]["pd"]["summary"] for g in s4),
+          "S4 PD: both ranks serve the same requests, hits and tokens")
+    pd_launches = collections_sum([g["pd"]["launches"] for g in s4])
+    results[f"{DEEPSEEK}/S4-pd"] = ({}, dict(
+        launches=pd_launches,
+        fused=collections_sum([g["pd"]["fused"] for g in s4]),
+        kv_bytes=s4[0]["bytes"], host_staged_ms=[g["host_staged_ms"]
+                                                 for g in s4],
+        sent=[g["sent"] for g in s4], staged=[g["staged"] for g in s4],
+        pd_tokens_equal_one_device=all(agree),
+        pd_token_agreement=sum(agree) / len(agree),
+        pd=s4[0]["pd"]["summary"], pd_one_device=want_pd))
+    log(f"S4: {s4[0]['bytes']} bytes of DeepSeek-V3 prefill KV ({S4_LEN} "
+        f"tokens) from rank 0 to rank 1 over the pd axis, bit-equal; "
+        f"{[round(g['host_staged_ms'], 3) for g in s4]} ms host-staged "
+        f"(not a wire figure: two ranks share the card over gloo, through "
+        f"host memory); PD on (2,1): greedy tokens agree {sum(agree)} of "
+        f"{len(agree)} with the one-device PD run; launches {pd_launches}")
+    # S3
+    s3 = [r["S3"] for r in ranks]
+    check(all(g["tokens"] == s3[0]["tokens"] for g in s3)
+          and all(g["hits"] == s3[0]["hits"] for g in s3),
+          "S3: both ranks seed alike and decode the same tokens")
+    dl = collections_sum([g["decode_launches"] for g in s3])
+    check(dl.get("decode_attention_partial", 0) > 0,
+          f"S3: the seeded slot decodes through the partial decode "
+          f"attention ({dl})")
+    results[f"{LLAMA}/S3-1x2-prefix"] = (
+        {n: dict(max_abs_err=max(g["replay_err"].get(n, 0.0) for g in s3))
+         for n in set().union(*(g["replay_err"] for g in s3))},
+        dict(launches=dl,
+             fused=collections_sum([g["decode_fused"] for g in s3]),
+             cold_ms=[g["cold_ms"] for g in s3],
+             seeded_ms=[g["seeded_ms"] for g in s3],
+             hits=s3[0]["hits"], payload_bytes=s3[0]["payload_bytes"],
+             logits_bit_identical=True, tokens=s3[0]["tokens"],
+             peak_gib=[g["peak_gib"] for g in s3]))
+    log(f"S3 {LLAMA} (1,2): seeded at {S3_STOPS[-2]} == cold split "
+        f"{S3_STOPS} bit for bit on both ranks; device ms cold "
+        f"{[round(g['cold_ms'], 3) for g in s3]}, seeded "
+        f"{[round(g['seeded_ms'], 3) for g in s3]} (host wire, one "
+        f"time-sliced card); hits {s3[0]['hits']}; decode launches {dl}")
+    log(f"S2-S4: 2 ranks in {spawn_s:.1f} s")
     return results
 
 
@@ -5566,7 +6090,10 @@ def main() -> int:
                **hybrid_stages(get_config), **memory_stages(get_config)}
     t0 = time.monotonic()
     results.update(r2_stage(get_config))
-    free(f"R2: {time.monotonic() - t0:.1f} s")
+    free(f"R1, S1, R2: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    results.update(s_stage(get_config))
+    free(f"S2-S4: {time.monotonic() - t0:.1f} s")
     for p, (_, path) in results.items():
         log(json.dumps({"path": p, **{k: v for k, v in path.items()
                                       if k != "text"}}))

@@ -32,6 +32,14 @@ serve every TE's DP groups, each through its own
 card unless the caller asks for the CPU). With ``kv_pool`` one
 :class:`~repro_torch.serving.kv_cache.PodKVDirectory` spans every prefill
 DP group, so a session re-landing on another TE seeds from the pod.
+
+``ctx`` (as the reference's ``DisaggregatedPD(ctx=)``) serves on a mesh:
+both sides share it and the one model on it, one process per rank, each
+running this workflow on the same requests (``rules`` and the layout of
+given ``params`` as ``FlowServeEngine(ctx=)``). Prefill TEs keep chunk
+buffers, whose KV is the same global tensors on every rank, so the
+transfers hand it off in place, and each decode TE's ``write_slot``
+cuts its rank's block of the slots.
 """
 from __future__ import annotations
 
@@ -112,7 +120,7 @@ class DisaggregatedPD:
     def __init__(self, cfg: ModelConfig, params: Optional[PyTree] = None,
                  *, n_prefill_te: int = 2, n_decode_te: int = 1,
                  dp_per_te: int = 2, max_batch: int = 2,
-                 max_len: int = 256, device="cuda",
+                 max_len: int = 256, device="cuda", ctx=None, rules=None,
                  prefill_fabrics: Optional[Sequence[str]] = None,
                  seed: int = 0, token_budget: int = 8192,
                  chunk_tokens: Optional[int] = None, mtp_k: int = 0,
@@ -142,7 +150,7 @@ class DisaggregatedPD:
         self._decode_pod = self._pod_list(
             pod_of_decode_te, n_decode_te, "pod_of_decode_te")
         self.device = resolve_device(device)
-        self.model = Model(cfg)
+        self.model = Model(cfg, ctx=ctx, rules=rules)
         self.params = (params if params is not None
                        else self.model.init(seed, device=self.device))
         self.tokenizer = ByteTokenizer()

@@ -6,6 +6,12 @@ the rules of ``launch/sharding.py`` resolve for 512 devices with no
 process. :func:`init_mesh` brings up a live mesh on this rank over
 ``torch.distributed`` (one process per rank), and :func:`spawn` runs a
 function on every rank of a world of processes on this host.
+
+A mesh may carry a leading group axis that no ``MeshCtx`` collective
+names (:data:`PD_AXES`: rank group 0 of ``pd`` prefills, group 1
+decodes): each group's ``MeshCtx`` then runs on its own ``data`` ×
+``model`` ranks, and a KV tree crosses between the groups over that
+axis (``xccl.pd_transfer.KVLayout``).
 """
 from __future__ import annotations
 
@@ -18,6 +24,8 @@ from typing import Any, Callable, Optional, Sequence
 from repro_torch.models.mesh_ctx import Comm, MeshShape
 
 AXES = ("data", "model")
+#: disaggregated prefill-decode on one mesh: the rank groups, then AXES
+PD_AXES = ("pd",) + AXES
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:

@@ -252,9 +252,10 @@ class Model:
     samples the same token. Caches: a prefill or chunk buffer is the
     batch block with every slot; the decode cache
     (``init_cache(local=True)`` or :meth:`place_cache`) also only this
-    rank's slots. GQA, ring-window GQA and MLA mixers with MLP and MoE
-    are ported to a mesh; training, the MTP head, cross-attention, the
-    recurrent blocks and the encoder raise there."""
+    rank's slots. GQA, ring-window GQA and MLA mixers with MLP and MoE,
+    and the MTP head (its decode cache ``init_mtp_cache(local=True)``),
+    are ported to a mesh; training, cross-attention, the recurrent
+    blocks and the encoder raise there."""
 
     def __init__(self, cfg: ModelConfig, *, ctx=None, rules=None,
                  decode_microbatches: Optional[int] = None,
@@ -285,7 +286,9 @@ class Model:
         # rule: the head has no memory)
         mixer = self.pattern[-1][0]
         self.mtp_kind = (ATTN if mixer == CROSS_ATTN else mixer, MLP)
-        #: mixers not ported to a mesh (raise when run on one)
+        #: mixers not ported to a mesh (raise when run on one, in the main
+        #: stack and in the MTP head); GQA, ring-window GQA and MLA run
+        #: there, with MLP, MoE and the MTP head's block
         self._off_mesh = sorted({m for m, _ in kinds}
                                 - {ATTN, LOCAL_ATTN, MLA_ATTN}
                                 | ({"encoder"} if cfg.is_encdec else set()))
@@ -489,13 +492,26 @@ class Model:
                        self._mtp_kv_spec(batch, max_len).items()},
                 "hidden": (batch, 1, self.cfg.d_model)}
 
-    def init_mtp_cache(self, batch: int, max_len: int, *,
-                       device="cuda") -> PyTree:
+    def init_mtp_cache(self, batch: int, max_len: int, *, device="cuda",
+                       local: bool = False) -> PyTree:
+        """Zeros in :meth:`mtp_cache_spec`'s layout. On a mesh, as
+        :meth:`init_cache`: this rank's batch block where the batch
+        divides the batch axes; with ``local=True`` the decode layout,
+        only this rank's block of the head's slots too."""
         dev = resolve_device(device)
-        return {"kv": {n: torch.zeros(s, dtype=dt, device=dev) for n, (s, dt)
+        full = {"kv": {n: torch.empty(s, dtype=dt, device="meta")
+                       for n, (s, dt)
                        in self._mtp_kv_spec(batch, max_len).items()},
-                "hidden": torch.zeros((batch, 1, self.cfg.d_model),
-                                      dtype=self.dtype, device=dev)}
+                "hidden": torch.empty((batch, 1, self.cfg.d_model),
+                                      dtype=self.dtype, device="meta")}
+        if not self.sharded:
+            return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                                  device=dev), full)
+        return shd.spec_tree_map(
+            lambda t, sp: torch.zeros(shd.local_shape(t.shape, sp,
+                                                      self.ctx),
+                                      dtype=t.dtype, device=dev),
+            full, self._layout_specs(full, local))
 
     # ------------------------------------------------------------------
     # core stack application
@@ -838,28 +854,55 @@ class Model:
         ``positions`` [B] and writes the cache in place; without one it
         runs the train mode over the sequence it is given and keeps no
         cache, as the reference. The draft-cache fill pass calls
-        only this: eager PyTorch would run a discarded ``_logits``."""
-        if self.sharded:
-            raise NotImplementedError("the MTP head on a mesh is not ported")
+        only this: eager PyTorch would run a discarded ``_logits``.
+
+        On a mesh the head's block runs under the model's ``ctx`` and
+        rules like a main-stack block: ``next_tokens`` and ``positions``
+        are global, as :meth:`decode_step_hidden` takes them; ``hidden``,
+        the new hidden and ``mtp_cache`` (``init_mtp_cache(local=True)``)
+        are this rank's rows, as that step returns them. Without a cache
+        the block runs the prefill mode (training is not ported to a
+        mesh) and its cache is dropped."""
         cfg = self.cfg
-        mp = params["mtp"][mtp_index]
-        e = self._embed(params, next_tokens)
+        if self.sharded and self._off_mesh:
+            raise NotImplementedError(f"{cfg.name}: {self._off_mesh} are "
+                                      f"not ported to a mesh")
+        ctx, rows = self._batch_ctx(next_tokens.shape[0])
+        next_tokens, = self._rows(ctx, rows, next_tokens)
+        if mtp_cache is not None:
+            positions, = self._rows(ctx, rows, positions)
+        mp, spec = self._view(params["mtp"][mtp_index],
+                              self.specs["mtp"][mtp_index])
+        e = self._embed(params, next_tokens, ctx)
         h = torch.cat([rms_norm(hidden, mp["norm_h"], cfg.norm_eps),
                        rms_norm(e, mp["norm_e"], cfg.norm_eps)], dim=-1)
         h = torch.matmul(h, mp["proj"])
-        mode = "train" if mtp_cache is None else "decode"
+        mode = ("decode" if mtp_cache is not None
+                else "prefill" if self.sharded else "train")
         h, cache, _ = block_apply(mp["block"], h, cfg=cfg, kind=self.mtp_kind,
-                               mode=mode, cache=mtp_cache,
-                               positions=positions)
+                                  mode=mode, cache=mtp_cache,
+                                  positions=positions, ctx=ctx,
+                                  specs=None if spec is None
+                                  else spec["block"])
         return h, (None if mtp_cache is None else cache)
 
     def mtp_step(self, params, mtp_index: int, hidden, next_tokens,
                  positions, mtp_cache=None):
         """:meth:`mtp_hidden` and the draft logits: → (logits [B, V] f32,
-        new hidden [B, 1, d], cache)."""
+        new hidden [B, 1, d], cache). On a mesh the logits are global
+        (all-gathered, the same on every rank), the hidden this rank's
+        rows."""
         h, cache = self.mtp_hidden(params, mtp_index, hidden, next_tokens,
                                    positions, mtp_cache)
-        return self._logits(params, h[:, -1]), h, cache
+        ctx, _ = self._batch_ctx(next_tokens.shape[0])
+        return self._logits(params, h[:, -1], ctx), h, cache
+
+    def batch_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global batch tensor ``t`` (dim 0), cut as
+        the steps cut their inputs: ``t`` itself on one device or where
+        the batch does not divide the batch axes."""
+        ctx, rows = self._batch_ctx(t.shape[0])
+        return self._rows(ctx, rows, t)[0]
 
 
 def build_model(cfg: ModelConfig, ctx, long_context: bool = False,

@@ -287,9 +287,13 @@ class TorchBackend(ExecutionBackend):
     prefill takes its first row, as the reference's ``JAXBackend``.
 
     On a mesh (the model's ``ctx``) each rank runs its own backend on the
-    same inputs: the decode cache is this rank's block (``init_cache``,
-    ``write_slot``), the logits come back all-gathered, so every rank
-    draws the same tokens; prefix KV and MTP are not ported there."""
+    same inputs: the decode cache and the MTP head's state are this
+    rank's blocks (``init_cache``, ``write_slot``, ``init_mtp_cache``,
+    ``reset_mtp_slot``), the logits come back all-gathered, so every
+    rank draws the same tokens and drafts and accepts the same counts.
+    Prefix-KV payloads and seeded caches are the chunk buffer's layout
+    (batch 1, every slot and KV head: the same global tensors on every
+    rank), so the radix tree is the same on every rank."""
 
     def __init__(self, model, params: PyTree, *, max_len: int = 256,
                  memory: Optional[torch.Tensor] = None, seed: int = 0,
@@ -306,11 +310,9 @@ class TorchBackend(ExecutionBackend):
             raise ValueError(
                 f"mtp_k={mtp_k} requires a model with an MTP head "
                 f"(cfg.mtp_num_layers > 0)")
-        if self.mtp_k and model.sharded:
-            raise NotImplementedError("MTP serving on a mesh is not ported")
         self.vocab_size = model.cfg.vocab_size
         self._placement = None
-        self._cache_batch = 0
+        self._cache_batch = self._mtp_batch = 0
 
     def _ints(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
@@ -374,9 +376,9 @@ class TorchBackend(ExecutionBackend):
 
     @property
     def supports_prefix_kv(self) -> bool:
-        """Seeding rides the incremental-prefill machinery (not ported to
-        a mesh)."""
-        return self.supports_chunked_prefill and not self.model.sharded
+        """Seeding rides the incremental-prefill machinery, on one device
+        and on a mesh (the reference's rule)."""
+        return self.supports_chunked_prefill
 
     def slice_prefill_kv(self, cache: PyTree, tokens: List[int],
                          start: int, end: int) -> PyTree:
@@ -389,7 +391,9 @@ class TorchBackend(ExecutionBackend):
         """Copy the payloads into ``[0, prefix_len)`` of a fresh cache of
         the buffer length a cold chunked prefill of ``total_len`` tokens
         allocates; the chunks then write only positions past their
-        offset, so the seeded region survives bit-exactly."""
+        offset, so the seeded region survives bit-exactly. On a mesh the
+        fresh cache is the chunk buffer ``prefill_chunk`` allocates (the
+        prefill layout: batch 1 and every slot), never a decode block."""
         fresh = self.model.init_cache(1, self._chunk_buffer_len(total_len),
                                       device=self.device)
         kv = assemble_chunks(list(payloads))
@@ -434,12 +438,9 @@ class TorchBackend(ExecutionBackend):
         from repro_torch.models.attention import _seq_block
 
         ctx = self.model.ctx
-        B = self._cache_batch
-        if ctx.dp_size > 1 and B % ctx.dp_size == 0:
-            b_loc = B // ctx.dp_size
-            if slot // b_loc != ctx.axis_index(ctx.batch_axes):
-                return cache
-            slot = slot % b_loc
+        slot = self._local_slot(slot, self._cache_batch)
+        if slot is None:
+            return cache
 
         def one(full, part, stacked, name):
             dst = full[:, slot] if stacked else full[slot]
@@ -512,13 +513,32 @@ class TorchBackend(ExecutionBackend):
     # MTP speculative decoding (§4.6)
     # ------------------------------------------------------------------
     def init_mtp_cache(self, max_batch: int, max_len: int) -> PyTree:
+        """The head's state; on a mesh in the decode layout (this rank's
+        slots and block of positions), as :meth:`init_cache`."""
+        self._mtp_batch = max_batch
         return self.model.init_mtp_cache(max_batch, max_len,
-                                         device=self.device)
+                                         device=self.device, local=True)
+
+    def _local_slot(self, slot: int, B: int) -> Optional[int]:
+        """Row of global slot ``slot`` in this rank's block of a decode
+        state of ``B`` slots, or None when another rank's block holds it
+        (one device: the slot itself)."""
+        ctx = self.model.ctx
+        if self.model.sharded and ctx.dp_size > 1 and B % ctx.dp_size == 0:
+            b_loc = B // ctx.dp_size
+            if slot // b_loc != ctx.axis_index(ctx.batch_axes):
+                return None
+            return slot % b_loc
+        return slot
 
     @torch.no_grad()
     def reset_mtp_slot(self, mtp_cache: PyTree, slot: int) -> PyTree:
-        for t in (*mtp_cache["kv"].values(), mtp_cache["hidden"]):
-            t[slot].zero_()
+        """Zero the slot's head state; on a mesh only the rank whose block
+        holds the slot writes (its row, its block of positions)."""
+        row = self._local_slot(slot, self._mtp_batch)
+        if row is not None:
+            for t in (*mtp_cache["kv"].values(), mtp_cache["hidden"]):
+                t[row].zero_()
         return mtp_cache
 
     def _positions(self, positions: torch.Tensor, j: int) -> torch.Tensor:
@@ -600,8 +620,11 @@ class TorchBackend(ExecutionBackend):
                                          torch.stack(drafts, dim=1))
         self._mtp_fill(mtp_cache, hiddens, drafts, pos)
         # carry the hidden at the last ACCEPTED position: the head's
-        # input when the next iteration drafts from the emitted token
+        # input when the next iteration drafts from the emitted token (on
+        # a mesh the hiddens are this rank's rows: index with its rows of
+        # the global counts)
         hs = torch.cat(hiddens, dim=1)
         rows = torch.arange(hs.shape[0], device=self.device)
-        mtp_cache["hidden"].copy_(hs[rows, n_acc.long()][:, None])
+        mine = self.model.batch_rows(n_acc).long()
+        mtp_cache["hidden"].copy_(hs[rows, mine][:, None])
         return block, n_acc, cache, mtp_cache

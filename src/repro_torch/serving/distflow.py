@@ -14,7 +14,13 @@ stream (``pop_stream``) once the final chunk lands and then admits.
 
 The byte movement itself is ``xccl.pd_transfer``; fabric choice (UB vs
 RoCE vs VPC for 910B-prefill → 910C-decode heterogeneity) is a parameter
-that prices the plans on the paper's link model.
+that prices the plans on the paper's link model. ``dst`` is where the KV
+lands (``execute_transfer``'s destination, as the reference's
+``dst_shardings``): None hands it off in place, a device moves it there,
+a :class:`~repro_torch.xccl.pd_transfer.KVLayout` reshards it onto a
+decode group's ranks (on a rank of the prefill group the landed KV is
+then None). A stream's chunks land under the layout one by one and
+concatenate along the sequence, so its layout must keep that dim whole.
 """
 from __future__ import annotations
 
@@ -25,8 +31,9 @@ import time
 from collections import deque
 from typing import Any, Callable, Deque, Dict, List, Optional
 
-from repro_torch.xccl.pd_transfer import (TransferPlan, assemble_chunks,
-                                          execute_transfer, plan_transfer)
+from repro_torch.xccl.pd_transfer import (KVLayout, TransferPlan,
+                                          assemble_chunks, execute_transfer,
+                                          plan_transfer)
 
 PyTree = Any
 _task_ids = itertools.count()
@@ -74,9 +81,11 @@ class DistFlowInstance:
     """One isolated instance per (prefill TE, decode TE) pair — a failure
     domain boundary (§5.1 step 7)."""
 
-    def __init__(self, pair: str, fabric: str = "ub"):
+    def __init__(self, pair: str, fabric: str = "ub",
+                 dst: Optional[Any] = None):
         self.pair = pair
         self.fabric = fabric
+        self.dst = dst
         self.tasks: Dict[int, TransferTask] = {}
         self.streams: Dict[int, ChunkStream] = {}
         self.completion_queue: Deque[int] = deque()
@@ -102,6 +111,9 @@ class DistFlowInstance:
         to finish). Chunks then ship eagerly — the overlap with the next
         chunk's compute is the point — rather than deferring to a
         decode-side pull like the bulk path."""
+        if isinstance(self.dst, KVLayout) and self.dst.cuts_sequence():
+            raise ValueError(f"DistFlow {self.pair}: a stream's layout "
+                             f"must keep the sequence dim whole")
         stream = ChunkStream(req_id=req_id, meta=meta or {})
         self.streams[req_id] = stream
         return stream
@@ -115,7 +127,7 @@ class DistFlowInstance:
             raise RuntimeError(f"DistFlow {self.pair} unhealthy")
         stream = self.streams[req_id]
         plan = plan_transfer(kv_chunk, self.fabric)
-        moved = execute_transfer(kv_chunk)
+        moved = execute_transfer(kv_chunk, self.dst)
         stream.chunks.append(moved)
         stream.chunk_bytes.append(plan.total_bytes)
         self.bytes_moved += plan.total_bytes
@@ -126,11 +138,14 @@ class DistFlowInstance:
 
     def pop_stream(self, req_id: int) -> Optional[PyTree]:
         """Decode side: assemble and take a COMPLETE stream's cache
-        (None while chunks are still in flight)."""
+        (None while chunks are still in flight, and on a prefill-group
+        rank that a layout across the group axis left no block)."""
         stream = self.streams.get(req_id)
         if stream is None or not stream.complete:
             return None
         del self.streams[req_id]
+        if any(c is None for c in stream.chunks):
+            return None
         return assemble_chunks(stream.chunks)
 
     # -- decode side --------------------------------------------------------
@@ -147,7 +162,7 @@ class DistFlowInstance:
         task.state = TransferState.TRIGGERED
         task.event_id = next(self._event)
         # step 7: the actual movement (handshake/ordering inside)
-        task.result = execute_transfer(task.kv_ref)
+        task.result = execute_transfer(task.kv_ref, self.dst)
         task.state = TransferState.COMPLETE
         task.t_complete = time.monotonic()
         self.bytes_moved += task.plan.total_bytes

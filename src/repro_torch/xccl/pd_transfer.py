@@ -11,6 +11,19 @@ which drives this module; ``plan_transfer`` gives it the bytes of a
 transfer and their *modeled* time on the paper's fabric
 (``xccl/topology.py``), and ``execute_transfer`` moves the tensors.
 
+On a mesh (one process per rank) a :class:`KVLayout` is the port's
+stand-in for the reference's tree of ``NamedSharding``s on a decode
+mesh: ``execute_transfer(kv, layout)`` gives each decode rank its block
+of the KV under the layout's specs. Within one group of ranks each rank
+cuts its block (no wire); across a group axis of the mesh (``pd``: rank
+group 0 prefills, group 1 decodes) each prefill rank cuts the block of
+the decode rank at its own coordinates and sends it over that axis
+(``MeshCtx.ppermute``, counted in ``Comm.sent`` and ``.staged``). The
+KV trees handed in are global (a chunk buffer holds every slot and KV
+head on every rank; a decode rank passes stand-ins of the global
+shapes, e.g. ``meta`` tensors), so :func:`pytree_bytes` and
+:func:`plan_transfer` count the global tree's bytes, as the reference's.
+
 Chunk streaming (chunked prefill)
 ---------------------------------
 
@@ -33,6 +46,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.launch import sharding as shd
 from repro_torch.xccl.topology import best_transfer_time
 
 PyTree = Any
@@ -85,12 +99,87 @@ def plan_transfer(kv: PyTree, fabric: str = "ub") -> TransferPlan:
     )
 
 
-def execute_transfer(kv: PyTree, device: Optional[Any] = None) -> PyTree:
-    """Move the KV tree onto the decode side's device (``None`` →
-    same-device handoff, used on one card and in tests)."""
-    if device is None:
+#: the rank groups along a ``KVLayout``'s axis (``launch.mesh.PD_AXES``)
+PREFILL_GROUP, DECODE_GROUP = 0, 1
+
+
+@dataclasses.dataclass(frozen=True)
+class KVLayout:
+    """Where a KV tree lands on a mesh (module docstring).
+
+    ``ctx``: the decode side's :class:`~repro_torch.models.mesh_ctx.
+    MeshCtx`, whose mesh may carry the group axis its collectives never
+    name; ``specs``: a :class:`~repro_torch.launch.sharding.PSpec` tree
+    matching the KV tree (``cache_pspecs`` of its global shapes under
+    ``ctx`` gives the decode layout), or None: every leaf whole on each
+    decode rank; ``axis``: the group axis the KV crosses, from group
+    :data:`PREFILL_GROUP` to :data:`DECODE_GROUP` (None: the source's
+    ranks are the destination's); ``device``: where a decode rank keeps
+    its blocks."""
+    ctx: Any
+    specs: Optional[PyTree] = None
+    axis: Optional[str] = None
+    device: Any = "cuda"
+
+    def _flat_specs(self, kv: PyTree) -> List[Any]:
+        if self.specs is None:
+            return [shd.PSpec()] * len(_leaves(kv))
+        out: List[Any] = []
+        shd.map_with_paths(self.specs, lambda _k, sp: out.append(sp))
+        return out
+
+    def cuts_sequence(self) -> bool:
+        """True when some leaf's sequence dim is cut: blocks of chunks
+        then do not concatenate into the block of the whole prompt."""
+        if self.specs is None:
+            return False
+        cut: List[bool] = []
+        shd.map_with_paths(self.specs, lambda keys, sp: cut.append(
+            sp.entry(2 if "blocks" in keys else 1) is not None))
+        return any(cut)
+
+    def place(self, kv: PyTree) -> Optional[PyTree]:
+        """This rank's blocks of ``kv`` under the layout: a decode rank's
+        tree of blocks; None on a rank of the source group across
+        ``axis`` (it keeps no block of the destination)."""
+        ctx, leaves = self.ctx, _leaves(kv)
+        specs = self._flat_specs(kv)
+        if self.axis is None:
+            blocks = iter([shd.take_local(t, sp, ctx)
+                           for t, sp in zip(leaves, specs)])
+            return _map_seq(lambda _t, _ax: next(blocks), kv)
+        me = ctx.comm.coords[self.axis]
+        shapes = [shd.local_shape(t.shape, sp, ctx)
+                  for t, sp in zip(leaves, specs)]
+        sizes = [int(torch.Size(s).numel()) * t.element_size()
+                 for s, t in zip(shapes, leaves)]
+        if me == PREFILL_GROUP:
+            # the block of the decode rank at this rank's coordinates,
+            # every leaf's bytes in one buffer: one send over the axis
+            wire = torch.cat([shd.take_local(t, sp, ctx).contiguous()
+                              .view(-1).view(torch.uint8)
+                              for t, sp in zip(leaves, specs)])
+        else:
+            wire = torch.empty(sum(sizes), dtype=torch.uint8,
+                               device=self.device)
+        got = ctx.ppermute(wire, self.axis, [(PREFILL_GROUP, DECODE_GROUP)])
+        if me == PREFILL_GROUP:
+            return None
+        parts = iter(torch.split(got, sizes))
+        blocks = iter([next(parts).clone().view(t.dtype).view(s)
+                       for t, s in zip(leaves, shapes)])
+        return _map_seq(lambda _t, _ax: next(blocks), kv)
+
+
+def execute_transfer(kv: PyTree, dst: Optional[Any] = None) -> PyTree:
+    """Move the KV tree to the decode side: ``dst`` None hands it off in
+    place (one card, tests), a device moves it there (``.to``), a
+    :class:`KVLayout` reshards it onto the decode ranks (``place``)."""
+    if dst is None:
         return kv
-    return _map_seq(lambda t, _ax: t.to(device), kv)
+    if isinstance(dst, KVLayout):
+        return dst.place(kv)
+    return _map_seq(lambda t, _ax: t.to(dst), kv)
 
 
 # ---------------------------------------------------------------------------

@@ -72,6 +72,13 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert {"repro_torch.models.mesh_ctx", "repro_torch.launch.mesh",
             "repro_torch.launch.sharding",
             "repro_torch.xccl.primitives"} <= on_disk
+    # serving on a mesh: MTP, prefix KV and the pod directory, and PD
+    # with the KV moved between rank groups
+    assert {"repro_torch.serving.mtp", "repro_torch.serving.backend",
+            "repro_torch.serving.dp_group", "repro_torch.serving.kv_cache",
+            "repro_torch.serving.flowserve", "repro_torch.serving.distflow",
+            "repro_torch.xccl.pd_transfer",
+            "repro_torch.core.pd_disagg"} <= on_disk
 
 
 @pytest.mark.parametrize("needle", ["import jax", "from jax", "import repro.",
@@ -97,8 +104,15 @@ def test_engine_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FlowServeEngine(get_config("deepseek-v3-671b-smoke"))
     from repro_torch.core import DisaggregatedPD
+    from repro_torch.models.mesh_ctx import make_smoke_ctx
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DisaggregatedPD(get_config("deepseek-v3-671b-smoke"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DisaggregatedPD(get_config("deepseek-v3-671b-smoke"),
+                        ctx=make_smoke_ctx())
+    # a decode rank keeps the KV it receives on the card by default
+    from repro_torch.xccl.pd_transfer import KVLayout
+    assert KVLayout(make_smoke_ctx()).device == "cuda"
 
 
 def test_backend_and_model_init_default_to_the_card():
