@@ -6027,6 +6027,423 @@ def s_stage(get_config) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# stage T: the last mixers on a mesh — RG-LRU, the SSD, cross-attention over
+# a sequence-sharded memory and the encoder
+# ---------------------------------------------------------------------------
+#: T's families, at full width and depth
+T_MODELS = (RG, MAMBA, VLM, SEAMLESS)
+#: T2's meshes of two ranks: name → (shape, the decode rules): (2,1) DP
+#: attention with the weights whole on each rank, (1,2) TP 2 with the
+#: decode caches' slots cut (the ring window's, and the memory's where
+#: its length divides 2: SeamlessM4T's 512 frames, not the VLM's 1601)
+T2_MESHES = {"2x1": ((2, 1), True), "1x2": ((1, 2), False)}
+T_NEW, T_MAX_LEN = 8, 256
+
+
+def t_memory(cfg):
+    """The seeded memory [R_B, M, md] bf16 on the card of a model with
+    cross-attention (every row the same), else None: the same on every
+    rank and in the parent."""
+    from repro_torch.models.transformer import seeded_memory
+
+    if not any(m == "cross_attn" for m, _ in cfg.layer_kinds()):
+        return None
+    mem = seeded_memory(cfg, torch.Generator(device="cuda").manual_seed(2311),
+                        "cuda", torch.bfloat16)
+    return mem.expand(R_B, -1, -1)
+
+
+def t_engine(cfg, memory, params=None, ctx=None, rules=None):
+    """``FlowServeEngine`` of T: 2 DP groups of R_B slots, the seed's
+    weights (or ``params``), the memory's first row."""
+    from repro_torch.serving.flowserve import FlowServeEngine
+
+    return FlowServeEngine(cfg, params, device="cuda", n_dp_groups=2,
+                           max_batch=R_B, max_len=T_MAX_LEN, seed=0, ctx=ctx,
+                           rules=rules,
+                           memory=None if memory is None else memory[:1])
+
+
+@torch.no_grad()
+def t_logits(model, params, toks, dec, memory, comm=None) -> dict:
+    """Global logits (f32, on the host) of a prefill of ``toks`` [R_B,
+    R_S] (reading ``memory``), then of R_STEPS decode steps from its
+    cache, padded to R_L slots and placed in the decode layout. With
+    ``comm``: the bytes the first decode step put on the wire and staged
+    through the host (``step_sent``, ``step_staged``)."""
+    from repro_torch.launch import sharding as shd
+
+    dev = "cuda"
+    toks, dec = toks.to(dev), dec.to(dev)
+    lp, c = model.prefill(params, toks, memory=memory)
+    out = {"prefill": lp.float().cpu()}
+    cache = model.init_cache(R_B, R_L, device=dev)
+    part = shd.leaves_by_path(c)
+    for keys, t in shd.leaves_by_path(cache).items():
+        t[tuple(slice(0, n) for n in part[keys].shape)].copy_(part[keys])
+    del c, part
+    cache = model.place_cache(cache, R_B)
+    for i in range(R_STEPS):
+        if comm is not None and i == 0:
+            torch.cuda.synchronize()
+            comm.sent.clear()
+            comm.staged.clear()
+        ld, cache = model.decode_step(
+            params, cache, dec[i],
+            torch.full((R_B,), R_S + i, dtype=torch.int32, device=dev))
+        if comm is not None and i == 0:
+            torch.cuda.synchronize()
+            out["step_sent"] = dict(comm.sent)
+            out["step_staged"] = dict(comm.staged)
+        out[f"decode{i}"] = ld.float().cpu()
+    torch.cuda.synchronize()
+    return out
+
+
+class CrossSpy:
+    """Stands in for ``attention.cross_attn_apply`` and counts, over its
+    decode calls, the decode-attention launches each made (full and
+    partial): a cross layer reads its memory through exactly one."""
+
+    def __init__(self):
+        from repro_torch.models import attention
+
+        self.mod, self.real = attention, attention.cross_attn_apply
+        self.calls, self.launches, self.odd = 0, {}, 0
+
+    def __enter__(self):
+        from repro_torch.kernels import runtime
+
+        def spy(*a, **kw):
+            if kw.get("mode") != "decode":
+                return self.real(*a, **kw)
+            before = dict(runtime.LAUNCHES)
+            got = self.real(*a, **kw)
+            d = {n: runtime.LAUNCHES.get(n, 0) - before.get(n, 0)
+                 for n in ("decode_attention", "decode_attention_partial")}
+            self.calls += 1
+            self.odd += sum(d.values()) != 1
+            for n, c in d.items():
+                self.launches[n] = self.launches.get(n, 0) + c
+            return got
+        self.mod.cross_attn_apply = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.cross_attn_apply = self.real
+
+
+def t1_rank(rank, world, init):
+    """T1 in a process of its own (world size 1 over NCCL): each family's
+    seed weights made on the card, :func:`t1_world_one`. → path →
+    result."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.models.mesh_ctx import MeshCtx
+    from repro_torch.models.transformer import Model
+
+    mesh = init_mesh((1, 1), "nccl", "cuda", rank=rank, world_size=world,
+                     init_method=init)
+    ctx = MeshCtx(mesh=mesh, batch_axes=("data",), remat="none")
+    out = {}
+    for arch in T_MODELS:
+        cfg = get_config(arch)
+        params = Model(cfg).init(0, device="cuda")
+        out[f"{arch}/T1"] = t1_world_one(cfg, params, t_memory(cfg), ctx)
+        del params
+        free(f"T1 {arch}")
+    return out
+
+
+def t1_world_one(cfg, params, memory, ctx) -> dict:
+    """T1: on ``ctx``, a live 1×1 NCCL mesh, ``cfg`` served as the
+    one-device engine serves it on the same weights: the same greedy
+    tokens with the same kernel launches, and the prefill and decode
+    logits of :func:`t_logits` bit for bit."""
+    from repro_torch.kernels import runtime
+
+    toks, dec = r_inputs(cfg)
+    out = {}
+    for name, c in (("one_device", None), ("mesh", ctx)):
+        eng = t_engine(cfg, memory, params, c)
+        check(eng.model.sharded == (c is not None),
+              f"T1 {name}: the {'mesh' if c else 'one-device'} path")
+        runtime.reset_launch_counts()
+        reqs, wall = serve(eng, PROMPTS, T_NEW)
+        launches, fused = dict(runtime.LAUNCHES), dict(runtime.FUSED)
+        out[name] = dict(tokens=[list(r.output_tokens) for r in reqs],
+                         launches=launches, fused=fused, serve_s=wall,
+                         logits=t_logits(eng.model, params, toks, dec,
+                                         memory))
+        eng.close()
+        del eng
+    a, b = out["one_device"], out["mesh"]
+    check(a["tokens"] == b["tokens"], f"T1 {cfg.name}: the mesh path's "
+          f"greedy tokens are the one-device engine's: {a['tokens']} vs "
+          f"{b['tokens']}")
+    check(a["launches"] == b["launches"] and a["fused"] == b["fused"],
+          f"T1 {cfg.name}: the same kernel launches: {a['launches']} vs "
+          f"{b['launches']}")
+    for k in a["logits"]:
+        check(torch.equal(a["logits"][k], b["logits"][k]),
+              f"T1 {cfg.name}: {k} logits bit-identical")
+    log(f"T1 {cfg.name}: a live 1x1 NCCL mesh serves the one-device "
+        f"engine's tokens with its launches {a['launches']}; prefill and "
+        f"{R_STEPS} decode logits bit-identical")
+    return dict(tokens=a["tokens"], launches=b["launches"], fused=b["fused"],
+                serve_s=[a["serve_s"], b["serve_s"]],
+                logits_compared=sorted(a["logits"]))
+
+
+def t2_rank(rank, world, init, inputs):
+    """One rank of T2 (a process; the two share the card over gloo): for
+    each family and mesh of :data:`T2_MESHES`, the model's blocks made
+    from the seed on this rank, every decode-attention launch replayed
+    on its plain version (:class:`Replayer`), greedy serving with the
+    launch counts set to 0 just before and read just after (with each
+    DP group's decode steps and the cross layers' launches), then the
+    global logits of :func:`t_logits` with one decode step's wire and
+    host-staged bytes, and this process's peak memory."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.models.mesh_ctx import MeshCtx
+    from repro_torch.models.weights import flatten
+
+    out, meshes = {}, {}
+    for arch in T_MODELS:
+        cfg = get_config(arch)
+        memory = t_memory(cfg)
+        for mname, (shape, decode_rules) in T2_MESHES.items():
+            if shape not in meshes:
+                meshes[shape] = init_mesh(shape, "gloo", "cuda", rank=rank,
+                                          world_size=world,
+                                          init_method=init)
+            mesh = meshes[shape]
+            ctx = MeshCtx(mesh=mesh, batch_axes=("data",), remat="none")
+            rules = shd.DECODE_RULES if decode_rules else None
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            eng = t_engine(cfg, memory, ctx=ctx, rules=rules)
+            torch.cuda.synchronize()
+            init_s = time.monotonic() - t0
+            held = sum(t.numel() for t in flatten(eng.params).values())
+            counter = DecodeCounter(eng)
+            with Replayer() as rep, CrossSpy() as cross:
+                runtime.reset_launch_counts()
+                mesh.comm.sent.clear()
+                mesh.comm.staged.clear()
+                reqs, wall = serve(eng, PROMPTS, T_NEW)
+                launches, fused = dict(runtime.LAUNCHES), dict(runtime.FUSED)
+                steps = dict(counter.calls)
+                cross_launches, cross_calls = dict(cross.launches), cross.calls
+                cross_odd = cross.odd
+                replayed = dict(rep.calls)
+                serve_sent = dict(mesh.comm.sent)
+                logits = t_logits(eng.model, eng.params, *inputs[arch],
+                                  memory, comm=mesh.comm)
+            counter.undo(eng)
+            out[(arch, mname)] = dict(
+                tokens=[list(r.output_tokens) for r in reqs],
+                logits={k: v for k, v in logits.items()
+                        if not k.startswith("step_")},
+                step_sent=logits["step_sent"],
+                step_staged=logits["step_staged"],
+                launches=launches, fused=fused, decode_steps=steps,
+                cross_launches=cross_launches, cross_calls=cross_calls,
+                cross_odd=cross_odd, mem_axis=eng.model.mem_axis,
+                replay_err=dict(rep.errs), replayed=replayed,
+                params_held=held, init_s=init_s, serve_s=wall,
+                serve_sent=serve_sent,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            eng.close()
+            del eng, counter
+            free(f"T2 {arch} {mname} rank {rank}")
+        del memory
+    return out
+
+
+def check_cross_partial() -> dict:
+    """The decode-attention kernel's partial output on a cross memory
+    shard: SeamlessM4T's cross-attention decode, B 4, 16 heads on 16 KV
+    heads, hd 64, bf16, 256 of the memory's 512 slots on each of 2 ranks
+    (every slot valid: the kernel at position L - 1 of the shard): held
+    to its plain version, timed (CUDA events and device time, one launch
+    per call) beside the plain version and SDPA on the same shard (SDPA
+    returns no max or sum), and its bytes bound at 3.35 TB/s."""
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_cuda
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_partial_ref
+
+    B, H, KV, hd, L = 4, 16, 16, 64, 256
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn((B, H, hd), generator=gen).to(torch.bfloat16).cuda()
+    k = torch.randn((B, L, KV, hd), generator=gen).to(torch.bfloat16).cuda()
+    v = torch.randn((B, L, KV, hd), generator=gen).to(torch.bfloat16).cuda()
+    pos = torch.full((B,), L - 1, dtype=torch.int32, device="cuda")
+
+    def kernel():
+        return decode_attention_cuda(q, k, v, pos, partial=True)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2))
+    acc, m, l = kernel()
+    racc, rm, rl = decode_attention_partial_ref(q, k, v, pos)
+    err, scaled = held_attention(acc / l[..., None], racc / rl[..., None],
+                                 3e-2, "partial on a cross memory shard")
+    check(float((m - rm).abs().max()) <= 3e-2
+          and float(((l - rl).abs() / rl).max()) <= 3e-2,
+          "partial on a cross memory shard: max and sum within 3e-2")
+    check(torch.equal(kernel()[0], acc),
+          "partial on a cross memory shard: a repeat bit-identical")
+    prof = profile_calls(kernel)
+    one_launch(prof, "decode_attention_kernel",
+               "partial on a cross memory shard")
+    ms, lib_ms = time_pair(kernel, sdpa)
+    bnd, by = bound_ms(nbytes(q, k, v, pos) + nbytes(acc, m, l),
+                       4 * B * L * H * hd)
+    res = dict(ms=ms, device_ms=prof["device_ms"],
+               plain_ms=time_ms(lambda: decode_attention_partial_ref(
+                   q, k, v, pos), reps=5, warm=1),
+               library_ms=lib_ms, library_device_ms=device_ms(sdpa),
+               library_returns_lse=False, bound_ms=bnd, bound_by=by,
+               max_abs_err=err, scaled_err=scaled,
+               profiled_per_call=prof["per_call"],
+               shape=dict(B=B, H=H, KV=KV, hd=hd, L=L, of=2 * L))
+    log(f"decode attention partial on a cross memory shard [{B},{H},{KV},"
+        f"{hd}] x {L} of {2 * L} slots: {ms:.4f} ms (device "
+        f"{prof['device_ms']}), plain {res['plain_ms']:.4f}, SDPA "
+        f"{lib_ms:.4f} (device {res['library_device_ms']}; no max or sum), "
+        f"bound {bnd:.4f} ms ({by}); err {err:.3g}")
+    return res
+
+
+def t_stage(get_config) -> dict:
+    """Stage T: RecurrentGemma-2B, Mamba2-130M, Llama-3.2-Vision-11B and
+    SeamlessM4T-medium at full width and depth on meshes. The one-device
+    engine's tokens and :func:`t_logits` on the seed's weights; the
+    partial decode attention on a cross memory shard
+    (:func:`check_cross_partial`); T1 (:func:`t1_rank`, spawned): a live
+    1×1 NCCL mesh bit for bit the one-device engine; T2 (:func:`t2_rank`,
+    two ranks sharing the card over gloo) on :data:`T2_MESHES`: every
+    rank emits the same tokens (their agreement with one device is
+    reported), the logits within 0.08 relative of one device's
+    (``tests/test_decode_consistency.py``'s bar), each decode-attention
+    launch replayed on its plain version within 3e-2, the launches equal
+    to the attention layers x each rank's decode steps, and on (1,2)
+    SeamlessM4T's cross layers each launching the partial kernel over its
+    rank's half of the memory (the VLM's 1601 patches stay whole: one full
+    launch a cross layer). Times are not multi-GPU numbers: the wire goes
+    through host memory and the ranks time-slice one card."""
+    from repro_torch.configs.base import ATTN, CROSS_ATTN, LOCAL_ATTN
+    from repro_torch.launch.mesh import spawn
+
+    inputs, want = {}, {}
+    for arch in T_MODELS:
+        cfg = get_config(arch)
+        inputs[arch] = r_inputs(cfg)
+        memory = t_memory(cfg)
+        eng = t_engine(cfg, memory)
+        reqs, _ = serve(eng, PROMPTS, T_NEW)
+        want[arch] = dict(tokens=[list(r.output_tokens) for r in reqs],
+                          logits=t_logits(eng.model, eng.params,
+                                          *inputs[arch], memory))
+        eng.close()
+        del eng, memory
+        free(f"T one-device reference {arch}")
+    partial = check_cross_partial()
+    t0 = time.monotonic()
+    t1 = spawn(t1_rank, 1, threads=8)[0]
+    log(f"T1 in its own process: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    ranks = spawn(t2_rank, 2, inputs, threads=4)
+    spawn_s = time.monotonic() - t0
+    results = dict((p, ({}, r)) for p, r in t1.items())
+    for arch in T_MODELS:
+        cfg = get_config(arch)
+        kinds = [m for m, _ in cfg.layer_kinds()]
+        n_attn = sum(m in (ATTN, LOCAL_ATTN, CROSS_ATTN) for m in kinds)
+        n_cross = kinds.count(CROSS_ATTN)
+        ref = want[arch]
+        for mname in T2_MESHES:
+            got = [r[(arch, mname)] for r in ranks]
+            check(all(g["tokens"] == got[0]["tokens"] for g in got),
+                  f"T2 {arch} {mname}: every rank emits the same tokens")
+            errs = {k: max(float((g["logits"][k] - v).abs().max()
+                                 / v.abs().max()) for g in got)
+                    for k, v in ref["logits"].items()}
+            check(all(e <= 0.08 for e in errs.values()),
+                  f"T2 {arch} {mname}: logits within 0.08 of one "
+                  f"device's: {errs}")
+            launches = collections_sum([g["launches"] for g in got])
+            fused = collections_sum([g["fused"] for g in got])
+            steps = sum(sum(g["decode_steps"].values()) for g in got)
+            want_l = n_attn * steps
+            check(sum(launches.values()) == want_l and not fused
+                  and set(launches) <= {"decode_attention",
+                                        "decode_attention_partial"},
+                  f"T2 {arch} {mname}: launches {launches} equal {n_attn} "
+                  f"attention layers x {steps} decode steps on the ranks")
+            cross = collections_sum([g["cross_launches"] for g in got])
+            cut = mname == "1x2" and arch == SEAMLESS
+            check(all(g["cross_odd"] == 0 for g in got)
+                  and sum(g["cross_calls"] for g in got) == n_cross * steps
+                  and all((g["mem_axis"] is not None) == cut for g in got),
+                  f"T2 {arch} {mname}: each cross layer's decode launched "
+                  f"one decode attention ({cross}), the memory cut "
+                  f"{[g['mem_axis'] for g in got]}")
+            if cut:
+                check(cross.get("decode_attention_partial", 0)
+                      == n_cross * steps > 0,
+                      f"T2 {arch} {mname}: the cut memory decodes through "
+                      f"the partial kernel, {n_cross} cross layers x "
+                      f"{steps} decode steps: {cross}")
+            for n in set().union(*(g["replay_err"] for g in got)):
+                check(sum(g["replayed"].get(n, 0) for g in got)
+                      == launches.get(n, 0),
+                      f"T2 {arch} {mname}: every {n} launch replayed")
+            kern = {n: dict(max_abs_err=max(g["replay_err"].get(n, 0.0)
+                                            for g in got))
+                    for n in set().union(*(g["replay_err"] for g in got))}
+            if cut:
+                kern["decode_attention_partial"] = dict(
+                    partial, max_abs_err=max(
+                        partial["max_abs_err"],
+                        kern["decode_attention_partial"]["max_abs_err"]))
+            flat_a = sum(ref["tokens"], [])
+            flat_b = sum(got[0]["tokens"], [])
+            agree = sum(x == y for x, y in zip(flat_a, flat_b)) / len(flat_a)
+            path = dict(
+                launches=launches, fused=fused, decode_steps=steps,
+                cross_launches=cross, logits_rel_err=errs,
+                token_agreement=agree, tokens=got[0]["tokens"],
+                mem_axis=got[0]["mem_axis"],
+                ranks=[{k: g[k] for k in (
+                    "params_held", "init_s", "serve_s", "serve_sent",
+                    "step_sent", "step_staged", "peak_gib", "replay_err",
+                    "replayed")} for g in got])
+            results[f"{arch}/T2-{mname}"] = (kern, path)
+            log(f"T2 {arch} {mname}: logits rel err {errs} (bar 0.08); "
+                f"greedy tokens agree {agree:.3f} with one device; "
+                f"launches {launches} ({n_attn} attention layers x {steps} "
+                f"decode steps), cross layers {cross}; per rank peak "
+                f"{[round(g['peak_gib'], 2) for g in got]} GiB, decode-step "
+                f"wire bytes {[g['step_sent'] for g in got]}, host-staged "
+                f"{[g['step_staged'] for g in got]} (host wire, one "
+                f"time-sliced card)")
+    log(f"T2: {len(T_MODELS) * len(T2_MESHES)} cases on 2 ranks in "
+        f"{spawn_s:.1f} s")
+    return results
+
+
 def kernel_line(results: dict) -> dict:
     """One entry per kernel: launches per path (and their sum), the
     largest error of any path, and the times and bound of the path named
@@ -6065,6 +6482,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    t_main = time.monotonic()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import runtime
@@ -6094,6 +6512,9 @@ def main() -> int:
     t0 = time.monotonic()
     results.update(s_stage(get_config))
     free(f"S2-S4: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    results.update(t_stage(get_config))
+    free(f"T: {time.monotonic() - t0:.1f} s")
     for p, (_, path) in results.items():
         log(json.dumps({"path": p, **{k: v for k, v in path.items()
                                       if k != "text"}}))
@@ -6104,6 +6525,7 @@ def main() -> int:
         f"events lost; profile_calls windows {WINDOWS['calls']}, profiled "
         f"again {WINDOWS['retried']}, still fewer device kernels than "
         f"counted launches {WINDOWS['short']}")
+    log(f"chip_smoke: {time.monotonic() - t_main:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernel_line(results)}))
     print(json.dumps({"ok": True, "device": {

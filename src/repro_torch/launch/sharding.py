@@ -140,6 +140,14 @@ def map_with_paths(tree, fn, keys=()):
     return fn(keys, tree)
 
 
+def leaves_by_path(tree) -> Dict[tuple, Any]:
+    """``tree``'s leaves keyed by their paths (as :func:`map_with_paths`
+    passes them)."""
+    out: Dict[tuple, Any] = {}
+    map_with_paths(tree, lambda k, t: out.__setitem__(k, t))
+    return out
+
+
 def param_logical(keys: tuple, ndim: int):
     """(stacked, logical axes of the leaf's core dims or None): a leaf
     under ``blocks`` has a leading layer-stack dim, never sharded."""
@@ -215,8 +223,7 @@ def take_local(t: torch.Tensor, spec: PSpec, ctx) -> torch.Tensor:
 
 def shard_tree(tree: PyTree, specs: PyTree, ctx) -> PyTree:
     """``tree``'s leaves cut to this rank's blocks under ``specs``."""
-    flat_specs = {}
-    map_with_paths(specs, lambda k, s: flat_specs.__setitem__(k, s))
+    flat_specs = leaves_by_path(specs)
     return map_with_paths(tree, lambda k, t: take_local(t, flat_specs[k], ctx))
 
 
@@ -232,12 +239,11 @@ def gather_local(t: torch.Tensor, spec: PSpec, ctx, dims=None):
 
 def spec_tree_map(fn, tree: PyTree, specs: PyTree) -> PyTree:
     """``fn(leaf, spec)`` over a tree and its spec tree."""
-    flat_specs = {}
-    map_with_paths(specs, lambda k, s: flat_specs.__setitem__(k, s))
+    flat_specs = leaves_by_path(specs)
     return map_with_paths(tree, lambda k, t: fn(t, flat_specs[k]))
 
 
 __all__ = ["LOGICAL_RULES", "DECODE_RULES", "PARAM_RULES", "PSpec",
            "param_pspecs", "cache_pspecs", "batch_pspec", "shard_tree",
            "take_local", "gather_local", "local_shape", "spec_tree_map",
-           "map_with_paths"]
+           "map_with_paths", "leaves_by_path"]

@@ -52,7 +52,8 @@ collective is the identity and nothing is cut:
     over its slots (the decode-attention kernel's partial output for
     GQA; plain tensor code for MLA, as in the reference), and the
     partials combine by ``pmax`` then ``psum`` with log-sum-exp weights.
-Cross-attention is not ported to a mesh.
+Cross-attention takes the same two layouts over the memory's K/V
+(:func:`cross_attn_apply`).
 """
 from __future__ import annotations
 
@@ -227,30 +228,64 @@ def cross_attn_cache_spec(cfg: ModelConfig, batch: int, mem_len: int):
 
 def cross_attn_apply(params, x, *, cfg: ModelConfig, mode: str,
                      memory: Optional[torch.Tensor] = None,
-                     cache: Optional[Cache] = None
-                     ) -> Tuple[torch.Tensor, Optional[Cache]]:
+                     cache: Optional[Cache] = None, ctx=None, specs=None,
+                     mem_axis=None) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Attention of ``x`` over a memory, with no RoPE and no mask.
     ``prefill``: ``memory`` [B, M, md] → K/V, returned as the cache
     (``train``: no cache).
     ``decode``: the cache's K/V, read only; every slot is attended (the
     kernel at ``positions = L - 1``), the zero-padded ones of a memory
     shorter than the slot too, as the reference's ``naive_attention``
-    attends them."""
+    attends them.
+
+    On a mesh (``ctx`` / ``specs``, see the module docstring) the heads
+    go over the TP axis as in :func:`attn_apply`, and ``memory`` and the
+    cache are this rank's rows. The prefill cache keeps every slot and
+    KV head (the prefill layout); the decode cache is this rank's block
+    of the memory's slots over ``mem_axis`` where ``cache_pspecs`` cuts
+    them (``Model.mem_axis``; None: uncut): each rank then runs the
+    decode-attention kernel's partial output over its slots (every one
+    valid) and the partials combine by log-sum-exp weights across the
+    axis. An uncut memory (one whose
+    length does not divide the axis: the VLM's 1601 patches) is read
+    whole on every rank, each rank attending with its own heads."""
+    ctx = ONE_DEVICE if ctx is None else ctx
+    qa, ka, wa = (_tp(ctx, specs, "wq", 1), _tp(ctx, specs, "wk", 1),
+                  _tp(ctx, specs, "wo", 0))
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     if mode in ("prefill", "train"):
         if memory is None:
             raise ValueError(f"cross-attention {mode} needs the memory")
         k = torch.einsum("bmd,dhk->bmhk", memory, params["wk"])
         v = torch.einsum("bmd,dhk->bmhk", memory, params["wv"])
-        o = naive_attention(q, k, v, causal=False)
-        y = torch.einsum("bshk,hkd->bsd", o, params["wo"])
-        return y, ({"k": k, "v": v} if mode == "prefill" else None)
+        ql, kl, vl, wo = _local_heads(q, k, v, params["wo"], ctx, qa, ka,
+                                      wa)
+        o = naive_attention(ql, kl, vl, causal=False)
+        y = _tp_sum(torch.einsum("bshk,hkd->bsd", o, wo), ctx, ctx.tp_axis)
+        if mode == "train":
+            return y, None
+        if ka is not None:        # the cache keeps every KV head
+            k, v = ctx.all_gather(k, ka, 2), ctx.all_gather(v, ka, 2)
+        return y, {"k": k, "v": v}
     if mode != "decode":
         raise ValueError(f"cross_attn_apply: unsupported mode {mode!r}")
     B, L = cache["k"].shape[:2]
     last = torch.full((B,), L - 1, dtype=torch.int32, device=x.device)
-    o = decode_attention(q[:, 0], cache["k"], cache["v"], last).to(q.dtype)
-    return torch.einsum("bshk,hkd->bsd", o[:, None], params["wo"]), cache
+    if mem_axis is None or ctx.axis_size(mem_axis) == 1:
+        ql, kl, vl, wo = _local_heads(q, cache["k"], cache["v"],
+                                      params["wo"], ctx, qa, None, wa)
+        o = decode_attention(ql[:, 0], kl, vl, last).to(q.dtype)
+        y = torch.einsum("bshk,hkd->bsd", o[:, None], wo)
+        return _tp_sum(y, ctx, ctx.tp_axis), cache
+    if qa is not None:
+        q = ctx.all_gather(q, qa, 2)
+    acc, m, l = decode_attention_partial(q[:, 0], cache["k"], cache["v"],
+                                         last)
+    o = _lse_combine(acc, m, l, ctx, mem_axis).to(q.dtype)[:, None]
+    if wa is not None:
+        o = head_sharded(ctx, o)
+    y = torch.einsum("bshk,hkd->bsd", o, params["wo"])
+    return _tp_sum(y, ctx, wa), cache
 
 
 # ===========================================================================

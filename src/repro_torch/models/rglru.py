@@ -15,6 +15,18 @@ written in place into the layer's cache: ``state`` [B, width] float32
 and ``conv`` [B, conv_width - 1, width], the causal conv's history, in
 the model dtype. A prefill folds every position it is given into both,
 the bucket's pad tokens included, as the reference does.
+
+On a mesh (``ctx``, ``specs`` the layer's parameter specs as the rank
+holds them) the rows are this rank's batch block, and where ``w_in``,
+``w_gate_branch`` and ``w_out`` are cut over the TP axis (the ``"lru"``
+rule) each TP rank computes its block of the channels: its columns of
+the two input projections, its blocks of the block-diagonal gates, its
+slices of ``lam`` and the conv, and its rows of ``w_out``, whose partial
+products are summed over the axis in float32. The cache keeps the whole
+width on every rank (``cache_pspecs`` cuts only the batch): each step
+reads this rank's channels of it and all-gathers the new ``state``
+(float32) and ``conv`` history back. A cut that does not fall on a gate
+block's edge gathers the weights and runs every channel.
 """
 from __future__ import annotations
 
@@ -101,18 +113,53 @@ def _block_diag(x, w, b):
     return y.reshape(B, S, width)
 
 
+def _channel_split(params, cfg: ModelConfig, ctx, specs):
+    """(params as this rank computes with them, TP axis or None, first
+    channel): this rank's block of every per-channel leaf where the
+    ``"lru"`` dim is cut over the TP axis on a gate block's edge; the
+    weights gathered whole (axis None) where the cut is not aligned."""
+    tp = ctx.tp_axis
+    cut = specs is not None and ctx.tp_size > 1 and all(
+        specs[n].entry(dim) == tp for n, dim in
+        (("w_in", 1), ("w_gate_branch", 1), ("w_out", 0)))
+    if not cut:
+        return params, None, 0
+    bw = _blocks(cfg)[1]
+    w_loc = params["w_in"].shape[1]
+    if w_loc % bw:
+        p = dict(params)
+        for n, dim in (("w_in", 1), ("w_gate_branch", 1), ("w_out", 0)):
+            p[n] = ctx.all_gather(params[n], tp, dim=dim)
+        return p, None, 0
+    c0 = ctx.axis_index(tp) * w_loc
+    g0, g1 = c0 // bw, (c0 + w_loc) // bw
+    p = dict(params)
+    p["conv_w"] = params["conv_w"][:, c0:c0 + w_loc]
+    for n in ("conv_b", "lam"):
+        p[n] = params[n][c0:c0 + w_loc]
+    for n in ("gate_a_w", "gate_a_b", "gate_x_w", "gate_x_b"):
+        p[n] = params[n][g0:g1]
+    return p, tp, c0
+
+
 def rglru_apply(params, x, *, cfg: ModelConfig, mode: str,
-                cache: Optional[Cache] = None
+                cache: Optional[Cache] = None, ctx=None, specs=None
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """x [B, S, d] → (y [B, S, d], cache). ``prefill`` returns a fresh
     cache, ``train`` none; ``decode`` (S = 1) updates ``cache`` in
-    place."""
+    place. ``ctx`` / ``specs``: the mesh and the layer's parameter specs
+    (see the module docstring; None: one device)."""
+    if mode not in ("prefill", "train", "decode"):
+        raise ValueError(f"rglru_apply: unsupported mode {mode!r}")
+    axis, c0 = None, 0
+    if ctx is not None:
+        params, axis, c0 = _channel_split(params, cfg, ctx, specs)
+    w_loc = params["w_in"].shape[1]
     gate = F.gelu(torch.einsum("bsd,dw->bsw", x, params["w_gate_branch"]),
                   approximate="tanh")
     u = torch.einsum("bsd,dw->bsw", x, params["w_in"])
-    if mode not in ("prefill", "train", "decode"):
-        raise ValueError(f"rglru_apply: unsupported mode {mode!r}")
-    hist = cache["conv"] if mode == "decode" else None
+    # this rank's channels of the whole-width cache
+    hist = cache["conv"][..., c0:c0 + w_loc] if mode == "decode" else None
     u, new_hist = causal_conv(u, params["conv_w"], params["conv_b"], hist)
 
     r = torch.sigmoid(_block_diag(u, params["gate_a_w"], params["gate_a_b"]))
@@ -122,15 +169,22 @@ def rglru_apply(params, x, *, cfg: ModelConfig, mode: str,
     gated_x = i * u.float()
     b_t = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * gated_x
 
+    def whole(t, dim):
+        # this rank's channels → the whole width (f32 state travels f32)
+        return t if axis is None else ctx.all_gather(t.contiguous(), axis,
+                                                     dim=dim)
     if mode == "decode":
-        h = a[:, 0] * cache["state"] + b_t[:, 0]               # [B, w]
-        cache["state"].copy_(h)
-        cache["conv"].copy_(new_hist)
+        h = a[:, 0] * cache["state"][:, c0:c0 + w_loc] + b_t[:, 0]
+        cache["state"].copy_(whole(h, 1))
+        cache["conv"].copy_(whole(new_hist, 2))
         y, new_cache = h[:, None], cache
     else:
         y = linear_scan(a, b_t, dim=1)                         # h_t
-        new_cache = ({"state": y[:, -1].contiguous(),
-                      "conv": new_hist.contiguous()}
+        new_cache = ({"state": whole(y[:, -1], 1).contiguous(),
+                      "conv": whole(new_hist, 2).contiguous()}
                      if mode == "prefill" else None)
     y = (y * gate.float()).to(x.dtype)
-    return torch.einsum("bsw,wd->bsd", y, params["w_out"]), new_cache
+    y = torch.einsum("bsw,wd->bsd", y, params["w_out"])
+    if axis is not None:
+        y = ctx.psum(y.float(), axis).to(y.dtype)
+    return y, new_cache

@@ -168,7 +168,7 @@ def _tp_hidden(ctx, specs, name: str):
 def block_apply(params, x, *, cfg: ModelConfig, kind, mode: str,
                 cache=None, positions=None, memory=None, placement=None,
                 decode_microbatches: int = 1, window_override: int = 0,
-                ctx=None, specs=None, sp_axis=None):
+                ctx=None, specs=None, sp_axis=None, mem_axis=None):
     """Returns (x_out, layer cache, the MoE layer's aux dict
     (``moe_lb_loss``, ``moe_z_loss``, ``expert_counts``) or None).
     ``memory``: what a cross-attention
@@ -183,7 +183,9 @@ def block_apply(params, x, *, cfg: ModelConfig, kind, mode: str,
     as this rank holds them (None on one device); ``sp_axis``: ``x`` is
     this rank's block of the sequence over that axis (the
     sequence-parallel residual): each sublayer reads the gathered
-    sequence and adds back its own block."""
+    sequence and adds back its own block; ``mem_axis``: the axis the
+    decode cache of a cross-attention layer cuts the memory's slots over
+    (None: uncut)."""
     mixer, ffn = kind
 
     def full(h):
@@ -201,14 +203,17 @@ def block_apply(params, x, *, cfg: ModelConfig, kind, mode: str,
     elif mixer == CROSS_ATTN:
         y, new_cache = A.cross_attn_apply(params["mixer"], h, cfg=cfg,
                                           mode=mode, memory=memory,
-                                          cache=cache)
+                                          cache=cache, mem_axis=mem_axis,
+                                          **mesh)
     elif mixer == MLA_ATTN:
         y, new_cache = A.mla_apply(params["mixer"], h, cfg=cfg, mode=mode,
                                    cache=cache, positions=positions, **mesh)
+    elif mixer == RGLRU:
+        y, new_cache = R.rglru_apply(params["mixer"], h, cfg=cfg, mode=mode,
+                                     cache=cache, **mesh)
     else:
-        apply = R.rglru_apply if mixer == RGLRU else S.ssm_apply
-        y, new_cache = apply(params["mixer"], h, cfg=cfg, mode=mode,
-                             cache=cache)
+        y, new_cache = S.ssm_apply(params["mixer"], h, cfg=cfg, mode=mode,
+                                   cache=cache)
     x = x + mine(y)
     aux = None
     if ffn == MLP:
@@ -252,10 +257,13 @@ class Model:
     samples the same token. Caches: a prefill or chunk buffer is the
     batch block with every slot; the decode cache
     (``init_cache(local=True)`` or :meth:`place_cache`) also only this
-    rank's slots. GQA, ring-window GQA and MLA mixers with MLP and MoE,
-    and the MTP head (its decode cache ``init_mtp_cache(local=True)``),
-    are ported to a mesh; training, cross-attention, the recurrent
-    blocks and the encoder raise there."""
+    rank's slots. Every mixer runs there, with MLP and MoE, as do the
+    encoder and the MTP head (its decode cache
+    ``init_mtp_cache(local=True)``): RG-LRU with its channels over the
+    TP axis, the SSD replicated over it (rows only), cross-attention
+    with its heads over TP and the memory's K/V over the sequence axis
+    where ``cache_pspecs`` cuts them (``mem_axis``). Training raises
+    there."""
 
     def __init__(self, cfg: ModelConfig, *, ctx=None, rules=None,
                  decode_microbatches: Optional[int] = None,
@@ -286,12 +294,10 @@ class Model:
         # rule: the head has no memory)
         mixer = self.pattern[-1][0]
         self.mtp_kind = (ATTN if mixer == CROSS_ATTN else mixer, MLP)
-        #: mixers not ported to a mesh (raise when run on one, in the main
-        #: stack and in the MTP head); GQA, ring-window GQA and MLA run
-        #: there, with MLP, MoE and the MTP head's block
-        self._off_mesh = sorted({m for m, _ in kinds}
-                                - {ATTN, LOCAL_ATTN, MLA_ATTN}
-                                | ({"encoder"} if cfg.is_encdec else set()))
+        #: the memory's slots in the cross-attention layers' decode cache
+        #: (``init_cache(mem_len=)``, ``place_cache``): what decides
+        #: whether the decode layout cuts them (:attr:`mem_axis`)
+        self.mem_len = cfg.num_frontend_tokens
         #: each parameter's spec under ``rules`` on ``ctx.mesh``
         self.specs = shd.param_pspecs(self.param_spec(), self.ctx.mesh,
                                       rules)
@@ -407,6 +413,8 @@ class Model:
         rank's block of slots too."""
         dev = device if device == "meta" else resolve_device(device)
         mem_len = mem_len or self.cfg.num_frontend_tokens
+        if local and dev != "meta":
+            self.mem_len = mem_len
 
         def zeros(kind, lead=()):
             spec = block_cache_spec(self.cfg, kind, batch, max_len,
@@ -436,7 +444,9 @@ class Model:
         decode layout (``local``: ``cache_pspecs``) or the prefill layout
         (the batch only). The decode layout must cut the slots wherever
         the sequence axis has ranks and ``shard_kv_seq`` is on, as the
-        reference's decode ``shard_map`` requires."""
+        reference's decode ``shard_map`` requires; a cross-attention
+        layer's memory stays whole where its length does not divide the
+        axis, as in the reference."""
         ctx = self.ctx
         seq_on = ctx.shard_kv_seq and ctx.axis_size(ctx.seq_axis) > 1
 
@@ -447,7 +457,8 @@ class Model:
             if not local:
                 return shd.PSpec(*(None if i == dim else e
                                    for i, e in enumerate(sp)))
-            if seq_on and sp.entry(dim) is None:
+            if (seq_on and sp.entry(dim) is None
+                    and self._kind_at(keys)[0] != CROSS_ATTN):
                 raise ValueError(f"decode cache {keys}: its slots do not "
                                  f"divide the {ctx.seq_axis!r} axis")
             return sp
@@ -464,10 +475,13 @@ class Model:
             shape = list(t.shape)
             shape[1 if "blocks" in keys else 0] = batch
             return torch.empty(shape, dtype=t.dtype, device="meta")
-        specs = self._layout_specs(shd.map_with_paths(cache, glob), True)
-
-        flat: Dict[tuple, Any] = {}
-        shd.map_with_paths(specs, lambda k, sp: flat.__setitem__(k, sp))
+        full = shd.map_with_paths(cache, glob)
+        cross = [t.shape[2 if "blocks" in k else 1] for k, t in
+                 shd.leaves_by_path(full).items()
+                 if k[-1] == "k" and self._kind_at(k)[0] == CROSS_ATTN]
+        if cross:
+            self.mem_len = cross[0]
+        flat = shd.leaves_by_path(self._layout_specs(full, True))
 
         def cut(keys, t):
             if keys[-1] not in ("k", "v", "ckv", "krope"):
@@ -476,6 +490,38 @@ class Model:
             e = flat[keys].entry(dim)
             return t if e is None else self.ctx.take_block(t, dim, e).clone()
         return shd.map_with_paths(cache, cut)
+
+    def _kind_at(self, keys: tuple):
+        """The layer kind a cache leaf's path ``keys`` belongs to (an MTP
+        cache's ``("kv", name)``: the head's block)."""
+        if keys[0] == "blocks":
+            return self.pattern[int(keys[1][3:])]
+        if keys[0] in ("prefix", "tail"):
+            return (self.prefix_kinds if keys[0] == "prefix"
+                    else self.tail_kinds)[keys[1]]
+        return self.mtp_kind
+
+    @property
+    def mem_axis(self):
+        """The axis the decode cache cuts the memory's slots over (the
+        cross-attention K/V), or None: every rank holds every slot."""
+        ctx = self.ctx
+        n = ctx.axis_size(ctx.seq_axis)
+        if (not self.has_cross or not ctx.shard_kv_seq or n == 1
+                or self.mem_len % n):
+            return None
+        return ctx.seq_axis
+
+    def slot_axis(self, keys: tuple):
+        """The axis the decode cache cuts the slots of leaf ``keys`` over
+        (K/V, latents), or None: every rank holds every slot."""
+        ctx = self.ctx
+        if (keys[-1] not in ("k", "v", "ckv", "krope")
+                or not ctx.shard_kv_seq or ctx.axis_size(ctx.seq_axis) == 1):
+            return None
+        if self._kind_at(keys)[0] == CROSS_ATTN:
+            return self.mem_axis
+        return ctx.seq_axis
 
     def _mtp_kv_spec(self, batch: int, max_len: int):
         # no window_override, as the reference's MTP block
@@ -518,9 +564,9 @@ class Model:
     # ------------------------------------------------------------------
     def _view(self, p, spec):
         """A layer's parameters as it computes with them, and their specs:
-        on a mesh every sharded dim is all-gathered except the heads and
-        hidden dims on the TP axis and the expert dim on the EP axes
-        (None, None on one device)."""
+        on a mesh every sharded dim is all-gathered except the heads,
+        hidden and RG-LRU channel dims on the TP axis and the expert dim
+        on the EP axes (None, None on one device)."""
         if not self.sharded:
             return p, None
         ctx = self.ctx
@@ -542,7 +588,7 @@ class Model:
             for dim in range(p.dim()):
                 e = sp.entry(dim)
                 lg = rule[dim] if dim < len(rule) else None
-                if e is None or (lg in ("heads", "kv_heads", "mlp")
+                if e is None or (lg in ("heads", "kv_heads", "mlp", "lru")
                                  and e == ctx.tp_axis) or (
                                      lg == "expert" and e == ep):
                     kept.append(e)
@@ -586,9 +632,6 @@ class Model:
         their counts summed ([E] float32; [1] zeros without MoE), as the
         reference's ``aux_sum`` and ``counts``."""
         cfg = self.cfg
-        if self.sharded and self._off_mesh:
-            raise NotImplementedError(f"{cfg.name}: {self._off_mesh} are "
-                                      f"not ported to a mesh")
         train = mode == "train"
         np_, pl_len = len(self.prefix_kinds), len(self.pattern)
         new_caches: Dict[str, PyTree] = {}
@@ -609,7 +652,7 @@ class Model:
                 positions=positions, memory=memory, placement=lp,
                 decode_microbatches=self.decode_microbatches,
                 window_override=self.window_override, ctx=ctx, specs=lspec,
-                sp_axis=sp_axis)
+                sp_axis=sp_axis, mem_axis=self.mem_axis)
             if train and moe is not None:
                 aux = (aux[0] + moe["moe_lb_loss"], aux[1] + moe["moe_z_loss"],
                        aux[2] + moe["expert_counts"])
@@ -674,20 +717,53 @@ class Model:
             prefix_layers=(), layer_pattern=((ATTN, MLP),),
             num_layers=cfg.encoder_layers)
 
-    def encode(self, params, frames):
+    def encode(self, params, frames, ctx=None):
         """frames [B, M, encoder_d_model] → memory [B, M,
         encoder_d_model]: per block, non-causal un-roped self-attention
-        and the MLP, each behind a pre-norm, then an RMS norm."""
+        and the MLP, each behind a pre-norm, then an RMS norm.
+
+        On a mesh ``frames`` are this rank's rows (``ctx``: the batch's
+        context) and the memory comes back as them, whole along the
+        sequence. Each block's heads and MLP hidden dim go over the TP
+        axis where they divide it: this rank's block of each weight
+        (which the rules leave whole: the reference's table reads the
+        encoder's per-block leaves as a stacked layer's), the partial
+        products summed in float32; the residual is sequence-parallel
+        where the frames divide the axis."""
         eps = self.cfg.norm_eps
+        ctx = self.ctx if ctx is None else ctx
+        ecfg = self._encoder_cfg()
+        tp = ctx.tp_axis if self.sharded and ctx.tp_size > 1 else None
+        ta = (tp if tp and ecfg.num_heads % ctx.tp_size == 0
+              and ecfg.num_kv_heads % ctx.tp_size == 0 else None)
+        tm = tp if tp and ecfg.d_ff % ctx.tp_size == 0 else None
+
+        def cut(t, dim, axis):
+            return t if axis is None else ctx.take_block(t, dim, axis)
         x = frames.to(self.dtype)
-        for bp in params["encoder"]["blocks"]:
-            h = rms_norm(x, bp["mixer_norm"], eps)
-            q, k, v = (torch.einsum("bsd,dhk->bshk", h, bp["mixer"][n])
+        x, sp = self._residual_constraint(x, "prefill", ctx)
+
+        def full(h):
+            return h if sp is None else ctx.all_gather(h, sp, dim=1)
+
+        def mine(y):
+            return y if sp is None else ctx.take_block(y, 1, sp)
+        for bp, spec in zip(params["encoder"]["blocks"],
+                            self.specs["encoder"]["blocks"]):
+            bp, _ = self._view(bp, spec)
+            mx, ffn = bp["mixer"], bp["ffn"]
+            h = full(rms_norm(x, bp["mixer_norm"], eps))
+            q, k, v = (torch.einsum("bsd,dhk->bshk", h, cut(mx[n], 1, ta))
                        for n in ("wq", "wk", "wv"))
             o = naive_attention(q, k, v, causal=False)
-            x = x + torch.einsum("bshk,hkd->bsd", o, bp["mixer"]["wo"])
-            h = rms_norm(x, bp["ffn_norm"], eps)
-            x = x + F.mlp_apply(bp["ffn"], h)
+            y = torch.einsum("bshk,hkd->bsd", o, cut(mx["wo"], 0, ta))
+            x = x + mine(A._tp_sum(y, ctx, ta))
+            h = full(rms_norm(x, bp["ffn_norm"], eps))
+            local = {"wi_gate": cut(ffn["wi_gate"], 1, tm),
+                     "wi_up": cut(ffn["wi_up"], 1, tm),
+                     "wo": cut(ffn["wo"], 0, tm)}
+            x = x + mine(F.mlp_apply(local, h, ctx=ctx, tp_axis=tm))
+        x = full(x)
         return rms_norm(x, params["encoder"]["norm"], eps)
 
     # ------------------------------------------------------------------
@@ -747,15 +823,18 @@ class Model:
         ve = spec.entry(1)
         return logits if ve is None else ctx.all_gather(logits, ve, dim=1)
 
-    def _memory(self, params, memory):
+    def _memory(self, params, memory, ctx=None, rows: bool = False):
         """What the cross-attention layers read, in the model's dtype:
         ``memory`` itself, or for an encoder-decoder the encoder's
-        output on it (its frames)."""
+        output on it (its frames). ``rows``: ``memory`` is a global batch
+        and this rank keeps its block of the rows (under ``ctx``), as
+        the steps cut their tokens."""
         if memory is None:
             raise ValueError(f"{self.cfg.name}: needs memory (its "
                              f"cross-attention layers read it)")
-        memory = memory.to(self.dtype)
-        return self.encode(params, memory) if self.cfg.is_encdec else memory
+        (memory,) = self._rows(ctx, rows, memory.to(self.dtype))
+        return (self.encode(params, memory, ctx) if self.cfg.is_encdec
+                else memory)
 
     def forward_train(self, params, tokens, labels, memory=None,
                       loss_mask=None):
@@ -786,10 +865,12 @@ class Model:
         """tokens [B, S] → (logits at ``last_pos`` (default S-1) [B, V]
         f32, cache). A model with cross-attention needs ``memory`` [B,
         M, md]: the frames its encoder runs on (``cfg.is_encdec``), else
-        the memory itself; it is taken in the model's dtype."""
-        if self.has_cross:
-            memory = self._memory(params, memory)
+        the memory itself; it is taken in the model's dtype. On a mesh
+        each rank runs the encoder and the cross-attention layers on its
+        rows of the memory, as on its rows of ``tokens``."""
         ctx, rows = self._batch_ctx(tokens.shape[0])
+        if self.has_cross:
+            memory = self._memory(params, memory, ctx, rows)
         (tokens,) = self._rows(ctx, rows, tokens)
         if last_pos is not None:
             (last_pos,) = self._rows(ctx, rows, last_pos)
@@ -864,9 +945,6 @@ class Model:
         the block runs the prefill mode (training is not ported to a
         mesh) and its cache is dropped."""
         cfg = self.cfg
-        if self.sharded and self._off_mesh:
-            raise NotImplementedError(f"{cfg.name}: {self._off_mesh} are "
-                                      f"not ported to a mesh")
         ctx, rows = self._batch_ctx(next_tokens.shape[0])
         next_tokens, = self._rows(ctx, rows, next_tokens)
         if mtp_cache is not None:

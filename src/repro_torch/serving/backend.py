@@ -125,6 +125,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ATTN, MLA_ATTN
+from repro_torch.launch import sharding as shd
 from repro_torch.models.common import resolve_device, tree_map
 from repro_torch.serving.sampling import (DRAFT, greedy_verify,
                                           sample_tokens, speculative_verify,
@@ -255,21 +256,18 @@ def _bucket_len(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048)) -> int:
     return -(-n // 2048) * 2048
 
 
-def _map_pairs(fn, full, one, names: bool = False):
+def _map_pairs(fn, full, one):
     """Apply ``fn(full_leaf, one_leaf, stacked)`` over two cache trees of
-    the model's layout (``stacked`` for the ``blocks`` leaves); with
-    ``names`` also the leaf's name."""
+    the model's layout (``stacked`` for the ``blocks`` leaves)."""
     for section, sub in full.items():
         if section == "blocks":
             for pos, leaves in sub.items():
                 for n, t in leaves.items():
-                    fn(t, one[section][pos][n], True, *((n,) if names
-                                                        else ()))
+                    fn(t, one[section][pos][n], True)
         else:
             for i, leaves in enumerate(sub):
                 for n, t in leaves.items():
-                    fn(t, one[section][i][n], False, *((n,) if names
-                                                       else ()))
+                    fn(t, one[section][i][n], False)
 
 
 class TorchBackend(ExecutionBackend):
@@ -435,20 +433,21 @@ class TorchBackend(ExecutionBackend):
 
     def _write_slot_sharded(self, cache: PyTree, cache1: PyTree,
                             slot: int) -> PyTree:
-        from repro_torch.models.attention import _seq_block
-
-        ctx = self.model.ctx
+        model = self.model
         slot = self._local_slot(slot, self._cache_batch)
         if slot is None:
             return cache
+        src_of = shd.leaves_by_path(cache1)
 
-        def one(full, part, stacked, name):
+        def one(keys, full):
+            stacked = "blocks" in keys
             dst = full[:, slot] if stacked else full[slot]
-            src = part[:, 0] if stacked else part[0]
+            src = src_of[keys]
+            src = src[:, 0] if stacked else src[0]
             ax = 1 if stacked else 0         # the slots, in dst and src
-            s0 = 0
-            if name in ("k", "v", "ckv", "krope"):
-                s0 = _seq_block(ctx, dst.shape[ax])[1]
+            axis = model.slot_axis(keys)
+            s0 = 0 if axis is None else \
+                model.ctx.axis_index(axis) * dst.shape[ax]
             n = max(0, min(src.shape[ax] - s0, dst.shape[ax]))
             src = src.narrow(ax, min(s0, src.shape[ax]), n)
             if src.dim() != dst.dim() or any(
@@ -457,7 +456,7 @@ class TorchBackend(ExecutionBackend):
                                  f"does not fit a {tuple(dst.shape)} slot")
             dst.zero_()
             dst[tuple(slice(0, m) for m in src.shape)].copy_(src)
-        _map_pairs(one, cache, cache1, names=True)
+        shd.map_with_paths(cache, one)
         return cache
 
     def apply_placement(self, table: Optional[Any]) -> None:
