@@ -355,8 +355,8 @@ P. the SuperPod simulator (``repro_torch.sim``; host code, no kernel):
    model must carry both rows and every request finish. Its figures are
    the MODELED pod's, not the card's (only the two rows are);
 R. the multi-device layer (``models/mesh_ctx.py``, ``launch/mesh.py``,
-   ``launch/sharding.py``): R0 (in the DeepSeek-V3 stages, on the served
-   weights) ``Model.init(0)`` made on the card equals the same init on
+   ``launch/sharding.py``): R0 (in the DeepSeek-V3 stages, DeepSeek-V3
+   cut to 1 layer) ``Model.init(0)`` made on the card equals the same init on
    the host CPU bit for bit, leaf by leaf (every element of a leaf up to
    4 Mi elements, three blocks of about 1 Mi of each larger one); R1
    (after the memory stages, in a process of its own, so that no NCCL
@@ -408,6 +408,30 @@ S. serving on a mesh, the rest of DeepSeek-V3's path: S1 (in R1's
    prefix seeding: seeded and cold prefill device ms, the seeded logits
    bit-identical to the cold split, the seeded slot decoding through the
    partial decode attention;
+
+U. training on a mesh and the dry run (no hand kernel on this path: the
+   train mode takes the plain route-pack and grouped FFN): U1 (in a
+   process of its own) InternLM2-1.8B at full width and depth, B 8 x
+   S 256, ``Trainer`` for 3 steps on one device and ``Trainer(ctx=)`` on a
+   live 1x1 NCCL mesh: every step's loss and grad_norm and every
+   parameter and AdamW moment after the last step bit-identical; U2 two
+   ranks sharing the card over gloo, InternLM2-1.8B (full) and
+   DeepSeek-MoE-16B (full width, 4 layers) on (2,1) (FSDP over
+   ``data``) and (1,2) (TP, EP with the all-to-all MoE), each rank its
+   blocks of the seed's weights: the loss and grad_norm within 0.02
+   relative of one device's (``tests/test_multidevice.py``'s bar), the
+   largest gradient-leaf error reported (per-shard MoE capacity drops
+   other assignments: not a bar), per rank tokens/s of a timed step,
+   peak memory and wire and host-staged bytes, forward and backward
+   apart (host wire, one time-sliced card: not multi-GPU figures); U3
+   the dry run (``launch/dryrun_lib.run_one``, ``meta`` tensors, a pool
+   of host processes started with the stage) of every registered arch
+   at ``train_4k`` and ``decode_32k`` on 16x16, one line each and the
+   count of ``ok``, all required, then the dry run's per-device
+   parameter bytes of DeepSeek-V3 at depth 4 on a 1x1 mesh equal, byte
+   for byte, the bytes building them on the card requests from the
+   allocator (its ``requested_bytes``; ``memory_allocated``, which
+   rounds each block up, printed beside);
 
 13. print the card's name and power limit, one JSON line with every
     kernel's launches per path, error, times and bound (Collect's
@@ -1915,8 +1939,8 @@ def mtp_path(cfg, params, k: int, plain: dict, placement) -> dict:
     EPLB and after it, with an oracle head. Then 4 requests at
     temperature 0.7 and one rolled-back iteration, all with the launch
     counts set to 0 just before and read just after. With the recorders
-    taken off (each syncs the host once per iteration): the greedy
-    waves again, for TPOT, an oracle wave, the device split and a decode
+    taken off (each syncs the host once per iteration): the first greedy
+    wave again, for TPOT, an oracle wave, the device split and a decode
     profile."""
     import numpy as np
 
@@ -1980,13 +2004,12 @@ def mtp_path(cfg, params, k: int, plain: dict, placement) -> dict:
           f"{launches}, {fused}")
     undo()
     timed, wall4 = serve(engine, PROMPTS, 16)
-    timed2, wall5 = serve(engine, PROMPTS_EPLB, 16)
-    equal_plain(timed + timed2, "unrecorded")
+    equal_plain(timed, "unrecorded")
     oracle, wall6 = oracle_wave(engine, plain, PROMPTS_EPLB, 16)
     split = mtp_split(engine)
     profile = profile_decode(engine)
     engine.close()
-    everyone = timed + timed2
+    everyone = timed
     res = dict(k=k, launches=launches, fused=fused,
                greedy=acceptance(greedy), temperature_0_7=acceptance(temp),
                tpot_ms_mean=1e3 * statistics.mean(r.tpot for r in everyone),
@@ -1999,7 +2022,7 @@ def mtp_path(cfg, params, k: int, plain: dict, placement) -> dict:
                oracle_with_rejections=rejected,
                tpot_ms_mean_oracle=1e3 * statistics.mean(
                    r.tpot for r in oracle),
-               serve_s=[wall, wall2, wall3, wall4, wall5, wall6],
+               serve_s=[wall, wall2, wall3, wall4, wall6],
                logits_calls=calls["all"],
                rollback=rollback, device_split=split,
                decode_profile=profile)
@@ -3731,6 +3754,8 @@ def free(what: str) -> None:
 
 def deepseek_stages(get_config) -> dict:
     """Stages 3-7 on DeepSeek-V3 cut to 4 layers, with its MTP head."""
+    from repro_torch.models.transformer import Model
+
     cfg = dataclasses.replace(get_config(DEEPSEEK), num_layers=4)
     check(cfg.mtp_num_layers == 1, "DeepSeek-V3 has its MTP head")
     max_batch = 4
@@ -3764,9 +3789,14 @@ def deepseek_stages(get_config) -> dict:
     moe_attn = moe_attn_stage(engine.dps[0].backend)
     free(f"MoE-Attention: {time.monotonic() - t0:.1f} s")
 
-    t0 = time.monotonic()
-    r0 = r0_init(cfg, engine.params)
     del engine
+    free("DeepSeek-V3 engine")
+    t0 = time.monotonic()
+    cfg1 = dataclasses.replace(cfg, num_layers=R0_DEPTH,
+                               prefix_layers=cfg.prefix_layers[:R0_DEPTH])
+    params = Model(cfg1).init(0, device="cuda")
+    r0 = r0_init(cfg1, params)
+    del params
     free(f"R0: {time.monotonic() - t0:.1f} s")
 
     t0 = time.monotonic()
@@ -4873,6 +4903,9 @@ R2_PROMPTS = {DEEPSEEK: PROMPTS, LLAMA: LLAMA_PROMPTS[1:]}
 #: drops an assignment on either side (the gather strategy everywhere)
 R2_NO_DROP_CF = 64.0
 R0_BLOCK = 1 << 20
+#: R0 holds the seed's weights of DeepSeek-V3 at this depth (one dense
+#: layer, the embedding, lm_head and the MTP head)
+R0_DEPTH = 1
 
 
 def r_inputs(cfg):
@@ -4907,8 +4940,7 @@ def r_logits(model, params, toks, dec) -> dict:
 
 
 def r0_init(cfg, params) -> dict:
-    """R0: the weights ``init(0, "cuda")`` made (the served engine's)
-    against ``init(0, "cpu")``, leaf by leaf, bit for bit: every element
+    """R0: the weights ``init(0, "cuda")`` made against ``init(0, "cpu")``, leaf by leaf, bit for bit: every element
     of a leaf up to 4 Mi elements, and of a larger leaf three blocks of
     about 1 Mi elements (its first, middle and last indices along the
     first dim whose single index spans at most 16 Mi elements): the host
@@ -6444,6 +6476,406 @@ def t_stage(get_config) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# stage U: training on a mesh (the collectives' backward, FSDP, the
+# all-to-all MoE under autograd, Trainer(ctx=)) and the dry run on meta
+# ---------------------------------------------------------------------------
+#: U1: ``launch/train.py``'s default model and batch, 3 steps
+U_STEPS = 3
+#: U2: the models (arch, depth or None: full) and meshes on 2 ranks
+U2_MODELS = ((TRAIN_ARCH, None), (TRAIN_MOE_ARCH, TRAIN_MOE_LAYERS))
+U2_MESHES = {"2x1": (2, 1), "1x2": (1, 2)}
+#: U3: the input shapes every registered arch runs on 16x16, and the
+#: model whose parameter bytes are held to the card's allocation
+U3_SHAPES = ("train_4k", "decode_32k")
+U3_DEPTH = 4
+#: U3's pool: host processes beside U1 and U2's ranks
+U3_WORKERS = 6
+
+
+def u_train_config():
+    from repro_torch.train import AdamWConfig, DataConfig, TrainConfig
+
+    return TrainConfig(
+        steps=U_STEPS, log_every=1,
+        opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=max(U_STEPS // 20, 5),
+                        total_steps=U_STEPS),
+        data=DataConfig(seq_len=TRAIN_S, global_batch=TRAIN_B))
+
+
+def u_batch(device) -> tuple:
+    """The loader's first batch (tokens, labels, loss mask) of U's
+    training configuration, on ``device``."""
+    from repro_torch.train.data import PackedLoader
+
+    return tuple(torch.as_tensor(a).to(device) for a in
+                 PackedLoader(u_train_config().data).next_batch())
+
+
+def u_cfg(get_config, arch, depth):
+    cfg = get_config(arch)
+    return cfg if depth is None else dataclasses.replace(cfg,
+                                                         num_layers=depth)
+
+
+def u1_rank(rank, world, init):
+    """U1 in a process of its own (the NCCL group stays out of the main
+    process): InternLM2-1.8B at full width and depth, ``Trainer`` for
+    :data:`U_STEPS` steps of B 8 × S 256 on one device, then
+    ``Trainer(ctx=)`` on a live 1×1 NCCL mesh: every step's loss and
+    ``grad_norm`` and every parameter and moment after the last step bit
+    for bit the same."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.mesh_ctx import MeshCtx
+    from repro_torch.train import Trainer
+
+    mesh = init_mesh((1, 1), "nccl", "cuda", rank=rank, world_size=world,
+                     init_method=init)
+    cfg = get_config(TRAIN_ARCH)
+    out = {}
+    for name, ctx in (("one_device", None),
+                      ("mesh", MeshCtx(mesh=mesh, batch_axes=("data",),
+                                       remat="none"))):
+        t0 = time.monotonic()
+        tr = Trainer(cfg, u_train_config(), ctx=ctx, device="cuda")
+        check(tr.model.sharded == (ctx is not None),
+              f"U1 {name}: the {'mesh' if ctx else 'one-device'} path")
+        torch.cuda.reset_peak_memory_stats()
+        rows = tr.run()
+        torch.cuda.synchronize()
+        # the first run's leaves stay on the card (19 GB) for the second
+        out[name] = dict(
+            rows=rows, seconds=time.monotonic() - t0,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            leaves=tree_leaves((tr.params, tr.opt_state.m,
+                                tr.opt_state.v)))
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = out["one_device"], out["mesh"]
+    for k in ("loss", "nll", "grad_norm", "lr"):
+        check([r[k] for r in a["rows"]] == [r[k] for r in b["rows"]],
+              f"U1: every step's {k} bit-identical: "
+              f"{[r[k] for r in a['rows']]} vs {[r[k] for r in b['rows']]}")
+    check(len(a["leaves"]) == len(b["leaves"]) and all(
+        torch.equal(x, y) for x, y in zip(a["leaves"], b["leaves"])),
+        f"U1: all {len(a['leaves'])} parameter and moment leaves "
+        f"bit-identical after {U_STEPS} steps")
+    log(f"U1 {cfg.name}: a live 1x1 NCCL mesh trains {U_STEPS} steps "
+        f"bit for bit as one device (losses "
+        f"{[round(r['loss'], 6) for r in b['rows']]}, grad_norm "
+        f"{[round(r['grad_norm'], 4) for r in b['rows']]}); "
+        f"{a['seconds']:.1f} / {b['seconds']:.1f} s, peak "
+        f"{a['peak_gib']:.2f} / {b['peak_gib']:.2f} GiB")
+    return dict(losses=[r["loss"] for r in b["rows"]],
+                grad_norms=[r["grad_norm"] for r in b["rows"]],
+                leaves=len(a["leaves"]),
+                seconds=[a["seconds"], b["seconds"]],
+                peak_gib=[a["peak_gib"], b["peak_gib"]])
+
+
+def u_reference(get_config) -> dict:
+    """U2's one-device references, in this process: each model's loss,
+    ``grad_norm`` and gradient (host memory, shared with the ranks) on
+    the seed's weights and U's first batch."""
+    from repro_torch.models.transformer import Model
+    from repro_torch.models.weights import flatten
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_loop import loss_and_grads
+
+    toks, labels, mask = u_batch("cuda")
+    refs = {}
+    for arch, depth in U2_MODELS:
+        cfg = u_cfg(get_config, arch, depth)
+        model = Model(cfg)
+        params = model.init(0, device="cuda")
+        (loss, _), grads = loss_and_grads(model, params, toks.long(),
+                                          labels.long(), loss_mask=mask)
+        refs[arch] = dict(
+            loss=float(loss), grad_norm=float(global_norm(grads)),
+            grads={k: t.cpu().share_memory_()
+                   for k, t in flatten(grads).items()})
+        del params, grads
+        free(f"U2 one-device reference {arch}")
+    return refs
+
+
+def u2_rank(rank, world, init, refs):
+    """One rank of U2 (the two share the card over gloo): each model of
+    :data:`U2_MODELS` on each mesh of :data:`U2_MESHES`, this rank's
+    blocks of the seed's weights: one training step on U's first batch
+    (forward and backward bytes apart: wire and host-staged; its global
+    ``grad_norm``; timed to the AdamW update's end), each gradient
+    leaf's block against the one-device gradient's; this process's peak
+    memory."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.models.common import tree_leaves, tree_unflatten_like
+    from repro_torch.models.mesh_ctx import MeshCtx
+    from repro_torch.models.transformer import Model
+    from repro_torch.models.weights import flatten
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                             init_adamw)
+    from repro_torch.train.train_loop import grads_of
+
+    toks, labels, mask = u_batch("cuda")
+    out, meshes = {}, {}
+    for arch, depth in U2_MODELS:
+        cfg = u_cfg(get_config, arch, depth)
+        ref = refs[arch]
+        for mname, shape in U2_MESHES.items():
+            if shape not in meshes:
+                meshes[shape] = init_mesh(shape, "gloo", "cuda", rank=rank,
+                                          world_size=world,
+                                          init_method=init)
+            comm = meshes[shape].comm
+            ctx = MeshCtx(mesh=meshes[shape], batch_axes=("data",),
+                          remat="none")
+            torch.cuda.reset_peak_memory_stats()
+            model = Model(cfg, ctx=ctx)
+            params = model.init(0, device="cuda")
+            opt = init_adamw(params)
+            comm.sent.clear()
+            comm.staged.clear()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            leaves = [t.detach().requires_grad_()
+                      for t in tree_leaves(params)]
+            loss, _ = model.forward_train(
+                tree_unflatten_like(params, leaves), toks.long(),
+                labels.long(), loss_mask=mask)
+            fwd = (dict(comm.sent), dict(comm.staged))
+            comm.sent.clear()
+            comm.staged.clear()
+            grads = grads_of(model, loss, leaves, params)
+            bwd = (dict(comm.sent), dict(comm.staged))
+            new, opt, om = adamw_update(AdamWConfig(lr=TRAIN_LR), params,
+                                        grads, opt, ctx, model.specs)
+            loss_v, gnorm = float(loss.detach()), float(om["grad_norm"])
+            step_s = time.monotonic() - t0
+            specs = flatten(model.specs)
+            leaf_err = {}
+            for k, g in flatten(grads).items():
+                want = shd.take_local(ref["grads"][k], specs[k], ctx).to(
+                    g.device).float()
+                leaf_err[k] = (float((g.float() - want).abs().max()),
+                               float(want.abs().max()))
+            out[(arch, mname)] = dict(
+                loss=loss_v, grad_norm=gnorm, leaf_err=leaf_err,
+                step_s=step_s, tokens_per_s=TRAIN_B * TRAIN_S / step_s,
+                fwd_sent=fwd[0], fwd_staged=fwd[1], bwd_sent=bwd[0],
+                bwd_staged=bwd[1],
+                params_held=sum(t.numel() for t in tree_leaves(params)),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            del model, params, opt, new, grads, leaves, loss
+            free(f"U2 {arch} {mname} rank {rank}")
+    return out
+
+
+def u3_worker(job: tuple) -> dict:
+    """One dry-run combination (a process of U3's pool): its record,
+    less the per-op detail."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.dryrun_lib import run_one
+
+    arch, shape = job
+    try:
+        rec = run_one(arch, shape, False)
+        r = rec["roofline"]
+        return dict(arch=arch, shape=shape, ok=True,
+                    meta_s=rec["lower_s"],
+                    param_bytes=rec["memory_analysis"]["param_bytes"],
+                    argument_bytes=rec["memory_analysis"]["argument_bytes"],
+                    coll_bytes=sum(rec["comm_sent"].values()),
+                    bottleneck=r["bottleneck"],
+                    t_s=[r["t_compute_s"], r["t_memory_s"],
+                         r["t_collective_s"]])
+    except Exception as e:           # recorded, as the reference records
+        return dict(arch=arch, shape=shape, ok=False,          # a failed
+                    error=f"{type(e).__name__}: {e}")           # compile
+
+
+def u3_start(get_config):
+    """U3's dry runs, submitted at the start of stage U to a pool of
+    :data:`U3_WORKERS` processes (``meta`` tensors only: they run on the
+    host while U1 and U2 hold the card), the costliest first. →
+    (pool, {job: future})."""
+    import concurrent.futures
+    import multiprocessing
+
+    from repro_torch.configs import ALL_ARCHS
+
+    jobs = sorted(((a, s) for a in ALL_ARCHS for s in U3_SHAPES),
+                  key=lambda j: (j[1] != "train_4k",
+                                 -get_config(j[0]).param_count()))
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=U3_WORKERS,
+        mp_context=multiprocessing.get_context("spawn"))
+    return pool, {j: pool.submit(u3_worker, j) for j in jobs}
+
+
+def u3_dry_run(get_config, futures: dict, t0: float) -> dict:
+    """U3: every registered arch × :data:`U3_SHAPES` on the 16x16 mesh
+    (``launch/dryrun_lib.run_one``, on ``meta`` tensors, in the pool
+    :func:`u3_start` fed), one line each; then the dry run's per-device
+    parameter bytes of DeepSeek-V3 at depth :data:`U3_DEPTH` on a 1x1
+    mesh held byte for byte to what building those parameters on the
+    card asks the allocator for (``requested_bytes``: the bytes the
+    parameters' allocations requested, which freeing them gives back;
+    ``memory_allocated`` beside it counts the allocator's blocks, each
+    request rounded up). ``t0``: when the jobs were submitted."""
+    from repro_torch.configs import ALL_ARCHS
+    from repro_torch.launch.dryrun_lib import tree_bytes
+    from repro_torch.models.mesh_ctx import Comm, MeshCtx, MeshShape
+    from repro_torch.models.transformer import Model, build_model
+
+    recs = [futures[(a, s)].result() for a in ALL_ARCHS for s in U3_SHAPES]
+    pool_s = time.monotonic() - t0
+    for r in recs:
+        if r["ok"]:
+            log(f"U3 [ ok ] {r['arch']}_{r['shape']}_16x16 meta "
+                f"{r['meta_s']:.1f} s, params {r['param_bytes']} B per "
+                f"device, arguments {r['argument_bytes']} B, collectives "
+                f"{r['coll_bytes']} B, bound {r['bottleneck']} (t compute "
+                f"/ memory / collective {r['t_s']})")
+        else:
+            log(f"U3 [FAIL] {r['arch']}_{r['shape']}_16x16: {r['error']}")
+    n_ok = sum(r["ok"] for r in recs)
+    log(f"U3: {n_ok} of {len(recs)} combinations ok, {pool_s:.1f} s after "
+        f"they were submitted")
+    check(n_ok == len(recs), f"U3: every combination ran on meta "
+                             f"({n_ok} of {len(recs)})")
+    cfg = dataclasses.replace(get_config(DEEPSEEK), num_layers=U3_DEPTH)
+    one = MeshShape((1, 1), ("data", "model"),
+                    comm=Comm({"data": 1, "model": 1}, 0, "meta",
+                              shape_only=True))
+    dry = tree_bytes(build_model(cfg, MeshCtx(mesh=one)).init(
+        0, device="meta"))
+
+    def held():
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_stats()["requested_bytes.all.current"],
+                torch.cuda.memory_allocated())
+    free("U3 before the allocation check")
+    params = Model(cfg).init(0, device="cuda")
+    grown = held()
+    del params
+    free("U3 allocation check")
+    after = held()
+    # what freeing the parameters gives back: the init's lookup tables,
+    # made on first use, stay cached
+    requested, blocks = grown[0] - after[0], grown[1] - after[1]
+    check(dry == requested, f"U3: the dry run's parameter bytes of "
+                            f"{cfg.name} depth {U3_DEPTH} ({dry}) equal "
+                            f"the bytes the card's allocations requested "
+                            f"({requested})")
+    log(f"U3: {cfg.name} depth {U3_DEPTH}: the dry run's {dry} parameter "
+        f"bytes per device on 1x1 equal the {requested} bytes the card's "
+        f"allocations requested (the allocator's blocks: {blocks} B, "
+        f"+{blocks - requested} of rounding)")
+    return dict(records=recs, ok=n_ok, pool_s=pool_s, param_bytes=dry,
+                requested_bytes=requested, allocated_bytes=blocks)
+
+
+def u_stage(get_config) -> dict:
+    """Stage U: training on a mesh and the dry run. U1
+    (:func:`u1_rank`); U2 (:func:`u2_rank`, two ranks sharing the card
+    over gloo): per model and mesh the loss and ``grad_norm`` within
+    0.02 relative of one device's (``tests/test_multidevice.py``'s bar;
+    per-shard MoE capacity drops other assignments), the largest
+    relative error of any gradient leaf reported, per rank tokens/s,
+    peak memory and wire and host-staged bytes, forward and backward
+    apart; U3 (:func:`u3_dry_run`). Times are not multi-GPU numbers: the
+    wire goes through host memory and the ranks time-slice one card."""
+    from repro_torch.launch.mesh import spawn
+
+    t_u = time.monotonic()
+    pool, futures = u3_start(get_config)
+    try:
+        return u_run(get_config, futures, t_u)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def u_run(get_config, futures: dict, t_u: float) -> dict:
+    """:func:`u_stage`'s body, the dry runs already submitted."""
+    from repro_torch.launch.mesh import spawn
+
+    t0 = time.monotonic()
+    u1 = spawn(u1_rank, 1, threads=8)[0]
+    u1_s = time.monotonic() - t0
+    log(f"U1: {u1_s:.1f} s")
+    t0 = time.monotonic()
+    refs = u_reference(get_config)
+    want = {a: (r["loss"], r["grad_norm"]) for a, r in refs.items()}
+    ranks = spawn(u2_rank, 2, refs, threads=4)
+    del refs
+    u2_s = time.monotonic() - t0
+    u2 = {}
+    for arch, _ in U2_MODELS:
+        loss1, norm1 = want[arch]
+        for mname in U2_MESHES:
+            got = [r[(arch, mname)] for r in ranks]
+            check(all(g["loss"] == got[0]["loss"]
+                      and g["grad_norm"] == got[0]["grad_norm"]
+                      for g in got),
+                  f"U2 {arch} {mname}: every rank holds the same loss and "
+                  f"grad_norm")
+            loss_err = abs(got[0]["loss"] - loss1) / abs(loss1)
+            norm_err = abs(got[0]["grad_norm"] - norm1) / abs(norm1)
+            check(loss_err <= 0.02 and norm_err <= 0.02,
+                  f"U2 {arch} {mname}: loss {got[0]['loss']} and grad_norm "
+                  f"{got[0]['grad_norm']} within 0.02 of one device's "
+                  f"{loss1}, {norm1} ({loss_err:.2e}, {norm_err:.2e})")
+            leaf = {}
+            for g in got:
+                for k, (num, den) in g["leaf_err"].items():
+                    a, b = leaf.get(k, (0.0, 0.0))
+                    leaf[k] = (max(a, num), max(b, den))
+            errs = {k: num / den if den else num
+                    for k, (num, den) in leaf.items()}
+            worst = max(errs, key=errs.get)
+            res = dict(
+                loss=got[0]["loss"], loss_one_device=loss1,
+                loss_rel_err=loss_err, grad_norm=got[0]["grad_norm"],
+                grad_norm_one_device=norm1, grad_norm_rel_err=norm_err,
+                grad_leaf_max_rel_err=errs[worst], grad_leaf_worst=worst,
+                ranks=[{k: g[k] for k in (
+                    "tokens_per_s", "step_s", "peak_gib", "params_held",
+                    "fwd_sent", "fwd_staged", "bwd_sent", "bwd_staged")}
+                    for g in got])
+            u2[f"{arch}/{mname}"] = res
+            log(f"U2 {arch} {mname}: loss {res['loss']:.6f} (one device "
+                f"{loss1:.6f}, rel {loss_err:.2e}), grad_norm "
+                f"{res['grad_norm']:.6f} (one device {norm1:.6f}, rel "
+                f"{norm_err:.2e}), largest gradient-leaf rel err "
+                f"{errs[worst]:.3e} ({worst}); per rank tokens/s "
+                f"{[round(g['tokens_per_s'], 1) for g in got]}, peak "
+                f"{[round(g['peak_gib'], 2) for g in got]} GiB, forward "
+                f"wire {[g['fwd_sent'] for g in got]} host-staged "
+                f"{[g['fwd_staged'] for g in got]}, backward wire "
+                f"{[g['bwd_sent'] for g in got]} host-staged "
+                f"{[g['bwd_staged'] for g in got]} (host wire, one "
+                f"time-sliced card)")
+    log(f"U2: {len(u2)} cases on 2 ranks in {u2_s:.1f} s")
+    t0 = time.monotonic()
+    u3 = u3_dry_run(get_config, futures, t_u)
+    u3_s = time.monotonic() - t0
+    total = time.monotonic() - t_u
+    log(f"U: U1 {u1_s:.1f} s, U2 {u2_s:.1f} s, U3 after U2 {u3_s:.1f} s "
+        f"(its dry runs in the background from the start), stage U "
+        f"{total:.1f} s")
+    return dict(u1=u1, u2=u2, u3=u3, seconds=dict(
+        u1=u1_s, u2=u2_s, u3=u3_s, total=total))
+
+
 def kernel_line(results: dict) -> dict:
     """One entry per kernel: launches per path (and their sum), the
     largest error of any path, and the times and bound of the path named
@@ -6515,6 +6947,12 @@ def main() -> int:
     t0 = time.monotonic()
     results.update(t_stage(get_config))
     free(f"T: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    u = u_stage(get_config)
+    log(json.dumps({"stage_u": {k: v for k, v in u.items() if k != "u3"},
+                    "u3": {k: v for k, v in u["u3"].items()
+                           if k != "records"}}))
+    free(f"U: {time.monotonic() - t0:.1f} s")
     for p, (_, path) in results.items():
         log(json.dumps({"path": p, **{k: v for k, v in path.items()
                                       if k != "text"}}))

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.collect.kernel import collect_cuda
 from repro_torch.kernels.collect.ref import collect_ref
+from repro_torch.kernels.runtime import plain_for
 
 
 def expert_counts(expert_ids, *, n_experts: int):
@@ -16,6 +17,6 @@ def expert_counts(expert_ids, *, n_experts: int):
     int32."""
     if expert_ids.device.type == "cuda":
         return collect_cuda(expert_ids, n_experts)
-    if expert_ids.device.type == "cpu":
+    if plain_for(expert_ids):
         return collect_ref(expert_ids, n_experts)
     raise ValueError(f"collect: no kernel for device {expert_ids.device}")

@@ -2,7 +2,8 @@
 
 :func:`decode_attention` launches the hand-written CUDA kernel for
 tensors on the card and takes the plain version (``ref.py``) only for
-tensors on the CPU; any other device raises, and a failed build or
+tensors on the CPU (or ``meta`` shapes inside ``runtime.shapes_only``);
+any other device raises, and a failed build or
 launch on the card raises — there is no fallback. A ragged cache length
 and the ring-window mode run in the kernel too.
 """
@@ -12,6 +13,7 @@ from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_partial_ref, decode_attention_ref)
 
+from repro_torch.kernels.runtime import plain_for
 
 def decode_attention(q, k, v, positions, *, window: int = 0):
     """q [B, H, hd]; k/v [B, L, KV, hd]; positions [B] (the new token's
@@ -19,7 +21,7 @@ def decode_attention(q, k, v, positions, *, window: int = 0):
     slot ``p % window`` holding position ``p``."""
     if q.device.type == "cuda":
         return decode_attention_cuda(q, k, v, positions, window=window)
-    if q.device.type == "cpu":
+    if plain_for(q):
         return decode_attention_ref(q, k, v, positions, window=window)
     raise ValueError(f"decode_attention: no kernel for device {q.device}")
 
@@ -31,7 +33,7 @@ def decode_attention_partial(q, k, v, positions, *, window: int = 0):
     if q.device.type == "cuda":
         return decode_attention_cuda(q, k, v, positions, window=window,
                                      partial=True)
-    if q.device.type == "cpu":
+    if plain_for(q):
         return decode_attention_partial_ref(q, k, v, positions,
                                             window=window)
     raise ValueError(f"decode_attention: no kernel for device {q.device}")

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.gmm.kernel import gmm_cuda
 from repro_torch.kernels.gmm.ref import gmm_ref, placement_gmm_ref
+from repro_torch.kernels.runtime import plain_for
 
 
 def expert_ffn(buckets, we_gate, we_up, we_down, *, phys_owner=None,
@@ -25,7 +26,7 @@ def expert_ffn(buckets, we_gate, we_up, we_down, *, phys_owner=None,
     indexes the weights directly; with ``phys_owner`` [G] int32, slot
     ``s`` runs against ``we_*[phys_owner[s]]``. ``use_kernel=False``:
     the plain version, differentiable, on any device."""
-    if not use_kernel or buckets.device.type == "cpu":
+    if not use_kernel or plain_for(buckets):
         if phys_owner is None:
             return gmm_ref(buckets, we_gate, we_up, we_down)
         return placement_gmm_ref(buckets, we_gate, we_up, we_down,

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels.route_pack.kernel import route_pack_cuda
 from repro_torch.kernels.route_pack.ref import RoutePack, route_pack_ref
+from repro_torch.kernels.runtime import plain_for
 
 
 def placement_route(dest: torch.Tensor, positions: torch.Tensor,
@@ -62,7 +63,7 @@ def fused_route_pack(x, dest, valid=None, eid=None, *, k: int = 1,
     device."""
     kw = dict(k=k, n_dest=n_dest, capacity=capacity, quantize=quantize,
               count_ids=count_ids, n_count=n_count)
-    if not use_kernel or x.device.type == "cpu":
+    if not use_kernel or plain_for(x):
         return route_pack_ref(x, dest, valid, eid, **kw)
     if x.device.type == "cuda":
         return route_pack_cuda(x, dest, valid, eid, **kw)

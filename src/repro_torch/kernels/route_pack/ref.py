@@ -48,11 +48,19 @@ def quantize_rows(x):
 
 
 def _scatter(values, dest, rank, keep, n_dest, capacity, fill=0):
-    buf = torch.full((n_dest, capacity) + tuple(values.shape[1:]), fill,
+    """The kept rows of ``values`` into ``[n_dest, capacity, ...]`` at
+    (dest, rank), ``fill`` elsewhere. Shape-static (no index list of the
+    kept rows): a row not kept writes a spare slot past the end, which
+    is dropped, so the result and its gradient are those of scattering
+    the kept rows alone (kept slots are distinct)."""
+    tail = tuple(values.shape[1:])
+    buf = torch.full((n_dest * capacity + 1,) + tail, fill,
                      dtype=values.dtype, device=values.device)
-    k = keep.nonzero()[:, 0]
-    buf[dest.long()[k], rank.long()[k]] = values[k]
-    return buf
+    slot = torch.where(keep, dest.long() * capacity + rank.long(),
+                       torch.full_like(rank, n_dest * capacity,
+                                       dtype=torch.long))
+    buf = buf.index_put((slot,), values)
+    return buf[:-1].view((n_dest, capacity) + tail)
 
 
 def route_pack_ref(x, dest, valid=None, eid=None, *, k: int = 1,

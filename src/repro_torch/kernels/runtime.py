@@ -19,10 +19,17 @@ No kernel has a backward. Every wrapper first refuses (:func:`refuse_grad`)
 an input that requires grad while grad mode is on: its output would
 leave the autograd graph without a word, and the layers before it would
 get no gradient. The training mode takes the plain versions instead.
+
+An entry point (``kernels/*/ops.py``) launches the kernel for a CUDA
+tensor and takes the plain version only where :func:`plain_for` says:
+a CPU tensor, or a ``meta`` tensor inside :func:`shapes_only` (the dry
+run: shapes without values, nothing computed, so nothing stands in for
+the card). Any other device raises.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -34,6 +41,7 @@ from typing import Dict, Iterable, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+_SHAPES_ONLY = [0]
 #: default build directory: ``build/kernels`` at the repository root
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -47,6 +55,25 @@ FUSED: "collections.Counter[str]" = collections.Counter()
 BUILD_LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
+
+
+
+@contextlib.contextmanager
+def shapes_only():
+    """Within it the entry points give ``meta`` tensors to the plain
+    versions (the dry run's shape-only step)."""
+    _SHAPES_ONLY[0] += 1
+    try:
+        yield
+    finally:
+        _SHAPES_ONLY[0] -= 1
+
+
+def plain_for(t: torch.Tensor) -> bool:
+    """Whether an entry point takes the plain version for ``t``: on the
+    CPU, or on ``meta`` inside :func:`shapes_only`."""
+    return t.device.type == "cpu" or (t.device.type == "meta"
+                                      and _SHAPES_ONLY[0] > 0)
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()

@@ -197,6 +197,16 @@ def cache_pspecs(cache_spec: PyTree, ctx) -> PyTree:
     return map_with_paths(cache_spec, one)
 
 
+def spec_axes(spec: PSpec) -> Tuple[str, ...]:
+    """The mesh axes ``spec`` cuts its leaf over, in its dims' order."""
+    out: list = []
+    for e in spec:
+        for a in ((e,) if isinstance(e, str) else e or ()):
+            if a not in out:
+                out.append(a)
+    return tuple(out)
+
+
 def batch_pspec(ctx, global_batch: int) -> PSpec:
     if ctx.dp_size > 1 and global_batch % ctx.dp_size == 0:
         return PSpec(ctx.bspec)
@@ -246,4 +256,4 @@ def spec_tree_map(fn, tree: PyTree, specs: PyTree) -> PyTree:
 __all__ = ["LOGICAL_RULES", "DECODE_RULES", "PARAM_RULES", "PSpec",
            "param_pspecs", "cache_pspecs", "batch_pspec", "shard_tree",
            "take_local", "gather_local", "local_shape", "spec_tree_map",
-           "map_with_paths", "leaves_by_path"]
+           "map_with_paths", "leaves_by_path", "spec_axes"]

@@ -39,7 +39,7 @@ GQA and MLA take one code path on one device and on a mesh (``ctx``,
 one process per rank; ``specs`` the layer's parameter specs as the rank
 holds them), the reference's ``shard_map`` bodies; on one device every
 collective is the identity and nothing is cut:
-  * prefill / chunk: heads tensor-parallel over ``ctx.tp_axis`` — each
+  * prefill / chunk / train: heads tensor-parallel over ``ctx.tp_axis`` — each
     rank holds its heads' ``wq``/``wk``/``wv``/``wo`` blocks, attends
     over them (``head_sharded``; a head count that does not divide the
     axis is padded first, K/V repeated per query head:
@@ -79,8 +79,11 @@ NAIVE_MAX_LEN = 2048
 
 def _prefill_attention(q, k, v, window: int = 0):
     """Causal prefill attention, naive up to ``NAIVE_MAX_LEN`` tokens and
-    blockwise above, as the reference picks."""
-    if q.shape[1] > NAIVE_MAX_LEN:
+    blockwise above, as the reference picks. ``meta`` tensors (the dry
+    run: shapes, no values, no memory held) take the naive form at any
+    length: the same function and output shape, and blockwise only
+    bounds the memory the scores take."""
+    if q.shape[1] > NAIVE_MAX_LEN and q.device.type != "meta":
         return blockwise_attention(q, k, v, causal=True, window=window)
     return naive_attention(q, k, v, causal=True, window=window)
 
@@ -139,9 +142,6 @@ def attn_apply(params, x, *, cfg: ModelConfig, mode: str,
     qa, ka, wa = (_tp(ctx, specs, "wq", 1), _tp(ctx, specs, "wk", 1),
                   _tp(ctx, specs, "wo", 0))
     B, S, _ = x.shape
-    if mode == "train" and ctx.sharded:
-        raise NotImplementedError("attention: training on a mesh is not "
-                                  "ported")
     if mode == "decode":
         q, k_new, v_new = _project_qkv(params, x, cfg, positions[:, None])
         if qa is not None:
@@ -368,8 +368,6 @@ def mla_apply(params, x, *, cfg: ModelConfig, mode: str,
         raise ValueError("MLA on a mesh: wq_b, wk_b, wv_b and wo must "
                          "share one head layout")
     B, S, _ = x.shape
-    if mode == "train" and ctx.sharded:
-        raise NotImplementedError("MLA: training on a mesh is not ported")
     if mode in ("prefill", "train"):
         pos = torch.arange(S, device=x.device)
         q_nope, q_rope, ckv, krope = _mla_qkv_latent(params, x, cfg, pos)

@@ -369,23 +369,45 @@ class _ChunkedXent(torch.autograd.Function):
     a chunk at a time in float32. Forward keeps only each token's
     log-sum-exp; backward makes a chunk's logits again, so autograd never
     holds more than one ``[B, chunk, V]`` block. The unembedding is cast
-    to float32 once per pass, not once per chunk."""
+    to float32 once per pass, not once per chunk.
+
+    Vocab-parallel (``mc``, a ``MeshCtx``, and ``axes``): ``unembed`` is
+    this rank's block of the vocabulary, starting at id ``v0``; the
+    log-sum-exp takes its max through ``pmax`` and its sum through
+    ``psum`` over ``axes``, as does the gold logit (on the one rank whose
+    block holds the label). The sum is the same on every rank of
+    ``axes``; in backward their cotangents are summed first (one scalar
+    ``psum``), and this rank's hidden cotangent is its block's partial."""
 
     @staticmethod
-    def forward(ctx, hidden, unembed, labels, mask, chunk: int):
+    def forward(ctx, hidden, unembed, labels, mask, chunk: int, mc=None,
+                axes=None, v0: int = 0):
         B, S, _ = hidden.shape
         w = unembed.float()
+        n_v = w.shape[1]
         lse = torch.empty((B, S), dtype=torch.float32, device=hidden.device)
         tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for s0, s1 in _xent_chunks(S, chunk):
             logits = torch.matmul(hidden[:, s0:s1].float(), w)
-            l = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1,
-                                labels[:, s0:s1, None].long())[..., 0]
+            y = labels[:, s0:s1, None].long()
+            if axes is None:
+                l = torch.logsumexp(logits, dim=-1)
+                gold = torch.gather(logits, -1, y)[..., 0]
+            else:
+                m = mc.pmax(logits.amax(dim=-1), axes)
+                loc = y - v0
+                inside = (loc >= 0) & (loc < n_v)
+                gold = torch.where(
+                    inside, torch.gather(logits, -1, loc.clamp(0, n_v - 1)),
+                    torch.zeros((), device=logits.device))[..., 0]
+                both = mc.psum(torch.stack(
+                    [torch.exp(logits - m[..., None]).sum(dim=-1), gold]),
+                    axes)
+                l, gold = torch.log(both[0]) + m, both[1]
             tot = tot + torch.sum((l - gold) * mask[:, s0:s1])
             lse[:, s0:s1] = l
         ctx.save_for_backward(hidden, unembed, labels, mask, lse)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.mc, ctx.axes, ctx.v0 = chunk, mc, axes, v0
         return tot
 
     @staticmethod
@@ -394,6 +416,9 @@ class _ChunkedXent(torch.autograd.Function):
         need_h, need_w = ctx.needs_input_grad[:2]
         B, S, d = hidden.shape
         w = unembed.float()
+        n_v = w.shape[1]
+        if ctx.axes is not None:
+            g_tot = ctx.mc._sum_f32(g_tot, ctx.axes, "psum.bwd")
         dh = torch.empty_like(hidden) if need_h else None
         dw = torch.zeros_like(w) if need_w else None
         for s0, s1 in _xent_chunks(S, ctx.chunk):
@@ -402,14 +427,38 @@ class _ChunkedXent(torch.autograd.Function):
             # d(lse - gold)/d logits = softmax - onehot(label)
             dlog = torch.exp(torch.matmul(h, w) - lse[:, s0:s1, None])
             dlog.mul_(coef)
-            dlog.scatter_add_(-1, labels[:, s0:s1, None].long(), -coef)
+            y = labels[:, s0:s1, None].long() - ctx.v0
+            if ctx.axes is None:
+                dlog.scatter_add_(-1, y, -coef)
+            else:
+                inside = (y >= 0) & (y < n_v)
+                dlog.scatter_add_(-1, y.clamp(0, n_v - 1),
+                                  torch.where(inside, -coef,
+                                              torch.zeros_like(coef)))
             if need_h:
                 dh[:, s0:s1] = torch.matmul(dlog, w.t()).to(hidden.dtype)
             if need_w:
                 dw.addmm_(h.reshape(-1, d).t(),
                           dlog.reshape(-1, dlog.shape[-1]))
         return (dh, None if dw is None else dw.to(unembed.dtype), None, None,
-                None)
+                None, None, None, None)
+
+
+def xent_sum(hidden: torch.Tensor, labels: torch.Tensor,
+             unembed: torch.Tensor, mask: Optional[torch.Tensor] = None,
+             chunk: int = 128, *, mc=None, axes=None, v0: int = 0):
+    """(sum over the counted tokens of the nll, their count): the two
+    terms of :func:`chunked_softmax_xent`'s mean. ``mc`` / ``axes`` /
+    ``v0``: ``unembed`` is this rank's block of the vocabulary over
+    ``axes``, from id ``v0`` (see :class:`_ChunkedXent`)."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+    mask = mask.float()
+    tot = _ChunkedXent.apply(hidden, unembed, labels, mask, chunk, mc, axes,
+                             v0)
+    return tot, mask.sum()
 
 
 def chunked_softmax_xent(hidden: torch.Tensor, labels: torch.Tensor,
@@ -421,11 +470,5 @@ def chunked_softmax_xent(hidden: torch.Tensor, labels: torch.Tensor,
     their count), as the reference's scan over sequence chunks of
     ``chunk`` positions and a remainder: ``tot / max(cnt, 1)``.
     Differentiable in ``hidden`` and ``unembed``."""
-    B, S, _ = hidden.shape
-    chunk = min(chunk, S)
-    if mask is None:
-        mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
-    mask = mask.float()
-    tot = _ChunkedXent.apply(hidden, unembed, labels, mask, chunk)
-    cnt = mask.sum()
+    tot, cnt = xent_sum(hidden, labels, unembed, mask, chunk)
     return tot / torch.clamp(cnt, min=1.0), cnt

@@ -32,8 +32,10 @@ all-gathered over EP axes that overlap the batch axes and sliced back
 after: A2E / E2A) and replicated otherwise, as on one device.
 Sharded-EP placement block-shards the physical slots over the EP ranks
 and reads the experts replicated. The aux statistics are reduced over
-the mesh as the reference reduces them. Training on a mesh is not
-ported.
+the mesh as the reference reduces them. Training on a mesh takes the
+same strategies under autograd (the collectives carry their backward,
+``models/mesh_ctx.py``), with the plain route-pack and grouped FFN and
+the reference's per-shard capacities.
 """
 from __future__ import annotations
 
@@ -224,9 +226,12 @@ def _moe_gather_local(x: torch.Tensor, params: Params, cfg: ModelConfig,
 # On a mesh: all-to-all dispatch/combine (XCCL §3.2)
 # ---------------------------------------------------------------------------
 def _moe_alltoall_local(x, params, cfg: ModelConfig, ctx, ep_axis: str,
-                        ep_size: int, all_axes: Tuple[str, ...]):
+                        ep_size: int, all_axes: Tuple[str, ...],
+                        use_kernel: bool = True):
     """One rank's body. x: [B_l, S_l, d], this rank's sequence block over
-    ``ep_axis``; the expert weights are this rank's ``E / ep_size``."""
+    ``ep_axis``; the expert weights are this rank's ``E / ep_size``.
+    ``use_kernel=False``: the plain route-pack and grouped FFN
+    (training)."""
     e = cfg.moe
     B, S, d = x.shape
     T, k, E = B * S, e.top_k, e.num_experts
@@ -244,7 +249,8 @@ def _moe_alltoall_local(x, params, cfg: ModelConfig, ctx, ep_axis: str,
                              eid=torch.remainder(flat_idx, E_local).to(
                                  torch.int32),
                              k=k, n_dest=ep_size, capacity=cap_s,
-                             count_ids=flat_idx, n_count=E)
+                             count_ids=flat_idx, n_count=E,
+                             use_kernel=use_kernel)
     lb, z, counts = _aux_stats(probs, pack1.counts, E, logits)
     # ---- dispatch ----------------------------------------------------------
     recv_tok = ctx.all_to_all(pack1.buckets, ep_axis)
@@ -256,9 +262,10 @@ def _moe_alltoall_local(x, params, cfg: ModelConfig, ctx, ep_axis: str,
     eid0 = torch.where(valid, flat_eid, torch.zeros_like(flat_eid))
     cap_e = max(int(ep_size * cap_s / E_local * e.capacity_factor), 4)
     pack2 = fused_route_pack(flat_tok, eid0, valid=valid, n_dest=E_local,
-                             capacity=cap_e)
+                             capacity=cap_e, use_kernel=use_kernel)
     out_b = expert_ffn(pack2.buckets, params["we_gate"], params["we_up"],
-                       params["we_down"]).to(pack2.buckets.dtype)
+                       params["we_down"],
+                       use_kernel=use_kernel).to(pack2.buckets.dtype)
     y_flat = out_b[eid0.long(), pack2.rank.long().clamp(0, cap_e - 1)]
     y_flat = torch.where(pack2.keep[:, None], y_flat,
                          torch.zeros((), dtype=y_flat.dtype,
@@ -308,9 +315,6 @@ def moe_apply(params: Params, x: torch.Tensor, *, cfg: ModelConfig,
         raise ValueError(f"moe_apply: unsupported mode {mode!r}")
     e = cfg.moe
     ctx = ONE_DEVICE if ctx is None else ctx
-    if mode == "train" and ctx.sharded:
-        raise NotImplementedError("moe_apply: training on a mesh is not "
-                                  "ported")
     impl = "gather" if mode == "decode" else ctx.moe_impl
     ep_axis = ctx.ep_axis
     ep_tuple = (ep_axis,) if isinstance(ep_axis, str) else tuple(ep_axis)
@@ -324,7 +328,7 @@ def moe_apply(params: Params, x: torch.Tensor, *, cfg: ModelConfig,
         xs = ctx.take_block(x, 1, ep_tuple[0])
         ys, (lb, z, counts) = _moe_alltoall_local(
             xs, _experts(params, ctx, ep_tuple, e.num_experts, True), cfg,
-            ctx, ep_tuple[0], eff_ep, all_axes)
+            ctx, ep_tuple[0], eff_ep, all_axes, use_kernel=mode != "train")
         y = ctx.all_gather(ys, ep_tuple[0], dim=1)
     else:
         local = eff_ep != 1

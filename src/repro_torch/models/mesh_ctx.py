@@ -19,6 +19,43 @@ when each rank has its own card, gloo otherwise. gloo moves host
 memory: a CUDA tensor given to a collective over gloo is copied to the
 host and back (``Comm._to_wire`` / ``_from_wire``), and the bytes staged
 so are counted in ``Comm.staged``. Nothing catches a collective's error.
+
+**Gradients.** Under autograd (grad mode on and an input that requires
+grad) each collective is a ``torch.autograd.Function`` whose backward is
+its transpose, under one rule: *a rank's cotangent of a value that
+several ranks hold is a partial; the value's true cotangent is the sum
+of the partials over the ranks that hold it.* So:
+
+  * ``psum`` → ``psum`` of the cotangents (``pmean``: over ``n``);
+  * ``all_gather`` → reduce-scatter: the cotangents' blocks exchanged
+    by one all-to-all and this rank's block summed over the axis (the
+    FSDP rule for every gathered weight);
+  * ``all_to_all`` (tiled, dim 0) → itself; ``ppermute`` → the inverse
+    permutation;
+  * ``pmax`` → no gradient (it only ever shifts a log-sum-exp, as the
+    stopped max of ``jax.nn.logsumexp``);
+  * ``take_block`` (a ``narrow``) → its native backward: the block's
+    cotangent in zeros, a partial;
+  * an identity in the forward that feeds consumers split over an axis
+    needs no operation at all: each rank's cotangent is the partial of
+    its consumers.
+
+A loss every rank holds alike is seeded with ``1 / n`` on each of the
+``n`` ranks that compute it (``Model.train_axes``), and a leaf's gradient
+is then the sum of its partials over the axes that replicate it: one
+float32 all-reduce per group of leaves after the backward
+(``Model.reduce_grads``, counted as ``"grad_sum"``); the axes that cut a
+leaf were summed by the reduce-scatter of its gather. Backward sums are taken in float32 (the
+float16-bits carriage of bf16 only moves bytes) and counted in
+``Comm.sent`` / ``Comm.staged`` under their own keys (``"psum.bwd"``,
+``"all_gather.bwd"``, ``"all_to_all.bwd"``, ``"ppermute.bwd"``), so a
+forward's counts are the same with grad mode on or off. Without grad the
+plain collectives run, bit for bit as before.
+
+A :class:`Comm` made with ``shape_only=True`` moves nothing: each
+collective returns a tensor of its result's shape (the dry run runs on
+``meta`` tensors, as rank 0 of a mesh no process holds) and counts the
+bytes it would have sent.
 """
 from __future__ import annotations
 
@@ -72,9 +109,13 @@ class Comm:
     ``backend`` the process group's (``"gloo"`` or ``"nccl"``).
     ``sent`` counts the bytes this rank puts on the wire per collective;
     ``staged`` the bytes a gloo collective copied between the card and
-    the host."""
+    the host. ``shape_only``: no process group; every collective gives
+    a stand-in of its result's shape and counts its bytes (the dry
+    run's ``meta`` tensors)."""
 
-    def __init__(self, shape: Dict[str, int], rank: int, backend: str):
+    def __init__(self, shape: Dict[str, int], rank: int, backend: str,
+                 shape_only: bool = False):
+        self.shape_only = shape_only
         self.shape = dict(shape)
         self.names = tuple(shape)
         self.rank = int(rank)
@@ -201,6 +242,15 @@ class MeshCtx:
         return self.axis_size(self.tp_axis)
 
     @property
+    def named_axes(self) -> Tuple[str, ...]:
+        """The mesh axes this context names (batch, TP, EP, sequence), in
+        mesh order: a leading axis of replicas or rank groups (``pd``) is
+        not one."""
+        named = set(self.batch_axes) | {self.tp_axis, self.seq_axis}
+        named |= set(_axes(self.ep_axis))
+        return tuple(a for a in self.axis_names if a in named)
+
+    @property
     def comm(self) -> Optional[Comm]:
         return self.mesh.comm
 
@@ -230,25 +280,58 @@ class MeshCtx:
         ax, n = self._live(axes, "axis_index")
         return 0 if n == 1 else self.comm.index(ax)
 
-    def _reduce(self, t: torch.Tensor, axes: Axes, op: str):
+    def _reduce(self, t: torch.Tensor, axes: Axes, op: str,
+                key: Optional[str] = None):
+        """All-reduce (``op`` "psum" or "pmax") of ``t`` over ``axes``;
+        bytes counted under ``key`` (default ``op``)."""
         ax, n = self._live(axes, op)
         if n == 1:
             return t
+        c, key = self.comm, key or op
+        if c.shape_only:
+            c.sent[key] += t.numel() * t.element_size()
+            return torch.empty_like(t)
         import torch.distributed as dist
 
-        c = self.comm
-        w = c._to_wire(t, op)
+        w = c._to_wire(t, key)
         w = w.clone() if w.data_ptr() == t.data_ptr() else w
-        c.sent[op] += w.numel() * w.element_size()
+        c.sent[key] += w.numel() * w.element_size()
         dist.all_reduce(w, op=(dist.ReduceOp.SUM if op == "psum"
                                else dist.ReduceOp.MAX), group=c.group(ax))
-        return c._from_wire(w, t, op)
+        return c._from_wire(w, t, key)
+
+    def _sum_f32(self, g: torch.Tensor, axes: Axes, key: str):
+        """A backward's sum over ``axes``, taken in float32."""
+        return self._reduce(g.float(), axes, "psum", key).to(g.dtype)
+
+    def _reduce_scatter(self, g: torch.Tensor, axes: Axes, dim: int,
+                        key: str) -> torch.Tensor:
+        """This rank's block along ``dim`` of the sum of the ranks' ``g``
+        over ``axes``: the blocks go out by one tiled all-to-all (bytes
+        only: bf16 as float16 bits) and are summed here in float32."""
+        n = self._live(axes, "reduce_scatter")[1]
+        if n == 1:
+            return g
+        t = g.movedim(dim, 0)
+        got = self._all_to_all(t.contiguous(), axes, key)
+        s = got.view((n, t.shape[0] // n) + tuple(t.shape[1:])).float()
+        return s.sum(dim=0).to(g.dtype).movedim(0, dim)
+
+    def _grad(self, t: torch.Tensor, axes: Axes) -> bool:
+        """Whether a collective over ``axes`` of ``t`` must carry a
+        backward: grad mode on, ``t`` requires grad, and ranks to talk
+        to."""
+        return (torch.is_grad_enabled() and t.requires_grad
+                and self._live(axes, "collective")[1] > 1)
 
     def psum(self, t: torch.Tensor, axes: Axes) -> torch.Tensor:
+        if self._grad(t, axes):
+            return _Psum.apply(t, self, axes)
         return self._reduce(t, axes, "psum")
 
     def pmax(self, t: torch.Tensor, axes: Axes) -> torch.Tensor:
-        return self._reduce(t, axes, "pmax")
+        """The max over ``axes``; it carries no gradient."""
+        return self._reduce(t.detach(), axes, "pmax")
 
     def pmean(self, t: torch.Tensor, axes: Axes) -> torch.Tensor:
         n = self._live(axes, "pmean")[1]
@@ -263,34 +346,53 @@ class MeshCtx:
     def all_to_all(self, t: torch.Tensor, axes: Axes) -> torch.Tensor:
         """Tiled all-to-all on dim 0: block ``j`` of ``t``'s dim 0 goes to
         rank ``j``; the result holds rank ``j``'s block for this rank at
-        block ``j`` (``jax.lax.all_to_all(t, axes, 0, 0, tiled=True)``)."""
+        block ``j`` (``jax.lax.all_to_all(t, axes, 0, 0, tiled=True)``).
+        Its own transpose."""
+        if self._grad(t, axes):
+            return _AllToAll.apply(t, self, axes)
+        return self._all_to_all(t, axes, "all_to_all")
+
+    def _all_to_all(self, t: torch.Tensor, axes: Axes, key: str):
         ax, n = self._live(axes, "all_to_all")
         if n == 1:
             return t
-        import torch.distributed as dist
-
         if t.shape[0] % n:
             raise ValueError(f"all_to_all: dim 0 of {tuple(t.shape)} is not "
                              f"a multiple of {n}")
         c = self.comm
-        w = self._bits(c._to_wire(t, "all_to_all"))
+        if c.shape_only:
+            c.sent[key] += t.numel() * t.element_size()
+            return torch.empty_like(t)
+        import torch.distributed as dist
+
+        w = self._bits(c._to_wire(t, key))
         out = torch.empty_like(w)
-        c.sent["all_to_all"] += w.numel() * w.element_size()
+        c.sent[key] += w.numel() * w.element_size()
         dist.all_to_all_single(out, w, group=c.group(ax))
         if t.dtype == torch.bfloat16:
             out = out.view(torch.bfloat16)
-        return c._from_wire(out, t, "all_to_all")
+        return c._from_wire(out, t, key)
 
     def all_gather(self, t: torch.Tensor, axes: Axes,
                    dim: int = 0) -> torch.Tensor:
         """Tiled all-gather: the ranks' ``t`` concatenated along ``dim``
-        in rank order."""
+        in rank order. Its backward is a reduce-scatter
+        (:meth:`_reduce_scatter`): this rank's block of the cotangents'
+        sum over ``axes``, taken in float32."""
+        if self._grad(t, axes):
+            return _AllGather.apply(t, self, axes, dim)
+        return self._all_gather(t, axes, dim)
+
+    def _all_gather(self, t: torch.Tensor, axes: Axes, dim: int):
         ax, n = self._live(axes, "all_gather")
         if n == 1:
             return t
+        c = self.comm
+        if c.shape_only:
+            c.sent["all_gather"] += t.numel() * t.element_size()
+            return torch.cat([t] * n, dim=dim)
         import torch.distributed as dist
 
-        c = self.comm
         w = self._bits(c._to_wire(t, "all_gather"))
         parts = [torch.empty_like(w) for _ in range(n)]
         c.sent["all_gather"] += w.numel() * w.element_size()
@@ -305,25 +407,36 @@ class MeshCtx:
         """Point-to-point permute: for each ``(src, dst)`` of ``perm``
         (indices over ``axes``), rank ``dst`` receives ``src``'s ``t``;
         a rank that receives nothing gets zeros, as in ``jax.lax``.
-        Sends and receives go as one ``batch_isend_irecv``."""
+        Sends and receives go as one ``batch_isend_irecv``. Its backward
+        is the inverse permutation."""
+        perm = tuple((int(s), int(d)) for s, d in perm)
+        if self._grad(t, axes):
+            return _Ppermute.apply(t, self, axes, perm)
+        return self._ppermute(t, axes, perm, "ppermute")
+
+    def _ppermute(self, t: torch.Tensor, axes: Axes, perm, key: str):
         ax, n = self._live(axes, "ppermute")
         me = self.axis_index(ax) if n > 1 else 0
         send_to = [d for s, d in perm if s == me]
         recv_from = [s for s, d in perm if d == me]
         if n == 1:
             return t.clone() if recv_from else torch.zeros_like(t)
+        c = self.comm
+        if c.shape_only:
+            c.sent[key] += (t.numel() * t.element_size()
+                            * sum(d != me for d in send_to))
+            return torch.empty_like(t)
         import torch.distributed as dist
 
-        c = self.comm
         ranks = c.group_ranks(ax)
-        w = self._bits(c._to_wire(t, "ppermute"))
+        w = self._bits(c._to_wire(t, key))
         out = torch.zeros_like(w)
         ops = []
         for d in send_to:
             if d == me:
                 out.copy_(w)
                 continue
-            c.sent["ppermute"] += w.numel() * w.element_size()
+            c.sent[key] += w.numel() * w.element_size()
             ops.append(dist.P2POp(dist.isend, w, ranks[d],
                                   group=c.group(ax)))
         for s in recv_from:
@@ -335,7 +448,7 @@ class MeshCtx:
                 req.wait()
         if t.dtype == torch.bfloat16:
             out = out.view(torch.bfloat16)
-        return c._from_wire(out, t, "ppermute")
+        return c._from_wire(out, t, key)
 
     # ------------------------------------------------------------------
     # blocks of a sharded dim
@@ -347,6 +460,57 @@ class MeshCtx:
             return t
         size = t.shape[dim] // n
         return t.narrow(dim, self.axis_index(axes) * size, size)
+
+
+# ---------------------------------------------------------------------------
+# the collectives' backwards (the rule in the module docstring)
+# ---------------------------------------------------------------------------
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, mc: MeshCtx, axes):
+        fctx.mc, fctx.axes = mc, axes
+        return mc._reduce(t, axes, "psum")
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.mc._sum_f32(g, fctx.axes, "psum.bwd"), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, mc: MeshCtx, axes, dim: int):
+        fctx.mc, fctx.axes, fctx.dim = mc, axes, dim
+        return mc._all_gather(t, axes, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return (fctx.mc._reduce_scatter(g, fctx.axes, fctx.dim,
+                                        "all_gather.bwd"), None, None, None)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, mc: MeshCtx, axes):
+        fctx.mc, fctx.axes = mc, axes
+        return mc._all_to_all(t, axes, "all_to_all")
+
+    @staticmethod
+    def backward(fctx, g):
+        return (fctx.mc._all_to_all(g, fctx.axes, "all_to_all.bwd"), None,
+                None)
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, t, mc: MeshCtx, axes, perm):
+        fctx.mc, fctx.axes, fctx.perm = mc, axes, perm
+        return mc._ppermute(t, axes, perm, "ppermute")
+
+    @staticmethod
+    def backward(fctx, g):
+        inv = tuple((d, s) for s, d in fctx.perm)
+        return (fctx.mc._ppermute(g, fctx.axes, inv, "ppermute.bwd"), None,
+                None, None)
 
 
 def make_smoke_ctx(**kw) -> MeshCtx:

@@ -30,7 +30,11 @@ Training (:meth:`Model.forward_train`) runs the ``train`` mode: the
 prefill's computation with no cache built or written, the MoE layers on
 the plain versions of their kernels, and the chunked cross-entropy;
 ``remat="full"`` recomputes each superblock in backward
-(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``, its
+collectives issued again. On a mesh it runs prefill's mesh path under
+autograd (the collectives' backward rule: ``models/mesh_ctx.py``), with
+a vocab-parallel cross-entropy and the loss's mean taken over every data
+rank's tokens; :meth:`Model.reduce_grads` finishes each leaf's gradient.
 """
 from __future__ import annotations
 
@@ -51,7 +55,7 @@ from repro_torch.models.mesh_ctx import make_smoke_ctx
 from repro_torch.models.common import (chunked_softmax_xent, dense_init,
                                        dtype_of, embed_init, naive_attention,
                                        part_seed, resolve_device, rms_norm,
-                                       tree_map)
+                                       tree_map, xent_sum)
 
 PyTree = Any
 
@@ -262,8 +266,9 @@ class Model:
     ``init_mtp_cache(local=True)``): RG-LRU with its channels over the
     TP axis, the SSD replicated over it (rows only), cross-attention
     with its heads over TP and the memory's K/V over the sequence axis
-    where ``cache_pspecs`` cuts them (``mem_axis``). Training raises
-    there."""
+    where ``cache_pspecs`` cuts them (``mem_axis``). Training runs there
+    too (:meth:`forward_train`, :meth:`train_axes`,
+    :meth:`reduce_grads`)."""
 
     def __init__(self, cfg: ModelConfig, *, ctx=None, rules=None,
                  decode_microbatches: Optional[int] = None,
@@ -351,7 +356,15 @@ class Model:
         (:meth:`init_leaf`) is a function of ``(seed, i)``, drawn where it
         lives, one leaf at a time. On a mesh each rank keeps only its
         block of each leaf: drawn alone where one dim is cut, else made
-        whole in host memory and cut there."""
+        whole in host memory and cut there. ``device="meta"``: the
+        leaves' shapes and dtypes only (this rank's blocks), nothing
+        drawn — the dry run's ``jax.eval_shape(model.init)``."""
+        if torch.device(device).type == "meta":
+            return shd.spec_tree_map(
+                lambda s, sp: torch.empty(shd.local_shape(s.shape, sp,
+                                                          self.ctx),
+                                          dtype=s.dtype, device="meta"),
+                self.param_spec(), self.specs)
         dev = resolve_device(device)
         count = iter(range(1 << 30))
         return shd.spec_tree_map(
@@ -774,6 +787,13 @@ class Model:
             return params["embed"].T
         return params["lm_head"]
 
+    def _unembed_local(self, params):
+        """(this rank's block of the [d, V] unembedding, its spec)."""
+        if self.cfg.tie_embeddings:
+            sp = self.specs["embed"]
+            return params["embed"].T, shd.PSpec(sp.entry(1), sp.entry(0))
+        return params["lm_head"], self.specs["lm_head"]
+
     def _embed(self, params, tokens, ctx=None):
         """tokens [B, S] (this rank's rows) → [B, S, d]. On a mesh the
         table is this rank's block of the vocabulary (and of d, gathered):
@@ -810,12 +830,7 @@ class Model:
         if not self.sharded:
             return torch.matmul(h.float(), self._unembed(params).float())
         ctx = self.ctx if ctx is None else ctx
-        if self.cfg.tie_embeddings:
-            w = params["embed"].T
-            sp = self.specs["embed"]
-            spec = shd.PSpec(sp.entry(1), sp.entry(0))
-        else:
-            w, spec = params["lm_head"], self.specs["lm_head"]
+        w, spec = self._unembed_local(params)
         w = shd.gather_local(w, spec, ctx, dims=(0,))
         if ctx.batch_axes:
             h = ctx.all_gather(h, ctx.batch_axes, dim=0)
@@ -846,20 +861,97 @@ class Model:
         tokens) and ``expert_counts`` (summed over the MoE layers). No
         cache is built and no kernel launched: the MoE layers run the
         plain versions. A model with cross-attention needs ``memory``,
-        as :meth:`prefill`."""
-        if self.sharded:
-            raise NotImplementedError("forward_train on a mesh is not "
-                                      "ported")
+        as :meth:`prefill`.
+
+        On a mesh the inputs are global and each rank takes its rows, as
+        :meth:`prefill`; the loss and every metric are the global ones,
+        the same on every rank (the mean over every data rank's counted
+        tokens; the MoE statistics reduced as the reference reduces
+        them). Its gradient: seed ``1 / n`` on each of the ``n`` ranks of
+        :meth:`train_axes`, then :meth:`reduce_grads`
+        (``train_loop.loss_and_grads`` does both)."""
+        ctx, rows = self._batch_ctx(tokens.shape[0])
         if self.has_cross:
-            memory = self._memory(params, memory)
-        x = self._embed(params, tokens)
-        x, _, (lb, z, counts) = self._apply_stack(params, x, mode="train",
-                                                  memory=memory)
-        nll, n_tok = chunked_softmax_xent(x, labels, self._unembed(params),
-                                          mask=loss_mask)
+            memory = self._memory(params, memory, ctx, rows)
+        tokens, labels = self._rows(ctx, rows, tokens, labels)
+        if loss_mask is not None:
+            (loss_mask,) = self._rows(ctx, rows, loss_mask)
+        x = self._embed(params, tokens, ctx)
+        x, sp = self._residual_constraint(x, "train", ctx)
+        x, _, (lb, z, counts) = self._apply_stack(
+            params, x, mode="train", memory=memory, ctx=ctx, sp_axis=sp)
+        nll, n_tok = self.train_nll(params, x, labels, loss_mask, ctx)
         loss = nll + lb + z
         return loss, {"nll": nll, "moe_lb_loss": lb, "moe_z_loss": z,
                       "tokens": n_tok, "expert_counts": counts}
+
+    def train_nll(self, params, h, labels, mask=None, ctx=None):
+        """h [B, S, d] (this rank's rows under ``ctx``), labels [B, S] →
+        (the chunked cross-entropy's mean over the counted tokens of
+        every data rank, their count). On a mesh the unembedding stays
+        cut over its vocab axes (log-sum-exp through ``pmax`` / ``psum``)
+        except those the rows are cut over, which are gathered."""
+        if not self.sharded:
+            return chunked_softmax_xent(h, labels, self._unembed(params),
+                                        mask=mask)
+        ctx = self.ctx if ctx is None else ctx
+        w, spec = self._unembed_local(params)
+        w = shd.gather_local(w, spec, ctx, dims=(0,))
+        ve = shd.spec_axes(shd.PSpec(None, spec.entry(1)))
+        rows = tuple(a for a in ve if a in ctx.batch_axes)
+        if rows:
+            w = ctx.all_gather(w, rows, dim=1)
+        va = tuple(a for a in ve if a not in rows and ctx.axis_size(a) > 1)
+        if va:
+            tot, cnt = xent_sum(h, labels, w, mask, mc=ctx, axes=va,
+                                v0=ctx.axis_index(va) * w.shape[1])
+        else:
+            tot, cnt = xent_sum(h, labels, w, mask)
+        ba = ctx.batch_axes
+        tot, cnt = ctx.psum(tot, ba), ctx.psum(cnt, ba)
+        return tot / torch.clamp(cnt, min=1.0), cnt
+
+    def train_axes(self) -> Tuple[str, ...]:
+        """The mesh axes a training step spans: those the context names
+        (batch, TP, EP, sequence) and those any parameter is cut over,
+        in mesh order; a loss every rank computes alike is held by the
+        ranks of these axes (a leading replica axis no collective names
+        is not one)."""
+        ctx = self.ctx
+        named = set(ctx.named_axes)
+        for sp in shd.leaves_by_path(self.specs).values():
+            named.update(shd.spec_axes(sp))
+        return tuple(a for a in ctx.axis_names if a in named
+                     and ctx.axis_size(a) > 1)
+
+    def reduce_grads(self, grads: PyTree, specs: PyTree = None) -> PyTree:
+        """Each leaf's gradient (partials, as a backward seeded ``1 / n``
+        leaves them) summed over the axes of :meth:`train_axes` that do
+        not cut it, in float32: one all-reduce per group of leaves with
+        the same axes. ``specs`` default: the whole model's. The identity
+        on one device."""
+        if not self.sharded:
+            return grads
+        ctx, axes = self.ctx, self.train_axes()
+        flat_specs = shd.leaves_by_path(self.specs if specs is None
+                                        else specs)
+        flat = shd.leaves_by_path(grads)
+        groups: Dict[tuple, list] = {}
+        for keys in flat:
+            cut = shd.spec_axes(flat_specs[keys])
+            over = tuple(a for a in axes if a not in cut)
+            if over:
+                groups.setdefault(over, []).append(keys)
+        for over, keys in groups.items():
+            buf = torch.cat([flat[k].float().reshape(-1) for k in keys])
+            buf = ctx._reduce(buf, over, "psum", "grad_sum")
+            off = 0
+            for k in keys:
+                n = flat[k].numel()
+                flat[k] = buf[off:off + n].view(flat[k].shape).to(
+                    flat[k].dtype)
+                off += n
+        return shd.map_with_paths(grads, lambda k, _: flat[k])
 
     def prefill(self, params, tokens, *, memory=None, last_pos=None):
         """tokens [B, S] → (logits at ``last_pos`` (default S-1) [B, V]
@@ -941,9 +1033,7 @@ class Model:
         rules like a main-stack block: ``next_tokens`` and ``positions``
         are global, as :meth:`decode_step_hidden` takes them; ``hidden``,
         the new hidden and ``mtp_cache`` (``init_mtp_cache(local=True)``)
-        are this rank's rows, as that step returns them. Without a cache
-        the block runs the prefill mode (training is not ported to a
-        mesh) and its cache is dropped."""
+        are this rank's rows, as that step returns them."""
         cfg = self.cfg
         ctx, rows = self._batch_ctx(next_tokens.shape[0])
         next_tokens, = self._rows(ctx, rows, next_tokens)
@@ -955,8 +1045,7 @@ class Model:
         h = torch.cat([rms_norm(hidden, mp["norm_h"], cfg.norm_eps),
                        rms_norm(e, mp["norm_e"], cfg.norm_eps)], dim=-1)
         h = torch.matmul(h, mp["proj"])
-        mode = ("decode" if mtp_cache is not None
-                else "prefill" if self.sharded else "train")
+        mode = "decode" if mtp_cache is not None else "train"
         h, cache, _ = block_apply(mp["block"], h, cfg=cfg, kind=self.mtp_kind,
                                   mode=mode, cache=mtp_cache,
                                   positions=positions, ctx=ctx,

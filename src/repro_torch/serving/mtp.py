@@ -19,8 +19,7 @@ from typing import Any, List, Tuple
 
 import torch
 
-from repro_torch.models.common import (chunked_softmax_xent, tree_leaves,
-                                       tree_unflatten_like)
+from repro_torch.models.common import tree_leaves, tree_unflatten_like
 from repro_torch.models.transformer import Model
 
 PyTree = Any
@@ -121,21 +120,26 @@ class MTPTrainer:
     def train_step(self, tokens: torch.Tensor) -> float:
         """tokens [B, S] int on the params' device → the step's loss
         (before the update)."""
+        from repro_torch.train.train_loop import grads_of
+
         model, params, idx = self.model, self.params, self.mtp_index
         tokens = tokens.long()
+        ctx, rows = model._batch_ctx(tokens.shape[0])
+        mine, labels = model._rows(ctx, rows, tokens, tokens[:, 2:])
         with torch.no_grad():
-            x, _, _ = model._apply_stack(params, model._embed(params, tokens),
-                                         mode="train")
+            x, sp = model._residual_constraint(
+                model._embed(params, mine, ctx), "train", ctx)
+            x, _, _ = model._apply_stack(params, x, mode="train", ctx=ctx,
+                                         sp_axis=sp)
         head = params["mtp"][idx]
         leaves = [t.detach().requires_grad_() for t in tree_leaves(head)]
         mtps = list(params["mtp"])
         mtps[idx] = tree_unflatten_like(head, leaves)
         h, _ = model.mtp_hidden(dict(params, mtp=tuple(mtps)), idx,
                                 x[:, :-2], tokens[:, 1:-1], None)
-        loss, _ = chunked_softmax_xent(h, tokens[:, 2:],
-                                       model._unembed(params))
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
+        loss, _ = model.train_nll(params, h, labels, None, ctx)
+        grads = tree_leaves(grads_of(model, loss, leaves, head,
+                                     model.specs["mtp"][idx]))
         with torch.no_grad():
             new = [p - self.lr * g.to(p.dtype)
                    for p, g in zip(tree_leaves(head), grads)]

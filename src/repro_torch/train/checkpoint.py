@@ -11,6 +11,12 @@ restores through it. The port neither writes nor reads that file: it
 restores by the manifest's paths (``[i]`` a tuple index, ``['k']`` a
 dict key, ``.field`` a field of :class:`AdamWState`). So the port reads
 the reference's checkpoints, and the reference cannot read the port's.
+
+On a mesh (``ctx`` and ``specs``, the tree's ``PSpec``s) a save gathers
+every leaf to its global value and the first rank of the context's axes
+(``MeshCtx.named_axes``) writes it once, the others waiting for it; a restore reads the global leaves and
+cuts this rank's block of each (``launch/sharding.shard_tree``), so a
+checkpoint moves between any meshes, one device included.
 """
 from __future__ import annotations
 
@@ -71,12 +77,42 @@ def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     return t.numpy(), name
 
 
+def _map_specs(fn, tree, specs):
+    """``tree`` rebuilt with ``fn(leaf, spec)``; ``specs`` has ``tree``'s
+    structure (NamedTuples, here :class:`AdamWState`, are nodes)."""
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_map_specs(fn, v, sp)
+                            for v, sp in zip(tree, specs)))
+    if isinstance(tree, (tuple, list)):
+        return tuple(_map_specs(fn, v, sp) for v, sp in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def _mesh_barrier(ctx, device) -> None:
+    """Every rank of ``ctx``'s axes waits here for the others."""
+    ctx.psum(torch.zeros((1,), device=device), ctx.named_axes)
+
+
 def save_checkpoint(directory: str, step: int, tree: PyTree,
-                    keep: int = 3) -> str:
+                    keep: int = 3, *, ctx=None, specs: PyTree = None) -> str:
     """Atomic save of a tree (params, optimizer state) under
-    ``directory/step_N``; keeps the newest ``keep`` steps."""
-    os.makedirs(directory, exist_ok=True)
+    ``directory/step_N``; keeps the newest ``keep`` steps. ``ctx`` /
+    ``specs``: the leaves are this rank's blocks (see the module
+    docstring)."""
     final = os.path.join(directory, f"step_{step:08d}")
+    if ctx is not None and ctx.sharded:
+        from repro_torch.launch import sharding as shd
+
+        with torch.no_grad():
+            tree = _map_specs(lambda t, sp: shd.gather_local(t, sp, ctx),
+                              tree, specs)
+        if ctx.axis_index(ctx.named_axes) == 0:
+            save_checkpoint(directory, step, tree, keep)
+        _mesh_barrier(ctx, _flatten(tree)[0][1].device)
+        return final
+    os.makedirs(directory, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=directory)
     flat = _flatten(tree)
     arrays = [_to_numpy(t) for _, t in flat]
@@ -152,10 +188,19 @@ def _build(node):
 
 
 def restore_checkpoint(directory: str, step: Optional[int] = None,
-                       device="cuda") -> Tuple[int, PyTree]:
+                       device="cuda", *, ctx=None, specs: PyTree = None
+                       ) -> Tuple[int, PyTree]:
     """→ (step, tree) of ``directory/step_N`` (default the newest), the
     leaves on ``device`` in their saved dtypes. Reads the reference's
-    checkpoints too (its ``treedef.pkl`` is not read)."""
+    checkpoints too (its ``treedef.pkl`` is not read). ``ctx`` /
+    ``specs``: each leaf cut to this rank's block."""
+    if ctx is not None and ctx.sharded:
+        from repro_torch.launch import sharding as shd
+
+        step, tree = restore_checkpoint(directory, step, device="cpu")
+        dev = resolve_device(device)
+        return step, _map_specs(
+            lambda t, sp: shd.take_local(t, sp, ctx).to(dev), tree, specs)
     dev = resolve_device(device)
     step = step if step is not None else latest_step(directory)
     if step is None:

@@ -4,7 +4,13 @@ operation: the gradients' global norm clips them, ``b ** step`` bias
 corrections in float32, the decay added to the update (not applied to
 the parameter as ``torch.optim.AdamW`` does), and the result cast back
 to the parameter's dtype. No float32 master copy of the parameters is
-kept, as in the reference."""
+kept, as in the reference.
+
+On a mesh each rank holds its blocks of the parameters, gradients and
+moments (``specs``, the model's parameter specs): the update is
+elementwise on each block, and the global norm sums each leaf's squares
+over the axes that cut it, never over those that replicate it, so every
+rank clips by the reference's norm."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +19,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.launch.sharding import spec_axes
 from repro_torch.models.common import (tree_leaves, tree_map,
                                        tree_unflatten_like)
 
@@ -58,19 +65,38 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree: PyTree) -> torch.Tensor:
+def global_norm(tree: PyTree, ctx=None, specs: PyTree = None
+                ) -> torch.Tensor:
     """sqrt of the sum over leaves (in the reference's order) of each
-    leaf's float32 sum of squares."""
-    return torch.sqrt(torch.sum(torch.stack(
-        [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)])))
+    leaf's float32 sum of squares. ``ctx`` / ``specs``: the leaves are
+    this rank's blocks under ``specs`` (a tree of ``PSpec`` like
+    ``tree``); each leaf's sum is summed over the axes that cut it, one
+    all-reduce per group of leaves with the same axes."""
+    sq = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    if ctx is not None and specs is not None:
+        groups = {}
+        for i, sp in enumerate(tree_leaves(specs)):
+            cut = spec_axes(sp)
+            axes = tuple(a for a in ctx.axis_names
+                         if a in cut and ctx.axis_size(a) > 1)
+            if axes:
+                groups.setdefault(axes, []).append(i)
+        for axes, idx in groups.items():
+            tot = ctx.psum(torch.stack([sq[i] for i in idx]), axes)
+            for j, i in enumerate(idx):
+                sq[i] = tot[j]
+    return torch.sqrt(torch.sum(torch.stack(sq)))
+
 
 
 def adamw_update(cfg: AdamWConfig, params: PyTree, grads: PyTree,
-                 state: AdamWState) -> Tuple[PyTree, AdamWState, dict]:
+                 state: AdamWState, ctx=None, specs: PyTree = None
+                 ) -> Tuple[PyTree, AdamWState, dict]:
     """One step: → (new params, new state, {"grad_norm", "lr"}). Pure:
-    the arguments are not written."""
+    the arguments are not written. ``ctx`` / ``specs``: the mesh and the
+    parameters' specs (see :func:`global_norm`)."""
     with torch.no_grad():
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, ctx, specs)
         clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                            max=1.0)
         step = state.step + 1

@@ -58,6 +58,10 @@ def test_import_loads_no_jax_and_no_reference_package():
             "repro_torch.launch", "repro_torch.launch.serve"} <= on_disk
     # the recurrent mixers: RG-LRU (RecurrentGemma) and Mamba-2's SSD
     assert {"repro_torch.models.rglru", "repro_torch.models.ssm"} <= on_disk
+    # the dry run and its roofline
+    assert {"repro_torch.roofline", "repro_torch.roofline.analysis",
+            "repro_torch.launch.dryrun",
+            "repro_torch.launch.dryrun_lib"} <= on_disk
     # the SuperPod simulator
     assert {"repro_torch.sim", "repro_torch.sim.engine",
             "repro_torch.sim.events", "repro_torch.sim.fabric",

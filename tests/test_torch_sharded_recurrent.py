@@ -13,8 +13,8 @@ same Auto-axis meshes (``tests/torch_mesh_serving.py``).
 * A TP cut through an RG-LRU gate block (5 heads: one block of every
   channel) on (1,2): the one-device path's logits within 1e-5.
 * Every registered configuration runs its mesh code path (a live 1×1
-  mesh in this process): prefill and decode equal to the one-device
-  path bit for bit; only training raises there.
+  mesh in this process): prefill, decode and the training loss equal to
+  the one-device path's bit for bit.
 """
 from __future__ import annotations
 
@@ -146,5 +146,8 @@ def test_every_registered_config_runs_its_mesh_path(arch, one_thread):
         out.append((lp, ld))
     assert torch.equal(out[0][0], out[1][0])
     assert torch.equal(out[0][1], out[1][1])
-    with pytest.raises(NotImplementedError):
-        m1.forward_train(params, toks, toks, memory=mem)
+    # training runs the mesh path too, its loss the one device's
+    losses = [m.forward_train(params, toks, toks, memory=None if mem is None
+                              else mem.expand(2, -1, -1))[0]
+              for m in (m1, m0)]
+    assert torch.equal(losses[0], losses[1])
