@@ -1209,6 +1209,86 @@ def held_attention(got, want, bar: float, what: str) -> tuple:
     return err, scaled
 
 
+def no_spills(name: str) -> None:
+    """Hold nvcc's ``-Xptxas -v`` lines of ``csrc/<name>.cu`` to 0 bytes
+    spilled in every kernel instantiation (one line each: decode
+    attention's are the entries of ``kernel.BLOCKS_PER_SM``). A library
+    found already built in the build directory has no log: said, not
+    held."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.decode_attention.kernel import BLOCKS_PER_SM
+
+    text = runtime.BUILD_LOGS.get(name)
+    if text is None:
+        log(f"{name}.cu: built before this run, no spill lines to hold")
+        return
+    lines = [ln for ln in text.splitlines() if "spill" in ln]
+    check(len(lines) == len(BLOCKS_PER_SM) and all(
+        "0 bytes spill stores, 0 bytes spill loads" in ln for ln in lines),
+        f"{name}.cu: 0 bytes spilled in each of its {len(BLOCKS_PER_SM)} "
+        f"instantiations, got {lines}")
+    log(f"{name}.cu: 0 bytes spilled in all {len(lines)} instantiations")
+
+
+def check_occupancy() -> dict:
+    """Decode attention's plan table (``kernel.BLOCKS_PER_SM``: blocks an
+    SM holds, by dtype, hd, heads a warp set takes and warp sets) against
+    the CUDA runtime's occupancy of each instantiation; logs the clusters
+    of 8 blocks the card holds beside it."""
+    from repro_torch.kernels.decode_attention.kernel import (BLOCKS_PER_SM,
+                                                             occupancy)
+
+    got = {}
+    for (dtype, hd, sh, wq), want in BLOCKS_PER_SM.items():
+        what = f"{str(dtype)[6:]} hd {hd} sets {wq} of {sh} heads"
+        blocks, clusters = occupancy(dtype, hd, sh, wq, torch.device("cuda"))
+        got[what] = dict(blocks_per_sm=blocks, table=want,
+                         clusters_of_8=clusters)
+    check(all(g["blocks_per_sm"] == g["table"] for g in got.values()),
+          f"decode_attention: blocks an SM as the plan's table says: {got}")
+    log(f"decode_attention occupancy (blocks an SM = the plan's table; "
+        f"clusters of 8 on the card): {got}")
+    return got
+
+
+def plan_text(p: dict) -> str:
+    """A decode-attention plan in a few words: split, merge, heads."""
+    merge = (f"cluster of {p['cluster']}" if p["cluster"] > 1 else
+             "ticket merge" if p["n_split"] > 1 else "no merge")
+    return (f"{p['n_split']} x {p['split_len']} slots ({merge}), "
+            f"{p['n_grp']} group(s) of {p['gpb']} heads in {p['wq']} warp "
+            f"set(s), {p['per_sm']} block(s) an SM")
+
+
+def host_cut(fn) -> dict:
+    """CUDA-event ms of a decode-attention call ``fn`` (called in turn,
+    as :func:`time_pair`) doing a first call's host work every time (the
+    wrapper's kept launches dropped first: checks, plan, argument block
+    and workspace made anew, as every call did before they were kept)
+    and as the served calls run it (the kept launch)."""
+    from repro_torch.kernels.decode_attention import kernel as K
+
+    def first():
+        K._CALLS.clear()
+        return fn()
+    before, after = time_pair(first, fn)
+    return dict(events_ms_first_call=before, events_ms=after)
+
+
+def attention_row(what: str, res: dict, p: dict, fn) -> None:
+    """Add a timed decode-attention row's plan, its device ms over
+    SDPA's, and :func:`host_cut`, and log them beside its bound."""
+    res.update(plan=p, sdpa_device_ratio=(
+        res["device_ms"] / res["library_device_ms"]
+        if res["device_ms"] and res["library_device_ms"] else None),
+        **host_cut(fn))
+    log(f"decode_attention row {what}: plan {plan_text(p)}; device "
+        f"{res['device_ms']} ms, SDPA device {res['library_device_ms']} ms "
+        f"(ratio {res['sdpa_device_ratio']}), bound {res['bound_ms']:.5f} "
+        f"ms; events {res['events_ms']:.4f} ms, "
+        f"{res['events_ms_first_call']:.4f} with a first call's host work")
+
+
 def check_decode_attention(cfg, max_batch: int, max_len: int) -> dict:
     """Decode attention at the path's shape and around it, in bf16 and
     float32, against the plain version (:func:`held_attention`), with
@@ -1223,12 +1303,14 @@ def check_decode_attention(cfg, max_batch: int, max_len: int) -> dict:
     slower than SDPA's (events, called in turn) at L <= 32768 with every
     row full, and at L 32768 within 2x its bound on the device."""
     from repro_torch.kernels.decode_attention.kernel import (
-        decode_attention_cuda)
+        _n_sms, decode_attention_cuda, plan)
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_ref, valid_slots)
 
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     B, L = max_batch, max_len
+    occupancy = check_occupancy()
+    n_sms = _n_sms(torch.device("cuda"))
     gen = torch.Generator(device="cuda").manual_seed(4321)
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 comparison
     torch.backends.cudnn.allow_tf32 = False
@@ -1256,6 +1338,9 @@ def check_decode_attention(cfg, max_batch: int, max_len: int) -> dict:
         ("ring window 256, ragged L=250", H, KV, 250, 256,
          [249, 300, 1000, 0], None, hd, 1.0),
         ("ring window 256, early rows", H, KV, 256, 256, [255, 20, 5, 0],
+         None, hd, 1.0),
+        # a cache longer than its window: the ring rule slot by slot
+        ("ring window 256, L=600", H, KV, 600, 256, [255, 700, 20, 1000],
          None, hd, 1.0),
         ("G=1", KV, KV, L, 0, last, None, hd, 1.0),
         ("G=8", 8 * KV, KV, L, 0, [5, L - 1, 600, 0], None, hd, 1.0),
@@ -1325,6 +1410,8 @@ def check_decode_attention(cfg, max_batch: int, max_len: int) -> dict:
                    scaled_err=scaled, bound_ms=bnd, bound_by=by,
                    slots_needed=rows, kernels_per_call=prof["per_call"],
                    positions=pos)
+        attention_row(f"L={L} positions {pos}", res,
+                      plan(B, H, KV, hd, L, n_sms), kernel)
         log(f"decode_attention timed L={L} positions {pos}: "
             f"{res['ms']:.4f} ms (device {res['device_ms']}), plain "
             f"{res['plain_ms']:.4f}, SDPA {res['library_ms']:.4f} (device "
@@ -1346,7 +1433,8 @@ def check_decode_attention(cfg, max_batch: int, max_len: int) -> dict:
     check(t["device_ms"] <= 2 * t["bound_ms"],
           f"decode_attention L=32768: device {t['device_ms']} ms within 2x "
           f"its bound {t['bound_ms']} ms")
-    timed_runs = [t for t in out.values() if isinstance(t, dict)] + [out]
+    timed_runs = [out] + [t for k, t in out.items()
+                          if k.startswith(("long_context", "ragged"))]
     bf16 = [e for (_, dt), e in errs.items() if dt == "torch.bfloat16"]
     out["max_abs_err"] = max([e for e, _ in bf16]
                              + [t["max_abs_err"] for t in timed_runs])
@@ -1355,6 +1443,7 @@ def check_decode_attention(cfg, max_batch: int, max_len: int) -> dict:
     f32 = [e for (_, dt), e in errs.items() if dt == "torch.float32"]
     out["max_abs_err_f32"] = max(e for e, _ in f32)
     out["max_scaled_err_f32"] = max(s for _, s in f32)
+    out["occupancy"] = occupancy
     return out
 
 
@@ -3892,10 +3981,10 @@ def check_ring_attention() -> dict:
     Timed at B 4 and B 8 with every slot valid (CUDA events, in turn
     with ``scaled_dot_product_attention`` and the ring mask; profiler
     device time), beside the bytes bound and the plain version; and the
-    device time of 1, 2 and 3 head groups on the same K/V (H 4, 8, 10),
-    which prices the groups' re-reads of K/V."""
+    device time of 4, 8 and 10 query heads on the same K/V (one block
+    takes all 10: two warp sets of 8 query columns on one ring)."""
     from repro_torch.kernels.decode_attention.kernel import (
-        decode_attention_cuda, plan)
+        _n_sms, decode_attention_cuda, plan)
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_ref, valid_slots)
 
@@ -3974,8 +4063,9 @@ def check_ring_attention() -> dict:
                    library="scaled_dot_product_attention (ring mask)",
                    library_max_abs_err=lib_err[0], max_abs_err=err,
                    scaled_err=scaled, bound_ms=bnd, bound_by=by,
-                   slots_needed=rows, kernels_per_call=prof["per_call"],
-                   plan=plan(B, H, KV, hd, W, 132))
+                   slots_needed=rows, kernels_per_call=prof["per_call"])
+        attention_row(f"ring B={B}", res,
+                      plan(B, H, KV, hd, W, _n_sms(q.device)), kernel)
         log(f"decode_attention ring timed B={B}: {ms:.4f} ms (device "
             f"{res['device_ms']}), plain {res['plain_ms']:.4f}, SDPA "
             f"{lib_ms:.4f} (device {res['library_device_ms']}), bound "
@@ -3983,11 +4073,11 @@ def check_ring_attention() -> dict:
         return res
     out = timed(4)
     out["B8"] = timed(8)
-    out["groups_device_ms"] = {g: timed(4, heads)["device_ms"]
-                               for g, heads in ((1, 4), (2, 8))}
-    out["groups_device_ms"][3] = out["device_ms"]
-    log(f"decode_attention ring B=4, device ms by head groups on the same "
-        f"K/V (H 4, 8, 10): {out['groups_device_ms']}")
+    out["heads_device_ms"] = {heads: timed(4, heads)["device_ms"]
+                              for heads in (4, 8)}
+    out["heads_device_ms"][10] = out["device_ms"]
+    log(f"decode_attention ring B=4, device ms by query heads on the same "
+        f"K/V (H 4, 8, 10; one head group each): {out['heads_device_ms']}")
     bf16 = [e for (_, dt), e in errs.items() if dt == "torch.bfloat16"]
     f32 = [e for (_, dt), e in errs.items() if dt == "torch.float32"]
     out["max_abs_err"] = max([e for e, _ in bf16] + [out["max_abs_err"],
@@ -4225,7 +4315,7 @@ def check_memory_attention(get_config) -> dict:
     profiler device time) beside the bytes bound and the plain
     version."""
     from repro_torch.kernels.decode_attention.kernel import (
-        decode_attention_cuda, plan)
+        _n_sms, decode_attention_cuda, plan)
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_ref, valid_slots)
 
@@ -4327,8 +4417,9 @@ def check_memory_attention(get_config) -> dict:
                    library_max_abs_err=lib_err[0], max_abs_err=err,
                    scaled_err=scaled, bound_ms=bnd, bound_by=by,
                    slots_needed=rows, kernels_per_call=prof["per_call"],
-                   shape=dict(B=B, H=H, KV=KV, hd=hd, L=L),
-                   plan=plan(B, H, KV, hd, L, 132))
+                   shape=dict(B=B, H=H, KV=KV, hd=hd, L=L))
+        attention_row(name, res, plan(B, H, KV, hd, L, _n_sms(q.device)),
+                      kernel)
         log(f"decode_attention timed {name} [{B},{H},{hd}] x L={L}: "
             f"{ms:.4f} ms (device {res['device_ms']}), plain "
             f"{res['plain_ms']:.4f}, SDPA {lib_ms:.4f} (device "
@@ -5336,8 +5427,8 @@ def check_partial_attention() -> dict:
     time, one launch per call) beside the plain version and SDPA on the
     same shard (SDPA returns no max or sum, so it is not a partial), and
     its bytes bound at 3.35 TB/s."""
-    from repro_torch.kernels.decode_attention.kernel import \
-        decode_attention_cuda
+    from repro_torch.kernels.decode_attention.kernel import (
+        _n_sms, decode_attention_cuda, plan)
     from repro_torch.kernels.decode_attention.ref import \
         decode_attention_partial_ref
 
@@ -5374,6 +5465,8 @@ def check_partial_attention() -> dict:
                max_abs_err=err, scaled_err=scaled,
                profiled_per_call=prof["per_call"],
                shape=dict(B=B, H=H, KV=KV, hd=hd, L=L, of=2 * L))
+    attention_row("partial at the Llama-4 shard", res,
+                  plan(B, H, KV, hd, L, _n_sms(q.device)), kernel)
     log(f"decode attention partial [{B},{H},{KV},{hd}] x {L} slots: "
         f"{ms:.4f} ms (device {prof['device_ms']}), plain "
         f"{res['plain_ms']:.4f}, SDPA {lib_ms:.4f} (device "
@@ -6309,8 +6402,8 @@ def check_cross_partial() -> dict:
     to its plain version, timed (CUDA events and device time, one launch
     per call) beside the plain version and SDPA on the same shard (SDPA
     returns no max or sum), and its bytes bound at 3.35 TB/s."""
-    from repro_torch.kernels.decode_attention.kernel import \
-        decode_attention_cuda
+    from repro_torch.kernels.decode_attention.kernel import (
+        _n_sms, decode_attention_cuda, plan)
     from repro_torch.kernels.decode_attention.ref import \
         decode_attention_partial_ref
 
@@ -6350,6 +6443,8 @@ def check_cross_partial() -> dict:
                max_abs_err=err, scaled_err=scaled,
                profiled_per_call=prof["per_call"],
                shape=dict(B=B, H=H, KV=KV, hd=hd, L=L, of=2 * L))
+    attention_row("partial on a cross memory shard", res,
+                  plan(B, H, KV, hd, L, _n_sms(q.device)), kernel)
     log(f"decode attention partial on a cross memory shard [{B},{H},{KV},"
         f"{hd}] x {L} of {2 * L} slots: {ms:.4f} ms (device "
         f"{prof['device_ms']}), plain {res['plain_ms']:.4f}, SDPA "
@@ -6935,6 +7030,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}.cu: {line.strip()}")
+    no_spills("decode_attention")
 
     results = {**deepseek_stages(get_config), **llama_stages(get_config),
                **hybrid_stages(get_config), **memory_stages(get_config)}

@@ -108,7 +108,10 @@ def test_cuda_wrapper_checks_before_launching():
 @pytest.mark.parametrize("B,KV,L", [(4, 8, 1024), (4, 8, 32768),
                                     (4, 8, 1000), (1, 2, 1), (3, 2, 100),
                                     (64, 8, 4096), (4, 8, 131072),
-                                    (4, 8, 576), (1, 1, 1_000_000)])
+                                    (4, 8, 576), (1, 1, 1_000_000),
+                                    # short caches: one cluster's ranges
+                                    (4, 1, 2048), (8, 1, 2048),
+                                    (1, 1, 256), (2, 4, 1601)])
 def test_split_plan_covers_the_cache_in_whole_tiles(B, KV, L):
     sms = 132
     split_len, n = split_plan(B, KV, L, n_sms=sms)
@@ -117,9 +120,17 @@ def test_split_plan_covers_the_cache_in_whole_tiles(B, KV, L):
     tiles = -(-L // 64)
     # a wave is two blocks per SM; the batch alone may fill it
     wave = max(1, 2 * sms // (B * KV))
+    if tiles <= 32:
+        # a short cache: one block up to 4 tiles, else at most 8 ranges
+        # (one cluster) of at least 3 tiles
+        assert n == 1 if tiles <= 4 else (n <= 8 and split_len >= 3 * 64)
+        return
     # the card is at least half filled, or every tile has its own block
     assert 2 * n > min(wave, tiles, 64)
     # at most two waves
     assert B * KV * n <= max(2 * 2 * sms, 2 * B * KV)
     # a block walks at most 2048 slots unless the plan takes two waves
     assert split_len <= 2048 or n >= min(2 * wave, 64)
+    # a cluster's blocks (2-8 splits) take at most 7/8 of a wave
+    if 2 <= n <= 8 and B * KV * n <= 2 * sms:
+        assert 8 * B * KV * n <= 7 * 2 * sms

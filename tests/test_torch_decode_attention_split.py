@@ -5,8 +5,11 @@ The kernel (``csrc/decode_attention.cu``) walks each (batch row, KV
 head) in ``n_split`` ranges of ``split_len`` slots (``split_plan``),
 keeps an unnormalised (m, l, acc) per range with ``p`` cast to the value
 type inside the range, and merges the ranges by log-sum-exp weights in
-range order, in the same launch. :func:`partitioned` is that arithmetic
-in PyTorch, one range at a time; on the cases of
+range order, in the same launch: inside one thread-block cluster where
+``n_split`` is 2-8 (block j merging elements [j GD / n, (j + 1) GD / n)
+of its group), by the last block to take a ticket where it is larger.
+Both merges take the same sums in the same order. :func:`partitioned`
+is that arithmetic in PyTorch, one range at a time; on the cases of
 ``tests/test_torch_decode_attention.py`` it must agree with
 ``decode_attention_ref`` and with the JAX op (the Pallas kernel in
 interpret mode) within 2e-4 in float32 and 3e-2 in bf16, under the plan
@@ -14,21 +17,23 @@ of a 132-SM card and of a 4-SM one (more, shorter ranges). A NaN in a
 masked slot (a stale cache tail past the row's position) must not reach
 the output: it is held against the same inputs with that tail zeroed.
 
-A KV head's query heads are split into groups of at most ``1024 // hd``
-(``head_groups``), one block per (range, group): at RecurrentGemma's
-decode shape (hd 256, 10 query heads on one KV head, a ring of 2048
-slots) three groups of 4, 4 and 2. ``block_work`` is the kernel's own
-index arithmetic of a block; under the plan every (row, query head,
-slot) is walked by exactly one block, in ring mode and not, and the
-partition by groups gives the plain version's output."""
+A KV head's query heads are split into groups of at most one warp set
+of heads (``max(8, 1024 // hd)``), two sets at hd 256 (``head_groups``),
+one block per (range, group): at RecurrentGemma's decode shape (hd 256,
+10 query heads on one KV head, a ring of 2048 slots) one group of 10.
+``block_work`` is the kernel's own index arithmetic of a block and
+``merge_work`` the cluster merge's; under the plan every (row, query
+head, slot) is walked by exactly one block, in ring mode and not, every
+output element is merged once, and the partition by groups gives the
+plain version's output, at the decode shapes of the served paths too."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.decode_attention.ops import decode_attention as jax_op
-from repro_torch.kernels.decode_attention.kernel import (block_work, plan,
-                                                         split_plan)
+from repro_torch.kernels.decode_attention.kernel import (
+    BLOCKS_PER_SM, block_work, head_groups, merge_work, plan, split_plan)
 from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
                                                       valid_slots)
 from test_torch_decode_attention import CASES, TOL, _inputs
@@ -40,7 +45,7 @@ def partitioned(q, k, v, positions, *, window=0, n_sms=132):
     B, H, hd = q.shape
     L, KV = k.shape[1], k.shape[2]
     G = H // KV
-    p = plan(B, H, KV, hd, L, n_sms)
+    p = plan(B, H, KV, hd, L, n_sms, q.dtype)
     outs = [_partitioned_group(q.reshape(B, KV, G, hd)[:, :, g0:g0 + p[
         "gpb"]], k, v, positions, window, p["split_len"], p["n_split"])
         for g0 in range(0, G, p["gpb"])]
@@ -144,17 +149,9 @@ def test_nan_in_a_masked_slot_does_not_reach_the_output(dtype, window):
 RING = (4, 10, 1, 256, 2048)
 
 
-@pytest.mark.parametrize("n_sms", [132, 4])
-@pytest.mark.parametrize("window", [2048, 0])
-@pytest.mark.parametrize("B,positions", [
-    (4, (0, 2047, 2048, 3000)), (4, (4095, 5, 100, 1500)),
-    (8, (2047, 1, 2100, 0, 700, 4000, 2048, 64))])
-def test_head_groups_cover_every_head_and_slot_once(B, positions, window,
-                                                    n_sms):
-    _, H, KV, hd, L = RING
-    p = plan(B, H, KV, hd, L, n_sms)
-    assert (p["gpb"], p["n_grp"]) == (4, 3)
-    assert p["grid"] == (p["n_split"], KV * p["n_grp"], B)
+def _walked(p, B, H, KV, L, positions, window):
+    """[B, H, L]: how often each (row, query head, slot) is walked by a
+    block of the launch ``p``."""
     walked = np.zeros((B, H, L), np.int64)
     for split in range(p["n_split"]):
         for y in range(KV * p["n_grp"]):
@@ -164,6 +161,34 @@ def test_head_groups_cover_every_head_and_slot_once(B, positions, window,
                 assert 1 <= len(heads) <= p["gpb"]
                 walked[b, heads.start:heads.stop,
                        slots.start:slots.stop] += 1
+    return walked
+
+
+def _merged_once(p, G, hd):
+    """Every output element of a group is merged by exactly one block."""
+    for g in range(p["n_grp"]):
+        n_heads = min(p["gpb"], G - g * p["gpb"])
+        merged = np.zeros(n_heads * hd, np.int64)
+        blocks = range(p["n_split"]) if p["cluster"] > 1 else [0]
+        for split in blocks:
+            e = merge_work(p, n_heads, hd, split)
+            merged[e.start:e.stop] += 1
+        assert (merged == 1).all()
+
+
+@pytest.mark.parametrize("n_sms", [132, 4])
+@pytest.mark.parametrize("window", [2048, 0])
+@pytest.mark.parametrize("B,positions", [
+    (4, (0, 2047, 2048, 3000)), (4, (4095, 5, 100, 1500)),
+    (8, (2047, 1, 2100, 0, 700, 4000, 2048, 64))])
+def test_head_groups_cover_every_head_and_slot_once(B, positions, window,
+                                                    n_sms):
+    _, H, KV, hd, L = RING
+    p = plan(B, H, KV, hd, L, n_sms)
+    # all 10 heads in one block: two warp sets of 8 query columns
+    assert (p["gpb"], p["n_grp"], p["wq"]) == (10, 1, 2)
+    assert p["grid"] == (p["n_split"], KV * p["n_grp"], B)
+    walked = _walked(p, B, H, KV, L, positions, window)
     # a ring walks every slot (the kernel masks the stale ones); global
     # attention walks the slots up to the row's position and no further
     want = np.ones((B, H, L), np.int64)
@@ -171,6 +196,7 @@ def test_head_groups_cover_every_head_and_slot_once(B, positions, window,
         want *= (np.arange(L)[None, None, :]
                  <= np.asarray(positions)[:, None, None])
     assert np.array_equal(walked, want)
+    _merged_once(p, H // KV, hd)
 
 
 @pytest.mark.parametrize("n_sms", [132, 4])
@@ -224,3 +250,80 @@ def test_nan_in_a_masked_ring_slot_stays_out_of_every_group(dtype):
                                    rtol=TOL[dtype], atol=TOL[dtype])
     assert torch.equal(decode_attention_ref(tq, kn, vn, tpos, window=L),
                        want)
+
+
+#: the decode shapes of the served paths with short caches or hd 256,
+#: where a plan of one wave of one-tile blocks wastes the card: B, H,
+#: KV, hd, L
+SERVED = {
+    "rg-ring-b8": (8, 10, 1, 256, 2048),
+    "rg-ring-b4": (4, 10, 1, 256, 2048),
+    "vlm-cross": (4, 32, 8, 128, 1601),
+    "m4t-cross-shard": (4, 16, 16, 64, 256),
+    "vlm-self": (4, 32, 8, 128, 256),
+    "m4t-self": (4, 16, 16, 64, 256),
+    "m4t-cross": (4, 16, 16, 64, 512),
+    "llama4-shard": (4, 40, 8, 128, 512),
+}
+
+
+def _served_positions(row, B, L, window):
+    rng = np.random.default_rng(sorted(SERVED).index(row))
+    pos = rng.integers(0, 2 * L if window else L, B)
+    pos[0] = L - 1
+    return pos.astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("row", list(SERVED))
+def test_served_shapes_walk_every_head_and_slot_once(row, ring, dtype):
+    B, H, KV, hd, L = SERVED[row]
+    window = L if ring else 0
+    positions = _served_positions(row, B, L, window)
+    p = plan(B, H, KV, hd, L, 132, dtype)
+    want = np.ones((B, H, L), np.int64)
+    if not ring:
+        want *= np.arange(L)[None, None, :] <= positions[:, None, None]
+    assert np.array_equal(_walked(p, B, H, KV, L, positions, window), want)
+    _merged_once(p, H // KV, hd)
+    # one group for every served model's heads, in at most two warp sets
+    assert p["n_grp"] == 1 and p["gpb"] == H // KV and p["wq"] <= 2
+    # the cluster merge wherever the splits fit a portable cluster
+    assert p["cluster"] == (p["n_split"] if 1 < p["n_split"] <= 8 else 1)
+    # the blocks an SM holds, as the table says, and at most two waves
+    assert p["per_sm"] == BLOCKS_PER_SM[dtype, hd, p["sh"], p["wq"]]
+    blocks = p["n_split"] * B * KV * p["n_grp"]
+    assert blocks <= max(2 * p["per_sm"] * 132, B * KV * p["n_grp"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("row", list(SERVED))
+def test_served_shapes_partition_matches_plain_version(row, dtype):
+    B, H, KV, hd, L = SERVED[row]
+    rng = np.random.default_rng(300 + sorted(SERVED).index(row))
+    td = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32) * 0.5).to(td) for s in
+        ((B, H, hd), (B, L, KV, hd), (B, L, KV, hd)))
+    window = L if row.startswith("rg") else 0
+    tpos = torch.from_numpy(_served_positions(row, B, L, window))
+    for n_sms in (132, 4):
+        got = partitioned(tq, tk, tv, tpos, window=window, n_sms=n_sms)
+        np.testing.assert_allclose(
+            got.numpy(), decode_attention_ref(tq, tk, tv, tpos,
+                                              window=window).numpy(),
+            rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("G,hd,want", [
+    (10, 256, (10, 1)), (4, 256, (4, 1)), (16, 256, (16, 1)),
+    (20, 256, (10, 2)), (5, 128, (5, 1)), (8, 128, (8, 1)),
+    (12, 128, (6, 2)), (1, 64, (1, 1)), (16, 64, (16, 1)),
+    (40, 32, (20, 2))])
+def test_head_groups_are_equal_and_fit_the_warp_sets(G, hd, want):
+    assert head_groups(G, hd) == want
+    gpb, n_grp = want
+    p = plan(1, G, 1, hd, 1024, 132)
+    assert (p["gpb"], p["n_grp"]) == want and gpb * n_grp >= G
+    assert p["wq"] == (2 if gpb > 8 and hd == 256 else 1)
