@@ -313,6 +313,36 @@ O. the smoke Llama-3.2-Vision with G = 4 (8 query heads on 2 KV heads)
    and the smoke SeamlessM4T in float32, served a memory made on the
    CPU from a seed: the engine on the card gives the CPU's greedy
    tokens;
+
+Dense and long-context serving, after the memory engines are freed:
+
+V. InternLM2-1.8B (24 layers, G 2), Granite-8B (12 of 36, G 4),
+   Command-R-35B (8 of 40 layers, G 8, the tied head), DeepSeek-MoE-16B
+   (10 of 28: MHA, a dense layer, 9 MoE layers of 64 experts top-6 with
+   shared experts) and Mistral-NeMo-12B (40, G 4) at full width, random
+   bf16 weights from a seed, through ``FlowServeEngine`` with 512-token
+   chunked prefill: 2 DP groups x 4 slots of 1024 and prompts of 16-900
+   random tokens x 16 greedy tokens (DeepSeek-MoE-16B: a skewed EPLB
+   pass and a second wave); Mistral-NeMo-12B on one DP group of 4 slots of 32768
+   (its decode attention planned at 16 splits and the ticket merge): a
+   32000-token prompt, then three of 16-200 tokens that decode beside
+   it, 32 tokens each, with the decode steps of all four profiled inside
+   the wave. Launch counts set to 0 just before and read just after:
+   decode attention exactly the attention layers x decode steps, and on
+   DeepSeek-MoE-16B route-pack (Collect inside) exactly the MoE layers
+   x forward passes, gmm and placement_gmm split by the placement; no
+   other kernel. TTFT and TPOT by prompt length, peak memory, a decode
+   profile, a decode step twice bit-identically, one under
+   ``no_host_sync``, decode against prefill within 0.08 (Mistral-NeMo
+   from an 8192-token prefill; DeepSeek-MoE-16B held with a capacity
+   that drops nothing on the same weights, the served capacity's error
+   logged); decode attention held and timed at each model's (G, L),
+   Mistral-NeMo's also on the served ragged positions, and on
+   DeepSeek-MoE-16B route-pack, Collect, gmm and placement_gmm on its
+   layer-0 experts at the path's token counts; then each smoke model
+   with its full width's G, card against CPU in float32. ``python3
+   chip_smoke.py --only V`` builds the kernels and runs this stage
+   alone;
 Q. training (``repro_torch.train``, ``Model.forward_train``,
    ``MTPTrainer``), no hand kernel launched in any of it (the MoE layers
    take the plain route-pack and grouped FFN by mode), each step's line
@@ -768,17 +798,26 @@ def path_token_counts(prompts, max_batch: int, max_len: int = 256,
     batch, each prefill chunk (``chunk`` tokens, 0 for whole prompts)
     padded as ``TorchBackend.prefill_chunk`` pads it, and the unpadded
     first prompt of the finite-logits check."""
-    from repro_torch.serving.backend import _bucket_len
     from repro_torch.serving.tokenizer import ByteTokenizer
 
     enc = ByteTokenizer().encode
-    counts = {max_batch, len(enc(prompts[0]))}
-    for p in prompts:
-        n = len(enc(p))
+    return sorted({max_batch, len(enc(prompts[0]))}
+                  | chunk_token_counts([len(enc(p)) for p in prompts],
+                                       max_len, chunk))
+
+
+def chunk_token_counts(lens, max_len: int, chunk: int = 0) -> set:
+    """Token counts of the prefill chunks of prompts of ``lens`` tokens
+    (``chunk`` tokens, 0 for whole prompts), each padded as
+    ``TorchBackend.prefill_chunk`` pads it."""
+    from repro_torch.serving.backend import _bucket_len
+
+    counts = set()
+    for n in lens:
         Lc, c = min(_bucket_len(n), max_len), chunk or n
         counts |= {min(_bucket_len(min(c, n - o)), Lc - o)
                    for o in range(0, n, c)}
-    return sorted(counts)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1289,19 +1328,23 @@ def attention_row(what: str, res: dict, p: dict, fn) -> None:
         f"{res['events_ms_first_call']:.4f} with a first call's host work")
 
 
-def check_decode_attention(cfg, max_batch: int, max_len: int) -> dict:
+def check_decode_attention(cfg, max_batch: int, max_len: int,
+                           sweep: bool = True, ragged=None) -> dict:
     """Decode attention at the path's shape and around it, in bf16 and
     float32, against the plain version (:func:`held_attention`), with
     the slots past each row's position NaN-filled where the row does not
     attend to them (a stale cache tail the kernel must never read), and
     a repeat of every call bit-identical; then timed (CUDA events and
-    device time) at the path's shape and at L 8192, 32768 and 131072
-    (every row at the last slot, so the whole cache is read), and on a
-    ragged batch at L 32768 (positions L-1, L/2, 100, 0), each beside
-    its bound from the slots the data needs, the plain version and
-    ``scaled_dot_product_attention``. One call must be one launch, no
-    slower than SDPA's (events, called in turn) at L <= 32768 with every
-    row full, and at L 32768 within 2x its bound on the device."""
+    device time) at the path's shape, and with ``sweep`` at L 8192,
+    32768 and 131072 (every row at the last slot, so the whole cache is
+    read) and on a ragged batch at L 32768 (positions L-1, L/2, 100, 0),
+    each beside its bound from the slots the data needs, the plain
+    version and ``scaled_dot_product_attention``. One call must be one
+    launch; with ``sweep``, no slower than SDPA's (events, called in
+    turn) at L <= 32768 with every row full, and at L 32768 within 2x
+    its bound on the device (without it the times are recorded as
+    found). ``ragged``: positions [B] of one more timed batch at the
+    path's L (``out["ragged"]``), a served decode step's."""
     from repro_torch.kernels.decode_attention.kernel import (
         _n_sms, decode_attention_cuda, plan)
     from repro_torch.kernels.decode_attention.ref import (
@@ -1419,20 +1462,23 @@ def check_decode_attention(cfg, max_batch: int, max_len: int) -> dict:
             f"{err:.3g}, scaled {scaled:.3g}")
         return res
     out = timed(L, last)
-    for n in (8192, 32768, 131072):
-        out[f"long_context_L{n}"] = timed(n, [n - 1] * B)
-        gc.collect()
-        torch.cuda.empty_cache()
-    out["ragged_L32768"] = timed(32768, [32767, 16384, 100, 0])
-    for n, t in ((L, out), (8192, out["long_context_L8192"]),
-                 (32768, out["long_context_L32768"])):
-        check(t["ms"] <= t["library_ms"],
-              f"decode_attention L={n}: {t['ms']} ms no slower than "
-              f"scaled_dot_product_attention's {t['library_ms']} ms")
-    t = out["long_context_L32768"]
-    check(t["device_ms"] <= 2 * t["bound_ms"],
-          f"decode_attention L=32768: device {t['device_ms']} ms within 2x "
-          f"its bound {t['bound_ms']} ms")
+    if ragged is not None:
+        out["ragged"] = timed(L, list(ragged))
+    if sweep:
+        for n in (8192, 32768, 131072):
+            out[f"long_context_L{n}"] = timed(n, [n - 1] * B)
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["ragged_L32768"] = timed(32768, [32767, 16384, 100, 0])
+        for n, t in ((L, out), (8192, out["long_context_L8192"]),
+                     (32768, out["long_context_L32768"])):
+            check(t["ms"] <= t["library_ms"],
+                  f"decode_attention L={n}: {t['ms']} ms no slower than "
+                  f"scaled_dot_product_attention's {t['library_ms']} ms")
+        t = out["long_context_L32768"]
+        check(t["device_ms"] <= 2 * t["bound_ms"],
+              f"decode_attention L=32768: device {t['device_ms']} ms within "
+              f"2x its bound {t['bound_ms']} ms")
     timed_runs = [out] + [t for k, t in out.items()
                           if k.startswith(("long_context", "ragged"))]
     bf16 = [e for (_, dt), e in errs.items() if dt == "torch.bfloat16"]
@@ -1474,14 +1520,14 @@ def moe_layers(cfg) -> list:
     return [i for i, (_, f) in enumerate(cfg.layer_kinds()) if f == MOE]
 
 
-def skewed_counts(cfg, gen_seed: int = 7):
-    """Routed-token counts [n_layers, E] with two hot experts in every
-    MoE layer."""
+def skewed_counts(cfg, gen_seed: int = 7, n_hot: int = 2):
+    """Routed-token counts [n_layers, E] with ``n_hot`` (1 or 2) hot
+    experts in every MoE layer."""
     import numpy as np
     rng = np.random.default_rng(gen_seed)
     E = cfg.moe.num_experts
     counts = rng.integers(0, 4, size=(cfg.num_layers, E))
-    hot = np.ix_(moe_layers(cfg), [3 % E, 77 % E])
+    hot = np.ix_(moe_layers(cfg), [3 % E, 77 % E][:n_hot])
     counts[hot] += 400
     return counts
 
@@ -1558,13 +1604,23 @@ def replay_packs(rec: PackRecorder, cfg) -> tuple:
     return err, c_err
 
 
-def make_engine(cfg, **kw):
-    """The port's engine with random weights made on the card."""
+def make_engine(cfg, n_dp: int = 2, **kw):
+    """The port's engine with random weights made on the card. A DP
+    group whose slots' caches hold more tokens than its default KV block
+    pool (512 blocks of 16) gets a pool of their size: a prompt's blocks
+    are taken chunk by chunk, so a 32000-token prompt needs them."""
     from repro_torch.models.weights import flatten
     from repro_torch.serving.flowserve import FlowServeEngine
+    from repro_torch.serving.kv_cache import BlockAllocator
 
     t0 = time.monotonic()
-    engine = FlowServeEngine(cfg, device="cuda", n_dp_groups=2, seed=0, **kw)
+    engine = FlowServeEngine(cfg, device="cuda", n_dp_groups=n_dp, seed=0,
+                             **kw)
+    for d in engine.dps:
+        a = d.allocator
+        if d.max_batch * d.max_len > a.n_blocks * a.block_size:
+            d.allocator = BlockAllocator(d.max_batch * d.max_len
+                                         // a.block_size, a.block_size)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in flatten(engine.params).values())
     log(f"path: {cfg.name} depth {cfg.num_layers}, {n_params / 1e9:.2f} B "
@@ -1652,19 +1708,22 @@ def run_path(engine, prompts, prompts_eplb, kernels,
     return res
 
 
-def check_decode_repeat(engine, placed: bool = True) -> None:
+def check_decode_repeat(engine, placed: bool = True,
+                        reuse: bool = False) -> None:
     """One full-batch decode step of a DP group (every slot prefilled
     with its own prompt, the EPLB placement installed where ``placed``),
     run twice from copies of the same cache with the same inputs: the
     logits must be bit-identical, so the MoE combine sums in a fixed
-    order."""
+    order. ``reuse``: the slots are written into the idle group's own
+    cache, not a new one (a 32768-slot cache is 20 GiB)."""
     from repro_torch.models.common import tree_map
 
     dp = engine.dps[0]
     be, B = dp.backend, dp.max_batch
     check((be._placement is not None) == placed,
           f"an EPLB placement is installed: {placed}")
-    cache = be.init_cache(B, dp.max_len)
+    check(not reuse or all(s.free for s in dp.slots), "an idle DP group")
+    cache = dp.cache if reuse else be.init_cache(B, dp.max_len)
     lens = []
     for i in range(B):
         toks = engine.tokenizer.encode(f"repeat {i}: " + PROMPTS[i % 4])
@@ -4088,11 +4147,133 @@ def check_ring_attention() -> dict:
     return out
 
 
-def random_prompts(cfg, lens) -> list:
+def random_prompts(cfg, lens, seed: int = 2402) -> list:
     """Token ids of prompts of ``lens`` tokens, random from a seed."""
     import numpy as np
-    rng = np.random.default_rng(2402)
+    rng = np.random.default_rng(seed)
     return [rng.integers(3, cfg.vocab_size, n).tolist() for n in lens]
+
+
+class ModelCalls:
+    """Counts an engine's forward passes: its model instance's
+    ``prefill``, ``prefill_chunk`` and ``decode_step`` (``decode_placed``:
+    the decode steps under an EPLB placement), standing in for the
+    methods on the instance that every DP group's backend calls."""
+
+    NAMES = ("prefill", "prefill_chunk", "decode_step")
+
+    def __init__(self, model):
+        self.model = model
+        self.calls = dict(prefill=0, prefill_chunk=0, decode=0,
+                          decode_placed=0)
+        for name in self.NAMES:
+            real = getattr(model, name)
+
+            def spy(*a, _real=real, _name=name, **kw):
+                key = _name
+                if _name == "decode_step":
+                    key = ("decode" if kw.get("placement") is None
+                           else "decode_placed")
+                self.calls[key] += 1
+                return _real(*a, **kw)
+            setattr(model, name, spy)
+
+    def undo(self) -> None:
+        for name in self.NAMES:
+            delattr(self.model, name)
+
+    def want(self, n_attn: int, n_moe: int) -> tuple:
+        """(launches, fused launches) the passes counted so far make: a
+        decode attention per attention layer and decode step; per MoE
+        layer and pass one route-pack (EPLB Collect inside it), and one
+        gmm, or placement_gmm in a decode step under a placement (the
+        placement reaches decode only)."""
+        c = self.calls
+        dec = c["decode"] + c["decode_placed"]
+        fwd = c["prefill"] + c["prefill_chunk"] + dec
+        want = dict(decode_attention=n_attn * dec, route_pack=n_moe * fwd,
+                    gmm=n_moe * (fwd - c["decode_placed"]),
+                    placement_gmm=n_moe * c["decode_placed"])
+        return ({n: v for n, v in want.items() if v},
+                {"collect": want["route_pack"]} if n_moe and fwd else {})
+
+
+def serve_tokens(engine, prompts, n_new: int, lead: int = 0) -> tuple:
+    """Serve token-id ``prompts``, ``n_new`` greedy tokens each. With
+    ``lead`` the first ``lead`` prompts are submitted alone and the rest
+    (their requests made then, so that their TTFT starts there) once
+    those decode, so that the rest's decode steps batch with theirs;
+    :func:`path_window` then runs once every slot of the first DP group
+    decodes. → (requests, the window's result or None)."""
+    from repro_torch.serving.request import Request, RequestState
+
+    def make(i, toks):
+        return Request(prompt=f"prompt {i}", prompt_tokens=toks,
+                       max_new_tokens=n_new, ignore_eos=True)
+    reqs = [make(i, t) for i, t in enumerate(prompts[:lead or None])]
+    for r in reqs:
+        engine.submit(r)
+    if lead:
+        for _ in range(10_000):
+            if all(r.state == RequestState.DECODING for r in reqs):
+                break
+            engine.step()
+        check(all(r.state == RequestState.DECODING for r in reqs),
+              "the leading requests decode")
+        rest = [make(lead + i, t) for i, t in enumerate(prompts[lead:])]
+        for r in rest:
+            engine.submit(r)
+        reqs += rest
+    got = None
+    if lead:
+        dp = engine.dps[0]
+        for _ in range(10_000):
+            if dp.active == dp.max_batch:
+                break
+            engine.step()
+        check(dp.active == dp.max_batch, "every slot decoding for the "
+                                         "window")
+        got = path_window(engine)
+    engine.run_until_done()
+    torch.cuda.synchronize()
+    return reqs, got
+
+
+def path_window(engine, steps: int = 4) -> dict:
+    """Device time by kernel of ``steps`` engine steps of a served wave,
+    every slot of the first DP group decoding, under a profiler that
+    records only device activity (so the wave's TPOT barely moves):
+    busy ms, decode attention's ms a step and a call, its launches, and
+    the slots' positions."""
+    from repro_torch.kernels import runtime
+
+    dp = engine.dps[0]
+    positions = [s.position for s in dp.slots]
+    before = runtime.LAUNCHES.get("decode_attention", 0)
+    torch.cuda.synchronize()
+    with device_window() as w:
+        t0 = time.monotonic()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        step_ms = (time.monotonic() - t0) / steps * 1e3
+    n = runtime.LAUNCHES.get("decode_attention", 0) - before
+    attn = [e for e in w.events if "decode_attention" in e.key]
+    attn_ms = sum(e.self_device_time_total for e in attn) / 1e3
+    busy = sum(e.self_device_time_total for e in w.events) / 1e3 / steps
+    res = dict(positions=positions, engine_step_ms=step_ms,
+               device_busy_ms=busy,
+               decode_attention_ms_per_step=attn_ms / steps,
+               decode_attention_ms_per_call=attn_ms / n if n else None,
+               decode_attention_launches=n,
+               decode_attention_events=sum(e.count for e in attn))
+    log(f"path window: {engine.cfg.name} {steps} engine steps at positions "
+        f"{positions}: step {step_ms:.2f} ms (host clock), device busy "
+        f"{busy:.3f} ms a step; decode attention "
+        f"{res['decode_attention_ms_per_step']:.4f} ms a step, "
+        f"{res['decode_attention_ms_per_call']} ms a call over {n} "
+        f"launches ({res['decode_attention_events']} profiler events)")
+    return res
 
 
 class DecodeCounter:
@@ -4115,20 +4296,24 @@ class DecodeCounter:
             del d.backend.decode_sample
 
 
-def decode_consistency(engine, P: int, steps: int, at: tuple) -> dict:
+def decode_consistency(engine, P: int, steps: int, at: tuple,
+                       be=None, hold: bool = True) -> dict:
     """Decode against prefill at full width: a prompt of ``P`` random
     tokens prefilled unpadded into one slot, then ``steps`` decode steps
     fed the next tokens; after step ``j`` in ``at`` the logits are held
     to the backend's (padded) prefill of the first ``P + j`` tokens at
     its last position, within the 0.08 relative bar of
     ``tests/test_decode_consistency.py``. A model with cross-attention
-    reads the backend's memory in both prefills."""
+    reads the backend's memory in both prefills. ``be``: the backend
+    (default: the engine's first DP group's); without ``hold`` the
+    errors are logged, not held."""
     import numpy as np
 
-    be = engine.dps[0].backend
+    be = engine.dps[0].backend if be is None else be
     dev = be.device
+    name = be.model.cfg.name
     toks = np.random.default_rng(P).integers(
-        3, engine.cfg.vocab_size, P + steps).tolist()
+        3, be.model.cfg.vocab_size, P + steps).tolist()
     errs = {}
     with torch.no_grad():
         _, cache1 = be.model.prefill(
@@ -4147,20 +4332,24 @@ def decode_consistency(engine, P: int, steps: int, at: tuple) -> dict:
                 ref = torch.as_tensor(ref)
                 errs[P + j] = float((logits[0].float().cpu() - ref).abs().max()
                                     / ref.abs().max().clamp(min=1e-30))
-    check(all(e < 0.08 for e in errs.values()),
-          f"{engine.cfg.name}: decode logits within 0.08 of prefill's at "
-          f"positions {errs}")
-    log(f"decode vs prefill: {engine.cfg.name} from an unpadded {P}-token "
-        f"prefill, relative logit error by position {errs} (bar 0.08)")
+    check(not hold or all(e < 0.08 for e in errs.values()),
+          f"{name}: decode logits within 0.08 of prefill's at positions "
+          f"{errs}")
+    log(f"decode vs prefill: {name} (capacity factor "
+        f"{be.model.cfg.moe.capacity_factor}) from an unpadded {P}-token "
+        f"prefill, relative logit error by position {errs} "
+        f"({'bar 0.08' if hold else 'not held'})")
     return errs
 
 
 def sync_free_decode(engine) -> None:
     """One full-batch decode step of a DP group from tensors already on
-    the card, under :func:`no_host_sync`."""
+    the card (the idle group's own cache), under :func:`no_host_sync`,
+    the EPLB placement installed where there is one."""
     dp = engine.dps[0]
     be, B = dp.backend, dp.max_batch
-    cache = be.init_cache(B, be.max_len)
+    check(all(s.free for s in dp.slots), "an idle DP group")
+    cache = dp.cache
     tokens = torch.arange(5, 5 + B, dtype=torch.int32,
                           device=be.device)[:, None]
     positions = torch.tensor([min(p, be.max_len - 1)
@@ -4169,7 +4358,8 @@ def sync_free_decode(engine) -> None:
                              dtype=torch.int32, device=be.device)
     torch.cuda.synchronize()
     with torch.no_grad(), no_host_sync():
-        logits, _ = be.model.decode_step(be.params, cache, tokens, positions)
+        logits, _ = be.model.decode_step(be.params, cache, tokens, positions,
+                                         placement=be._placement)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(logits).all()), "finite sync-free logits")
     log(f"no host sync: {engine.cfg.name} decode step (B {B}) under "
@@ -4177,76 +4367,126 @@ def sync_free_decode(engine) -> None:
 
 
 def served_path(cfg, lens, n_new: int, max_len: int, consistency: tuple,
-                memory=None) -> dict:
-    """Stages I, J, M and N: ``cfg`` at full width served through the
-    port's ``FlowServeEngine`` (2 DP groups x 4 slots, greedy; a model
-    with cross-attention reads ``memory``): prompts of ``lens`` random
-    tokens, ``n_new`` tokens each, every prefill buffered; launch counts
-    set to 0 just before and read just after: decode attention exactly
-    (its global, local and cross-attention layers x each DP group's
-    decode steps) and no other kernel. Then TTFT, TPOT, peak memory, a
-    decode profile, a decode step repeated bit-identically, a step with
-    no host sync and decode against prefill (``consistency``: prompt
-    length, steps, checkpoints)."""
+                memory=None, *, chunk=None, n_dp: int = 2, lead: int = 0,
+                before_close=None) -> dict:
+    """Stages I, J, M, N and V: ``cfg`` at full width served through the
+    port's ``FlowServeEngine`` (``n_dp`` DP groups x 4 slots, greedy; a
+    model with cross-attention reads ``memory``): prompts of ``lens``
+    random tokens, ``n_new`` tokens each (:func:`serve_tokens`; with
+    ``lead``, :func:`path_window` inside the wave once the rest decode
+    beside the leading prompts), every prefill buffered, or with
+    ``chunk`` prefilled in ``chunk``-token chunks; a model with MoE
+    layers then takes a skewed EPLB pass and a second wave of other
+    prompts of the same lengths. Launch counts set to 0 just before and
+    read just after: exactly those the model's forward passes make
+    (:meth:`ModelCalls.want`: decode attention for its global, local
+    and cross-attention layers x decode steps; route-pack with Collect
+    inside, gmm and placement_gmm for its MoE layers) and no other
+    kernel. Then TTFT, TPOT, peak memory, a decode profile, a decode
+    step repeated bit-identically, a step with no host sync and decode
+    against prefill (``consistency``: prompt length, steps, checkpoints;
+    with MoE layers held on the same weights with a capacity that drops
+    nothing, as the reference's smoke MoE configs are sized, the served
+    capacity's error logged beside it: a prefill's capacity drops are
+    not a decode step's).
+    ``before_close(engine, res)``'s result goes under ``"stage"``."""
     from repro_torch.configs.base import ATTN, CROSS_ATTN, LOCAL_ATTN
     from repro_torch.kernels import runtime
-    from repro_torch.serving.request import Request
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.backend import TorchBackend
 
-    engine = make_engine(cfg, max_batch=4, max_len=max_len, memory=memory)
-    check(not any(d.backend.supports_chunked_prefill for d in engine.dps),
-          f"{cfg.name}: the buffering prefill")
+    engine = make_engine(cfg, n_dp=n_dp, max_batch=4, max_len=max_len,
+                         memory=memory, chunk_tokens=chunk)
+    chunked = chunk is not None
+    check(all(d.backend.supports_chunked_prefill == chunked
+              for d in engine.dps),
+          f"{cfg.name}: the {'chunked' if chunked else 'buffering'} prefill")
     n_attn = sum(m in (ATTN, LOCAL_ATTN, CROSS_ATTN)
                  for m, _ in cfg.layer_kinds())
+    n_moe = len(moe_layers(cfg))
+    eplb = n_moe > 0
     torch.cuda.reset_peak_memory_stats()
     counter = DecodeCounter(engine)
-    reqs = [Request(prompt=f"prompt {i}", prompt_tokens=toks,
-                    max_new_tokens=n_new, ignore_eos=True)
-            for i, toks in enumerate(random_prompts(cfg, lens))]
+    calls = ModelCalls(engine.model)
+    waves = [random_prompts(cfg, lens, 2402 + i) for i in range(1 + eplb)]
     torch.cuda.synchronize()
     runtime.reset_launch_counts()
     t0 = time.monotonic()
-    for r in reqs:
-        engine.submit(r)
-    engine.run_until_done()
-    torch.cuda.synchronize()
+    reqs, in_wave = [], None
+    for i, prompts in enumerate(waves):
+        if i:      # one hot expert: EPLB's one redundant slot of 64
+            # experts lowers the peak only where a single expert is hot
+            engine.record_expert_counts(skewed_counts(cfg, n_hot=1))
+            maps = engine.run_eplb()
+            check(all(any(len(s) > 1 for s in maps[j].replicas.values())
+                      for j in moe_layers(cfg)),
+                  "EPLB installed redundant replicas in every MoE layer")
+        got, w = serve_tokens(engine, prompts, n_new, lead)
+        reqs.append(got)
+        in_wave = in_wave or w
     wall = time.monotonic() - t0
     launches, fused = dict(runtime.LAUNCHES), dict(runtime.FUSED)
     steps = dict(counter.calls)
     counter.undo(engine)
-    for r in reqs:
+    calls.undo()
+    passes = dict(calls.calls)
+    for r in (r for w in reqs for r in w):
         check(r.state.value == "finished"
               and len(r.output_tokens) == n_new
               and all(0 <= t < cfg.vocab_size for t in r.output_tokens),
               f"{cfg.name}: request {r.req_id} finished with {n_new} "
               f"tokens")
-    want = {"decode_attention": n_attn * sum(steps.values())} \
-        if n_attn else {}
-    check({n: c for n, c in launches.items() if c} == want and not fused,
-          f"{cfg.name}: launches {launches} (fused {fused}) equal "
-          f"{want}: {n_attn} attention layers x decode steps {steps} and "
-          f"no other kernel")
+    check(passes["decode"] + passes["decode_placed"] == sum(steps.values())
+          and (passes["prefill_chunk"] > 0) == chunked
+          and (passes["prefill"] == 0 or not chunked)
+          and (passes["decode_placed"] > 0) == eplb,
+          f"{cfg.name}: forward passes {passes} (decode steps {steps})")
+    want, want_fused = calls.want(n_attn, n_moe)
+    check({n: c for n, c in launches.items() if c} == want
+          and {n: c for n, c in fused.items() if c} == want_fused,
+          f"{cfg.name}: launches {launches} (fused {fused}) equal {want} "
+          f"(fused {want_fused}): {n_attn} attention and {n_moe} MoE "
+          f"layers x forward passes {passes}, and no other kernel")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    by_len = {len(r.prompt_tokens): dict(ttft_ms=1e3 * r.ttft,
-                                         tpot_ms=1e3 * r.tpot) for r in reqs}
-    log(f"path: {cfg.name} {len(reqs)} requests x {n_new} tokens in "
-        f"{wall:.2f} s; decode steps by DP group {steps}; launches "
-        f"{launches}; peak memory {peak:.2f} GiB; TTFT / TPOT ms by prompt "
-        f"length " + ", ".join(f"{n}: {v['ttft_ms']:.1f} / "
-                               f"{v['tpot_ms']:.2f}"
-                               for n, v in by_len.items()))
+    by_len = {(f"w{i}/" if eplb else "") + str(len(r.prompt_tokens)):
+              dict(ttft_ms=1e3 * r.ttft, tpot_ms=1e3 * r.tpot)
+              for i, w in enumerate(reqs) for r in w}
+    log(f"path: {cfg.name} {sum(map(len, reqs))} requests x {n_new} tokens "
+        f"in {wall:.2f} s; decode steps by DP group {steps}; forward "
+        f"passes {passes}; launches {launches} (fused {fused}); peak "
+        f"memory {peak:.2f} GiB; TTFT / TPOT ms by prompt length "
+        + ", ".join(f"{n}: {v['ttft_ms']:.1f} / {v['tpot_ms']:.2f}"
+                    for n, v in by_len.items()))
     profile = profile_decode(engine)
-    check_decode_repeat(engine, placed=False)
+    check_decode_repeat(engine, placed=eplb, reuse=True)
     sync_free_decode(engine)
-    errs = decode_consistency(engine, *consistency)
+    errs, served_errs = decode_consistency(engine, *consistency,
+                                           hold=not eplb), None
+    if eplb:
+        served_errs = errs
+        moe = cfg.moe
+        free_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            moe, capacity_factor=moe.num_experts / moe.top_k + 1))
+        be = TorchBackend(Model(free_cfg), engine.params, max_len=max_len,
+                          device=engine.device)
+        errs = decode_consistency(engine, *consistency, be=be)
+        del be
     res = dict(launches=launches, fused=fused, decode_steps=steps,
-               attention_layers=n_attn, serve_s=wall,
+               forward_passes=passes, attention_layers=n_attn,
+               moe_layers=n_moe, serve_s=wall,
                ttft_ms_mean=statistics.mean(v["ttft_ms"]
                                             for v in by_len.values()),
                tpot_ms_mean=statistics.mean(v["tpot_ms"]
                                             for v in by_len.values()),
                by_prompt_len=by_len, peak_mem_gib=peak,
                decode_profile=profile, decode_vs_prefill_err=errs,
-               text=engine.tokenizer.decode(reqs[0].output_tokens))
+               text=engine.tokenizer.decode(reqs[0][0].output_tokens))
+    if served_errs is not None:
+        res["decode_vs_prefill_err_served_capacity"] = served_errs
+    if in_wave is not None:
+        res["path_window"] = in_wave
+    if before_close is not None:
+        res["stage"] = before_close(engine, res)
     engine.close()
     return res
 
@@ -4464,6 +4704,102 @@ def memory_stages(get_config) -> dict:
     check_small_reference(SEAMLESS)
     log(f"memory small references: {time.monotonic() - t0:.1f} s")
     return {VLM: (kern, paths[VLM]), SEAMLESS: ({}, paths[SEAMLESS])}
+
+
+# ---------------------------------------------------------------------------
+# stage V: dense and long-context serving
+# ---------------------------------------------------------------------------
+INTERNLM, GRANITE, COMMAND_R = ("internlm2-1.8b", "granite-8b",
+                                "command-r-35b")
+DS_MOE, NEMO = "deepseek-moe-16b", "mistral-nemo-12b"
+#: (arch, depth (None: all its layers), the overrides of its smoke config
+#: that :func:`check_small_reference` serves: the full width's query
+#: heads per KV head, as ``tests/torch_parity.py`` holds them)
+V_MODELS = ((INTERNLM, None, {}),
+            # Granite 12 of 36 layers and DeepSeek-MoE-16B 10 of 28 (a
+            # dense layer, 9 MoE layers): at full depth the script took
+            # 1058.5 s of its 1200 s on a slow host
+            (GRANITE, 12, dict(num_heads=8, num_kv_heads=2)),
+            # 8 of 40 layers: the tied 256000 x 8192 table is 2.1 B of
+            # the 7.7 B parameters left
+            (COMMAND_R, 8, dict(num_heads=16, num_kv_heads=2, head_dim=32)),
+            (DS_MOE, 10, {}),
+            (NEMO, None, dict(num_heads=8, num_kv_heads=2)))
+#: prompt lengths of the 1024-slot paths (2 DP groups x 4 slots: one
+#: wave), the last two prefilled in two 512-token chunks
+V_LENS = (16, 33, 57, 100, 130, 200, 600, 900)
+V_NEW, V_MAX_LEN, V_CHUNK = 16, 1024, 512
+#: Mistral-NeMo on one DP group of 4 slots of 32768: one 32000-token
+#: prompt first, then three short ones that decode beside it
+NEMO_LENS = (32000, 16, 120, 200)
+NEMO_NEW, NEMO_MAX_LEN = 32, 32768
+
+
+def v_path(arch: str, cfg) -> tuple:
+    """One stage V model: served (:func:`served_path`, chunked prefill)
+    with its kernels held at the path's shapes before the engine closes
+    (decode attention at its (G, L); on DeepSeek-MoE-16B route-pack,
+    Collect, gmm and placement_gmm on the engine's layer-0 experts and
+    the path's token counts). → (kernel results, path)."""
+    from repro_torch.configs.base import MOE
+    from repro_torch.kernels.decode_attention.kernel import _n_sms, plan
+
+    nemo = arch == NEMO
+    B, max_len = 4, NEMO_MAX_LEN if nemo else V_MAX_LEN
+    lens = NEMO_LENS if nemo else V_LENS
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    p = plan(B, H, KV, hd, max_len, _n_sms(torch.device("cuda")))
+    log(f"stage V: {cfg.name} decode attention G {H // KV} hd {hd} over "
+        f"{max_len} slots at B {B}: plan {plan_text(p)}")
+    if nemo:
+        check(p["n_split"] >= 16 and p["cluster"] == 1,
+              f"{cfg.name}: a {max_len}-slot cache takes the ticket merge "
+              f"of 16+ splits: {p}")
+
+    def kernels(engine, res):
+        t0 = time.monotonic()
+        kern = {"decode_attention": check_decode_attention(
+            cfg, B, max_len, sweep=False,
+            ragged=res["path_window"]["positions"] if nemo else None)}
+        if cfg.moe.enabled:
+            counts = sorted({B} | chunk_token_counts(lens, max_len, V_CHUNK))
+            pos = [f for _, f in cfg.layer_pattern].index(MOE)
+            ffn = engine.params["blocks"][f"pos{pos}"]["ffn"]
+            kern.update(check_moe_kernels(
+                cfg, counts, B,
+                [ffn[n][0] for n in ("we_gate", "we_up", "we_down")]))
+        log(f"{cfg.name} kernel checks: {time.monotonic() - t0:.1f} s")
+        return kern
+    path = served_path(
+        cfg, lens, NEMO_NEW if nemo else V_NEW, max_len,
+        (8192, 4, (1, 4)) if nemo else (200, 8, (1, 8)), chunk=V_CHUNK,
+        n_dp=1 if nemo else 2, lead=int(nemo), before_close=kernels)
+    path["decode_attention_plan"] = p
+    return path.pop("stage"), path
+
+
+def v_stage(get_config) -> dict:
+    """Stage V: InternLM2-1.8B, Granite-8B (12 of 36 layers),
+    Command-R-35B (8 of 40 layers, its tied head), DeepSeek-MoE-16B (10
+    of 28) and Mistral-NeMo-12B (one 32000-token prompt on a 32768-slot
+    cache) at full width through ``FlowServeEngine`` with 512-token
+    chunks (:func:`v_path`), each then as a smoke model card against
+    CPU (:func:`check_small_reference` with the overrides of
+    ``V_MODELS``)."""
+    t_v = time.monotonic()
+    out = {}
+    for arch, depth, small in V_MODELS:
+        t0 = time.monotonic()
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        out[arch] = v_path(arch, cfg)
+        free(f"{arch} path: {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        check_small_reference(arch, **small)
+        log(f"{arch} small reference: {time.monotonic() - t0:.1f} s")
+    log(f"stage V: {time.monotonic() - t_v:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -7006,6 +7342,13 @@ def kernel_line(results: dict) -> dict:
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=("V",),
+                    help="build the kernels and run this stage alone (no "
+                         "kernels or ok line)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -7031,9 +7374,17 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}.cu: {line.strip()}")
     no_spills("decode_attention")
+    if args.only:
+        for p, (_, path) in v_stage(get_config).items():
+            log(json.dumps({"path": p, **{k: v for k, v in path.items()
+                                          if k != "text"}}))
+        log(f"chip_smoke --only {args.only}: "
+            f"{time.monotonic() - t_main:.1f} s")
+        return 0
 
     results = {**deepseek_stages(get_config), **llama_stages(get_config),
-               **hybrid_stages(get_config), **memory_stages(get_config)}
+               **hybrid_stages(get_config), **memory_stages(get_config),
+               **v_stage(get_config)}
     t0 = time.monotonic()
     results.update(r2_stage(get_config))
     free(f"R1, S1, R2: {time.monotonic() - t0:.1f} s")

@@ -40,6 +40,12 @@ CASES = {
     "pos0": (2, 8, 2, 64, 128, 0, (0, 0)),
     # a ring window several wraps past its length, ragged L
     "ring-wrapped": (3, 10, 2, 32, 200, 64, (700, 63, 130)),
+    # the served groupings at hd 128 (named to sort after the cases
+    # above, whose seeds are their sorted index): G = 1 (DeepSeek-MoE's
+    # MHA), G = 2 (InternLM2) with ragged positions, G = 8 (Command-R)
+    "served-g1-hd128": (2, 4, 4, 128, 256, 0, None),
+    "served-g2-hd128": (3, 4, 2, 128, 300, 0, (299, 0, 131)),
+    "served-g8-hd128": (2, 16, 2, 128, 512, 0, None),
 }
 
 

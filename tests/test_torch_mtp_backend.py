@@ -20,7 +20,7 @@ from repro_torch.models.common import tree_map
 from repro_torch.models.transformer import Model
 from repro_torch.serving.backend import TorchBackend
 from repro_torch.serving.mtp import MTPDecoder
-from torch_parity import reference, rel_err, to_np
+from torch_parity import one_thread, reference, rel_err, to_np  # noqa: F401
 
 MAX_LEN, ITERS = 64, 4
 PROMPTS = [[5, 9, 14, 3, 7], [11, 2, 8], [4, 4, 19, 23, 6, 30, 2]]

@@ -14,14 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro.serving.flowserve import FlowServeEngine as JaxEngine
 from repro.serving.request import Request as JaxRequest
 from repro_torch.configs.base import MOE
 from repro_torch.serving import dp_group as tdp
 from repro_torch.serving.flowserve import FlowServeEngine
 from repro_torch.serving.request import Request
 from test_torch_mtp_backend import torch_oracle
-from torch_parity import auto_ctx, reference, to_np
+from torch_parity import jax_engine, one_thread, reference, to_np  # noqa: F401
 
 PROMPTS = ["hello world", "the quick brown fox jumps", "a"]
 
@@ -72,9 +71,8 @@ class Spy:
 
 
 def test_greedy_tokens_equal_plain_and_reference_before_and_after_eplb(ref):
-    jcfg, _, jparams, tcfg, tparams = ref
-    jeng = JaxEngine(jcfg, jparams, ctx=auto_ctx(), n_dp_groups=2,
-                     max_batch=2, mtp_k=2)
+    jcfg, jmodel, jparams, tcfg, tparams = ref
+    jeng = jax_engine(jmodel, jparams, n_dp_groups=2, max_batch=2, mtp_k=2)
     want = _two_rounds(jeng, JaxRequest, jcfg)
     jeng.close()
     outs = {}

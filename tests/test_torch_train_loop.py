@@ -41,7 +41,7 @@ from repro_torch.train import AdamWConfig, DataConfig, TrainConfig, Trainer
 from repro_torch.train import checkpoint as torch_ckpt
 from repro_torch.train import init_adamw
 from repro_torch.train.train_loop import train_step
-from torch_parity import auto_ctx, reference, to_np
+from torch_parity import auto_ctx, one_thread, reference, to_np  # noqa: F401
 
 BAR = 1e-4
 ROOT = Path(__file__).resolve().parents[1]

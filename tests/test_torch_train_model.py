@@ -30,7 +30,7 @@ from repro_torch.models.common import chunked_softmax_xent
 from repro_torch.models.transformer import Model
 from repro_torch.models.weights import flatten, from_jax_params
 from repro_torch.train.train_loop import loss_and_grads
-from torch_parity import configs, memory, reference
+from torch_parity import configs, memory, one_thread, reference  # noqa: F401
 
 LOSS_BAR = 1e-5
 GRAD_BAR = 1e-4

@@ -12,6 +12,7 @@ import functools
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
@@ -47,7 +48,29 @@ CONFIGS = {
     "vision-mtp": ("llama-3.2-vision-11b-smoke", {"mtp_num_layers": 1}),
     # a 2-block encoder, then (ATTN, NONE), (CROSS_ATTN, MLP)
     "seamless": ("seamless-m4t-medium-smoke", {}),
+    # the dense GQA models at their full-width G: 4 query heads per KV
+    # head (Granite, Mistral-NeMo), 8 and the tied head (Command-R)
+    "granite": ("granite-8b-smoke", {"num_heads": 8, "num_kv_heads": 2}),
+    "mistral-nemo": ("mistral-nemo-12b-smoke",
+                     {"num_heads": 8, "num_kv_heads": 2}),
+    "command-r": ("command-r-35b-smoke",
+                  {"num_heads": 16, "num_kv_heads": 2, "head_dim": 32}),
+    # MHA, a dense prefix layer, then a top-2 MoE layer with a shared
+    # expert
+    "deepseek-moe": ("deepseek-moe-16b-smoke", {}),
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's small CPU ops in one thread for the importing test
+    module (autouse where imported): the suite runs several test
+    processes at once, and a pool of spinning threads in each then slows
+    every small op many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def auto_ctx(**kw) -> MeshCtx:
@@ -70,15 +93,35 @@ def configs(dtype: str = "float32", num_layers=None,
 
 @functools.lru_cache(maxsize=None)
 def reference(dtype: str = "float32", num_layers=None, seed: int = 0,
-              config: str = "deepseek-v3"):
+              config: str = "deepseek-v3", jit_init: bool = False):
     """(jax cfg, jax model, jax params, port cfg, port params on CPU),
-    the MTP head included where the configuration has one."""
+    the MTP head included where the configuration has one. ``jit_init``:
+    the reference's ``init`` under ``jax.jit``, one compiled program in
+    place of hundreds of eager ops (its draws agree with the eager ones
+    to the last bit or two)."""
     jcfg, tcfg = configs(dtype, num_layers, config)
     model = jax_build_model(jcfg, auto_ctx())
-    params = model.init(jax.random.PRNGKey(seed))
+    init = jax.jit(model.init) if jit_init else model.init
+    params = init(jax.random.PRNGKey(seed))
     tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, params),
                               tcfg, "cpu")
     return jcfg, model, params, tcfg, tparams
+
+
+def jax_engine(model, params, *, max_len: int = 256, mtp_k: int = 0,
+               **kw):
+    """The reference's ``FlowServeEngine`` on the Auto-axis mesh whose DP
+    groups share one ``JAXBackend``, so that its programs are traced and
+    compiled once, not once a group. A backend keeps no state of its
+    group but its sampling seed (greedy serving never draws) and the
+    placement, which EPLB installs in every group alike."""
+    from repro.serving.backend import JAXBackend
+    from repro.serving.flowserve import FlowServeEngine
+
+    be = JAXBackend(model, params, max_len=max_len, mtp_k=mtp_k)
+    return FlowServeEngine(model.cfg, params, ctx=auto_ctx(),
+                           max_len=max_len, mtp_k=mtp_k,
+                           backend_factory=lambda dp_id: be, **kw)
 
 
 def memory(cfg, batch: int = 1, length=None, seed: int = 0) -> np.ndarray:
