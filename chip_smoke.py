@@ -9,7 +9,9 @@ Stages (any failure raises and exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``src/repro_torch/kernels/csrc`` into
-   ``build/kernels`` (one ``nvcc`` per source, all in parallel);
+   ``build/kernels`` (one ``nvcc`` per source, all in parallel); print
+   each kernel's registers and spills, and hold decode attention's and
+   the grouped FFN's wgmma instantiations to 0 bytes spilled;
 
 DeepSeek-V3 (MLA + top-8 MoE):
 
@@ -41,7 +43,9 @@ DeepSeek-V3 (MLA + top-8 MoE):
    device time under the profiler), plain version and one PyTorch
    library call, gmm also on one live slot
    and at the largest T of each capacity, each beside its live-slot
-   count, its bound and its dense-walk bound;
+   count, its bound, its dense-walk bound, the library call's device
+   time and ``kernel.plan``'s variant, whose kernel the profiler must
+   name; and held and timed off the path at a 512-token chunk (C 20);
 4. serve full-width DeepSeek-V3 cut to 4 layers (3 dense + 1 MoE, and
    its MTP head; random bf16 weights made on the card from a seed)
    through the port's
@@ -339,7 +343,9 @@ V. InternLM2-1.8B (24 layers, G 2), Granite-8B (12 of 36, G 4),
    logged); decode attention held and timed at each model's (G, L),
    Mistral-NeMo's also on the served ragged positions, and on
    DeepSeek-MoE-16B route-pack, Collect, gmm and placement_gmm on its
-   layer-0 experts at the path's token counts; then each smoke model
+   layer-0 experts at the path's token counts (C 4-72: the prefill
+   chunks take gmm's wgmma variant), gmm also held and timed off the
+   path at C 12, 16 and 144; then each smoke model
    with its full width's G, card against CPU in float32. ``python3
    chip_smoke.py --only V`` builds the kernels and runs this stage
    alone;
@@ -831,14 +837,17 @@ def bmm_chain(xb, g, u, dn):
                      dn).float()
 
 
-def check_moe_kernels(cfg, counts, max_batch: int, weights=None) -> dict:
+def check_moe_kernels(cfg, counts, max_batch: int, weights=None,
+                      off_path=()) -> dict:
     """Route-pack, Collect, gmm and placement_gmm at a path's shapes.
 
     ``counts``: the token counts T of the path's packs; ``weights``: the
     expert weights (we_gate, we_up, we_down), or None to make random
-    ones. Route-pack is held exactly at every T, over the E logical
-    experts and over the E + 2 physical slots of an EPLB table that
-    replicates two experts, and Collect at every N = T·k; gmm and
+    ones; ``off_path``: token counts T whose packs gmm is also held and
+    timed on (capacities the path does not reach). Route-pack is held
+    exactly at every T, over the E logical experts and over the E + 2
+    physical slots of an EPLB table that replicates two experts, and
+    Collect at every N = T·k; gmm and
     placement_gmm as :func:`check_gmm` says, on the path's packs. Times
     are taken at the decode shape (T = ``max_batch``), and gmm's also at
     the shapes :func:`check_gmm` names."""
@@ -995,7 +1004,12 @@ def check_moe_kernels(cfg, counts, max_batch: int, weights=None) -> dict:
         events_ms=fused_ms, events_ms_route_pack_then_collect=two_ms,
         device_ms=with_ms, device_ms_route_pack_alone=alone_ms)
 
-    # -- gmm and placement_gmm at each capacity the path's packs have ----
+    # -- gmm and placement_gmm at each capacity the path's packs have,
+    # and gmm off the path on routed tokens
+    for T in off_path:
+        packs[T] = (torch.randn((T, d), generator=gen, device="cuda")
+                    .to(bf16), routed_dest(T, k, E, gen), None)
+
     def pack(T, dst, n_dest):
         return route_pack_cuda(packs[T][0], dst, None, None, k=k,
                                n_dest=n_dest, capacity=cap_of(T),
@@ -1003,7 +1017,8 @@ def check_moe_kernels(cfg, counts, max_batch: int, weights=None) -> dict:
 
     out.update(check_gmm(
         weights, owner, hot, counts, max_batch, cap_of, gen,
-        lambda T: pack(T, packs[T][1], E), lambda T: pack(T, packs[T][2], S)))
+        lambda T: pack(T, packs[T][1], E), lambda T: pack(T, packs[T][2], S),
+        off_path))
     for name, r in out.items():
         log(f"  {name}: {r['ms']:.4f} ms, device {r['device_ms']} ms "
             f"(plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, "
@@ -1029,7 +1044,7 @@ def sparse_buckets(S: int, C: int, d: int, live: int, gen,
 
 
 def check_gmm(weights, owner, hot, counts, max_batch: int, cap_of, gen,
-              pack_experts, pack_slots) -> dict:
+              pack_experts, pack_slots, off_path=()) -> dict:
     """gmm and placement_gmm at a path's shapes.
 
     ``pack_experts(T)`` / ``pack_slots(T)``: the path's route-pack of T
@@ -1043,11 +1058,17 @@ def check_gmm(weights, owner, hot, counts, max_batch: int, cap_of, gen,
     whole copy at Llama-4 width would be 32 GB beside its 37 GB of
     weights); at the decode capacity an all-empty call (all +0), one live
     slot, partly filled rows; the float32 variant on 16 experts' weights.
-    Timed: the decode packs of both, and for gmm a one-live-slot decode
-    and the largest T of each capacity, each beside its live-slot count,
-    its bound (live experts' weights read once), its dense-walk bound
-    (every slot's weights), the plain version and ``bmm_chain``."""
-    from repro_torch.kernels.gmm.kernel import gmm_cuda, gmm_cuda_with_rows
+    Timed: the decode packs of both, and for gmm a one-live-slot decode,
+    the largest T of each capacity and each T of ``off_path`` (held
+    first), each beside its live-slot count, its bound (live experts'
+    weights read once), its dense-walk bound (every slot's weights), the
+    plain version and ``bmm_chain`` (event and device ms), with the
+    call's ``kernel.plan``: the profiler must name the kernel of its
+    variant and width (``tc_pass<2, 1>`` or ``wg_pass<2, nb>``)."""
+    import re
+
+    from repro_torch.kernels.gmm.kernel import (gmm_cuda, gmm_cuda_with_rows,
+                                                plan)
     from repro_torch.kernels.gmm.ref import (gmm_ref, live_rows,
                                              placement_gmm_ref)
 
@@ -1148,20 +1169,34 @@ def check_gmm(weights, owner, hot, counts, max_batch: int, cap_of, gen,
         bnd, by = bound_ms(experts * 3 * d * f * 2 + io, 6 * n_rows * d * f)
         dense, _ = bound_ms(b.shape[0] * 3 * d * f * 2 + io,
                             6 * b.shape[0] * b.shape[1] * d * f)
+        p = plan(*b.shape, f, b.dtype)
+        prof = profile_calls(lambda: gmm_cuda(b, wg, wu, wd, own))
+        # pass 1's kernel, demangled or not
+        kern = (r"tc_pass<2,\s*1>|_Z7tc_passILi2ELi1E" if p.variant == "mma"
+                else rf"wg_pass<2,\s*{p.nb}>|_Z7wg_passILi2ELi{p.nb}E")
+        check(not prof["names"]
+              or any(re.search(kern, n) for n in prof["names"]),
+              f"gmm {list(b.shape)}: plan {p.variant} {p.nb}, the profiler "
+              f"names {prof['names']}")
         r = dict(shape=list(b.shape), nonempty_slots=live,
                  live_experts=experts, slots=b.shape[0],
+                 plan=p._asdict(),
                  ms=time_ms(lambda: gmm_cuda(b, wg, wu, wd, own)),
-                 device_ms=device_ms(lambda: gmm_cuda(b, wg, wu, wd, own)),
+                 device_ms=prof["device_ms"],
                  plain_ms=time_ms(lambda: ref(b, wg, wu, wd)),
                  # no single PyTorch call takes an owner table
                  library_ms=(time_ms(lambda: bmm_chain(b, wg, wu, wd))
                              if own is None else None),
+                 library_device_ms=(
+                     device_ms(lambda: bmm_chain(b, wg, wu, wd))
+                     if own is None else None),
                  bound_ms=bnd, bound_by=by, bound_dense_walk_ms=dense)
         log(f"  {'gmm' if own is None else 'placement_gmm'} "
-            f"{list(b.shape)} x {f}, {live} of {b.shape[0]} slots live: "
-            f"{r['ms']:.4f} ms, device {r['device_ms']} ms, bound "
-            f"{bnd:.4f} ms by {by}, dense walk {dense:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bmm_chain {r['library_ms']}")
+            f"{list(b.shape)} x {f}, {live} of {b.shape[0]} slots live, "
+            f"{p.variant} nb {p.nb}: {r['ms']:.4f} ms, device "
+            f"{r['device_ms']} ms, bound {bnd:.4f} ms by {by}, dense walk "
+            f"{dense:.4f} ms, plain {r['plain_ms']:.4f} ms, bmm_chain "
+            f"{r['library_ms']} (device {r['library_device_ms']})")
         return r
 
     res = {"gmm": timed(pack_experts(max_batch), None),
@@ -1178,6 +1213,12 @@ def check_gmm(weights, owner, hot, counts, max_batch: int, cap_of, gen,
             sparse_buckets(E, C, d, 1, gen, full=True), None),
         **{f"T={T}, C={c}": timed(pack_experts(T), None)
            for c, T in largest.items()}}
+    for T in off_path:
+        b = pack_experts(T)
+        held(b, None, f"gmm off the path, T={T}, C={cap_of(T)}")
+        res["gmm"]["shapes"][f"off path: T={T}, C={cap_of(T)}"] = timed(
+            b, None)
+    res["gmm"]["max_abs_err"] = errs[("gmm", bf)]
     return res
 
 
@@ -1267,6 +1308,42 @@ def no_spills(name: str) -> None:
         f"{name}.cu: 0 bytes spilled in each of its {len(BLOCKS_PER_SM)} "
         f"instantiations, got {lines}")
     log(f"{name}.cu: 0 bytes spilled in all {len(lines)} instantiations")
+
+
+def gmm_spills() -> dict:
+    """Registers and spill bytes of the grouped FFN's wgmma
+    instantiations (``wg_pass<NW, NB>``: both passes at every width of
+    ``kernel.WG_WIDTHS``), from nvcc's ``-Xptxas -v`` lines of
+    ``csrc/gmm.cu``, each held to 0 bytes spilled. A library found
+    already built in the build directory has no log: said, not held."""
+    import re
+
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.gmm.kernel import WG_WIDTHS
+
+    text = runtime.BUILD_LOGS.get("gmm")
+    if text is None:
+        log("gmm.cu: built before this run, no ptxas lines to hold")
+        return {}
+    got, name = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"'_Z7wg_passILi(\d+)ELi(\d+)E", line)
+            name = f"wg_pass<{m[1]}, {m[2]}>" if m else None
+        elif name and "spill" in line:
+            stores, loads = (int(n) for n in re.findall(
+                r"(\d+) bytes spill", line))
+            got[name] = dict(spill_stores=stores, spill_loads=loads)
+        elif name and "registers" in line:
+            got[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line)[1])
+    want = {f"wg_pass<{nw}, {nb}>" for nw in (1, 2) for nb in WG_WIDTHS}
+    check(set(got) == want and all(
+        v["spill_stores"] == v["spill_loads"] == 0 for v in got.values()),
+        f"gmm.cu: 0 bytes spilled in each of {sorted(want)}, got {got}")
+    log("gmm.cu: 0 bytes spilled in every wgmma instantiation; registers "
+        + ", ".join(f"{k} {v['registers']}" for k, v in sorted(got.items())))
+    return got
 
 
 def check_occupancy() -> dict:
@@ -3909,7 +3986,8 @@ def deepseek_stages(get_config) -> dict:
     max_batch = 4
     t0 = time.monotonic()
     kern = check_moe_kernels(
-        cfg, path_token_counts(PROMPTS + PROMPTS_EPLB, max_batch), max_batch)
+        cfg, path_token_counts(PROMPTS + PROMPTS_EPLB, max_batch), max_batch,
+        off_path=(512,))
     free(f"kernel checks: {time.monotonic() - t0:.1f} s")
 
     t0 = time.monotonic()
@@ -4728,6 +4806,10 @@ V_MODELS = ((INTERNLM, None, {}),
 #: prompt lengths of the 1024-slot paths (2 DP groups x 4 slots: one
 #: wave), the last two prefilled in two 512-token chunks
 V_LENS = (16, 33, 57, 100, 130, 200, 600, 900)
+#: DeepSeek-MoE-16B's gmm off the path: T 88, 120 and 1024 routed
+#: tokens, C 12 and 16 (either side of the wgmma variant's 16-row
+#: width) and 144 (two 128-row tiles)
+V_MOE_OFF_PATH = (88, 120, 1024)
 V_NEW, V_MAX_LEN, V_CHUNK = 16, 1024, 512
 #: Mistral-NeMo on one DP group of 4 slots of 32768: one 32000-token
 #: prompt first, then three short ones that decode beside it
@@ -4767,7 +4849,8 @@ def v_path(arch: str, cfg) -> tuple:
             ffn = engine.params["blocks"][f"pos{pos}"]["ffn"]
             kern.update(check_moe_kernels(
                 cfg, counts, B,
-                [ffn[n][0] for n in ("we_gate", "we_up", "we_down")]))
+                [ffn[n][0] for n in ("we_gate", "we_up", "we_down")],
+                off_path=V_MOE_OFF_PATH))
         log(f"{cfg.name} kernel checks: {time.monotonic() - t0:.1f} s")
         return kern
     path = served_path(
@@ -7374,6 +7457,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}.cu: {line.strip()}")
     no_spills("decode_attention")
+    gmm_spills()
     if args.only:
         for p, (_, path) in v_stage(get_config).items():
             log(json.dumps({"path": p, **{k: v for k, v in path.items()

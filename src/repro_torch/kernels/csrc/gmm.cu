@@ -9,15 +9,14 @@
 // hidden cast to the payload type before the down-projection (as the
 // TPU kernel does at kernel.py:45). Output is float32 [S, C, d].
 //
-// What bounds it on the H100.
-//  * At decode, bytes: C is 4, so each 2-byte weight element is used for
-//    2C = 8 operations against the card's ~295 bf16 operations per
-//    byte. Only the experts whose bucket holds a row matter: at most 32
-//    of 256 on DeepSeek-V3 (T 4, top-8) and 4 of 128 on Llama-4 (top-1),
-//    so the bound is live experts x 3 d f x 2 B at 3.35 TB/s.
-//  * At a C = 8 prefill, still bytes, but 2C = 16 operations per weight
-//    element at full bandwidth is ~54 TFLOP/s of mma work: close to what
-//    the CUDA cores give (67 TFLOP/s f32), far below the tensor cores.
+// What bounds it on the H100: bytes, at every capacity the paths pack.
+// Only the experts whose bucket holds a row matter, so the bound is live
+// experts x 3 d f x 2 B at 3.35 TB/s. Each 2-byte weight element is used
+// for 2 rows operations, against the card's ~295 bf16 operations per
+// byte: rows 4 at decode (at most 32 of 256 experts live on DeepSeek-V3,
+// T 4, top-8; 4 of 128 on Llama-4, top-1), 8 in the smoke's short
+// prefill chunks, and under 128 in a 512-token chunk (DeepSeek-MoE-16B
+// C 72, every expert live: 1.1 GB of weights, 0.35 ms).
 //
 // Design.
 //  * Skip on the device, no host sync. A prologue (rows_kernel) reads the
@@ -27,33 +26,49 @@
 //    one-block plan_kernel turns rows into a compact list of live
 //    (slot, row-tile) pairs in slot order. The two passes walk that
 //    list with persistent blocks (the occupancy limit per SM, times the
-//    SM count), item i = (pair, column tile), i = blockIdx.x + q *
+//    SM count), item i = (pair, column tile of 128), i = blockIdx.x + q *
 //    gridDim.x. An all-zero row gives +0 in the plain version, so
 //    computing only rows [0, rows[s]) and zeroing the rest is the same
 //    function.
-//  * One weight read per live expert. A row tile is 8 rows (C <= 8) or
-//    16 (C > 8), so the paths' capacities (4, 5, 8) take one tile and
-//    read each live expert's weights once; a larger C takes
-//    ceil(C / 16) tiles and reads them once per live tile.
-//  * bf16 on the tensor cores: mma.sync.m16n8k16 with f32 accumulation in
-//    a swap-AB layout. The 16-row operand is a 16-column slice of the
-//    weight, W^T, loaded with ldmatrix.trans from the [K, N] tile (N
-//    contiguous, as the reference keeps it); the 8-column operand is 8
-//    bucket (or hidden) rows, already K-contiguous. A block of 8 warps
-//    owns 128 output columns (256 contiguous bytes of each weight row),
-//    16 per warp.
-//  * Bytes in flight: 16-byte cp.async.cg into a 4-stage shared-memory
+//  * One weight read per live expert and column tile: a row tile covers
+//    the whole bucket up to 128 rows, in one of two bf16 variants chosen
+//    by C alone.
+//  * C <= 8 (every decode step, the smoke's short chunks): 8-row tiles on
+//    mma.sync.m16n8k16 with f32 accumulation in a swap-AB layout (tc_pass).
+//    The 16-row operand is a 16-column slice of the weight, W^T, loaded
+//    with ldmatrix.trans from the [K, N] tile (N contiguous, as the
+//    reference keeps it); the 8-column operand is 8 bucket (or hidden)
+//    rows, already K-contiguous. A block of 8 warps owns 128 output
+//    columns (256 contiguous bytes of each weight row), 16 per warp.
+//    Bytes in flight: 16-byte cp.async.cg into a 4-stage shared-memory
 //    ring 64 rows deep. Pass 1 stages 32 KB of gate and up weights per
 //    stage (136 KB of shared memory, one block per SM, ~96 KB in
 //    flight); pass 2 16 KB of down weights (three blocks per SM). The
 //    (item, k-step) sequence of a block is one flat stream, so the next
 //    item's first tiles load during the current item's last. Weight rows
 //    are XOR-swizzled in 16-byte chunks (ldmatrix without bank
-//    conflicts); staged bucket rows are padded by 16 bytes.
-//  * What is left at decode: few live slots give few items (29 live
-//    slots x 16 column tiles is 3.5 rounds of 132 SMs on DeepSeek-V3; one
-//    live slot uses 16 SMs), and a block streams far below an SM's share
-//    of the bandwidth. A K split fixed by the shapes would fill the card.
+//    conflicts); staged bucket rows are padded by 16 bytes. What is left
+//    at decode: few live slots give few items (29 live slots x 16 column
+//    tiles is 3.5 rounds of 132 SMs on DeepSeek-V3; one live slot uses 16
+//    SMs), and a block streams far below an SM's share of the bandwidth.
+//  * C > 8 (prefill chunks): 128-row tiles on wgmma (wg_pass), so that
+//    C <= 128 takes one tile per live slot (C 144 two): every row tile
+//    stages its expert's whole stripe, so small tiles would read each
+//    expert once per tile. The same swap-AB: the weight stripe is
+//    wgmma's M (64 output columns per consumer warpgroup, two
+//    warpgroups a block), read MN-major from the [K, N] tile as stored
+//    (no copy or relayout); the bucket (or hidden) rows are its N,
+//    K-major as stored, staged NB = 16, 32, 64 or 128 rows at a time (C
+//    rounded up to a compiled width). One producer warp issues TMA loads
+//    (128-byte swizzle) of 64 K-rows of each weight and of the rows into
+//    a ring of up to 200 KB (4-8 stages, mbarriers); the consumers keep
+//    one stage's products in flight while the next is issued. The
+//    weights' tensor map is 3-D, [E, K, N], so depth past K reads zero
+//    and the owner moves only its third coordinate; a row box past a
+//    slot's live rows reads the next slot's rows (or zeros past the
+//    last), whose output columns are never stored. The switch at C > 8:
+//    at C 9-16 a 16-row mma.sync tile would also read each expert once,
+//    and wg_pass at NB 16 is the faster (tools/gmm_variants.py).
 //  * float32 stays on CUDA-core FMAs in full f32 (no TF32): 256 threads
 //    own 128 columns, the reduction split over 4 thread groups combined
 //    in a fixed order; 8-row tiles; the same skip and item walk.
@@ -62,14 +77,15 @@
 //    the owner table, with no split-K and no float atomics. So repeated
 //    calls are bit-identical, and the owner-indexed call is bit-identical
 //    to the plain call on owner-gathered weights (only the weight base
-//    pointer differs).
+//    pointer, or the tensor map's expert coordinate, differs).
 //  * Two passes: pass 1 writes the hidden h = silu(g) * u, cast to the
 //    payload type, to a [S, C, f] scratch (only live rows); pass 2 reads
-//    it (rows past rows[s] are zero-filled when staged) and writes the
-//    float32 output rows [0, rows[s]).
-#include <cuda_runtime.h>
+//    it and writes the float32 output rows [0, rows[s]). Rows past
+//    rows[s] are zero-filled when staged (mma.sync) or staged and never
+//    stored (wgmma).
 #include <cuda_bf16.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 __device__ __forceinline__ int owner_of(const int* owner, int s, int E) {
   const int e = owner ? owner[s] : s;
@@ -386,6 +402,243 @@ tc_pass(const __nv_bfloat16* __restrict__ src,
 }
 
 // ---------------------------------------------------------------------------
+// bf16, C > 8: wgmma on TMA-staged tiles, persistent blocks
+// ---------------------------------------------------------------------------
+#define WG_RT 128      // bucket rows of a row tile
+#define WG_BK 64       // K rows of a stage: one 128-byte swizzle row of 64
+                       // weight columns, or of 64 K-elements of a bucket row
+#define WG_BOX (WG_BK * 64 * 2)   // one weight box: 64 K-rows x 64 columns
+#define WG_THREADS 288            // warps 0-7: two consumer warpgroups,
+                                  // 64 output columns each; 8: producer
+#define WG_RING (200 * 1024)      // shared memory of the ring
+
+// wgmma.mma_async m64nNk16, f32 += bf16 x bf16, both from shared memory:
+// A MN-major (transposed: the [K, N] weight tile as stored), B K-major
+// (bucket or hidden rows as stored); d[N / 2] accumulators per thread.
+template <int N>
+struct WgmmaBf16;
+template <>
+struct WgmmaBf16<16> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <>
+struct WgmmaBf16<32> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <>
+struct WgmmaBf16<64> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <>
+struct WgmmaBf16<128> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// The tile of a pass: NW weight matrices of TC_BN columns (two 64-column
+// boxes each, one per consumer warpgroup), then NB staged rows of the
+// bucket (pass 1) or the hidden (pass 2), every box in the 128-byte
+// swizzle. The ring takes as many stages as fit WG_RING, at most 8.
+template <int NW, int NB>
+struct WgTile {
+  static constexpr int W_BYTES = 2 * WG_BOX;
+  static constexpr int STAGE = NW * W_BYTES + NB * WG_BK * 2;
+  static constexpr int STAGES = WG_RING / STAGE < 8 ? WG_RING / STAGE : 8;
+  static constexpr int SMEM = STAGES * STAGE + 1024 + 16 * STAGES;
+};
+
+// NW = 2: pass 1 (smap = buckets [S * C, K = d], w0map/w1map = gate/up
+// [E, d, f], dst = hidden bf16 [S, C, N = f]); NW = 1: pass 2 (smap =
+// hidden, w0map = down [E, f, d], dst = out f32 [S, C, N = d]). NB: the
+// staged rows, the wgmma's N, at least the capacity (or WG_RT).
+template <int NW, int NB>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wg_pass(const __grid_constant__ CUtensorMap smap,
+        const __grid_constant__ CUtensorMap w0map,
+        const __grid_constant__ CUtensorMap w1map,
+        const int* __restrict__ owner, const int* __restrict__ work,
+        void* __restrict__ dst, int S, int C, int K, int N, int E, int rt) {
+  using L = WgTile<NW, NB>;
+  constexpr int R = NB / 2;  // accumulators per thread and weight matrix
+  extern __shared__ uint8_t ring[];
+  const uint32_t base = (smem_u32(ring) + 1023) & ~1023u;  // swizzle atoms
+  const uint32_t full = base + L::STAGES * L::STAGE;
+  const uint32_t empty = full + 8 * L::STAGES;
+  const int nct = (N + TC_BN - 1) / TC_BN;
+  const int n_items = work[S] * nct;
+  const int nk = (K + WG_BK - 1) / WG_BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer: one thread keeps the ring full
+    if (threadIdx.x == 256) {
+      int step = 0;
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+        const Item it =
+            item_of(i, work, owner, S, E, rt, WG_RT, nct, TC_BN);
+        for (int kt = 0; kt < nk; ++kt, ++step) {
+          const int st = step % L::STAGES;
+          if (step >= L::STAGES)
+            mbar_wait(empty + 8 * st, (step / L::STAGES - 1) & 1);
+          const uint32_t a = base + st * L::STAGE, bar = full + 8 * st;
+          mbar_expect_tx(bar, L::STAGE);
+#pragma unroll
+          for (int m = 0; m < NW; ++m)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              tma_load_3d(a + m * L::W_BYTES + h * WG_BOX,
+                          m ? &w1map : &w0map, bar, it.n0 + 64 * h,
+                          kt * WG_BK, it.e);
+          tma_load(a + NW * L::W_BYTES, &smap, bar, kt * WG_BK,
+                   it.s * C + it.r0);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns output columns n0 + 64 wg .. + 63
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  float acc[NW][R];
+  int step = 0;
+  for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+#pragma unroll
+    for (int m = 0; m < NW; ++m) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) acc[m][j] = 0.f;
+      fence_regs<R>(acc[m]);
+    }
+    // Only the wgmma touch the accumulators inside the loop (any other
+    // instruction that did would serialize the wgmma pipeline).
+    for (int kt = 0; kt < nk; ++kt, ++step) {
+      const int st = step % L::STAGES;
+      mbar_wait(full + 8 * st, (step / L::STAGES) & 1);
+      const uint32_t a = base + st * L::STAGE;
+      const uint64_t db = sw128_desc(a + NW * L::W_BYTES);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk)
+#pragma unroll
+        for (int m = 0; m < NW; ++m)
+          WgmmaBf16<NB>::mma(
+              acc[m], sw128_desc(a + m * L::W_BYTES + wg * WG_BOX) + 128 * kk,
+              db + 2 * kk);
+      wg_commit();
+      // keep this stage's products in flight; the previous stage's are
+      // done, so its tiles go back to the producer
+      wg_wait_one();
+      if (kt > 0 && lane == 0)
+        mbar_arrive(empty + 8 * ((step - 1) % L::STAGES));
+    }
+    wg_wait_all();
+    if (lane == 0) mbar_arrive(empty + 8 * ((step - 1) % L::STAGES));
+#pragma unroll
+    for (int m = 0; m < NW; ++m) fence_regs<R>(acc[m]);
+
+    // accumulator 4 i8 + 2 h + j: output column g + 8 h of the warp's 16,
+    // bucket row 8 i8 + 2 t4 + j of the tile
+    const Item it = item_of(i, work, owner, S, E, rt, WG_RT, nct, TC_BN);
+    const size_t row0 = (size_t)it.s * C + it.r0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = it.n0 + wg * 64 + warp * 16 + g + 8 * h;
+      if (col >= N) continue;
+#pragma unroll
+      for (int i8 = 0; i8 < NB / 8; ++i8)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int r = 8 * i8 + 2 * t4 + j, x = 4 * i8 + 2 * h + j;
+          if (r >= it.nr) continue;
+          const size_t o = (row0 + r) * N + col;
+          if (NW == 2) {
+            const float gs = acc[0][x], us = acc[NW - 1][x];
+            const float sig = 1.f / (1.f + expf(-gs));
+            reinterpret_cast<__nv_bfloat16*>(dst)[o] =
+                __float2bfloat16(gs * sig * us);
+          } else {
+            reinterpret_cast<float*>(dst)[o] = acc[0][x];
+          }
+        }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32: CUDA-core FMAs, persistent blocks
 // ---------------------------------------------------------------------------
 #define F32_THREADS 256
@@ -604,6 +857,62 @@ static int launch_bf16(const void* x, const void* wg, const void* wu,
                           stream);
 }
 
+// A bf16 tensor map of `rank` (2 or 3) dims, dims[0] contiguous: boxes of
+// 64 elements (128 bytes) along dims[0], box1 along dims[1] and 1 along
+// dims[2], in the 128-byte swizzle; out-of-bounds elements read as zero.
+static int bf16_map(CUtensorMap* map, const void* ptr, int rank,
+                    const cuuint64_t* dims, int box1) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t strides[2] = {dims[0] * 2, dims[0] * dims[1] * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box1, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         (cuuint32_t)rank, const_cast<void*>(ptr), dims,
+                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// src [S * C, K] staged NB rows at a time; w0 / w1 [E, K, N] as a 3-D map,
+// so that a box's K-rows past K read as zero (not the next expert's) and
+// the owner only moves its third coordinate.
+template <int NW, int NB>
+static int launch_wg(const void* src, const void* w0, const void* w1,
+                     const int* owner, const int* work, void* dst, int S,
+                     int C, int K, int N, int E, int rt,
+                     cudaStream_t stream) {
+  CUtensorMap smap, w0map, w1map;
+  const cuuint64_t rows[2] = {(cuuint64_t)K, (cuuint64_t)S * C};
+  const cuuint64_t ws[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)E};
+  int err = bf16_map(&smap, src, 2, rows, NB);
+  if (!err) err = bf16_map(&w0map, w0, 3, ws, WG_BK);
+  if (!err) err = NW == 2 ? bf16_map(&w1map, w1, 3, ws, WG_BK) : 0;
+  if (err) return err;
+  if (NW == 1) w1map = w0map;
+  constexpr int smem = WgTile<NW, NB>::SMEM;
+  int blocks = 0;
+  if ((err = persistent_grid<wg_pass<NW, NB>>(WG_THREADS, smem, &blocks)))
+    return err;
+  wg_pass<NW, NB><<<blocks, WG_THREADS, smem, stream>>>(
+      smap, w0map, w1map, owner, work, dst, S, C, K, N, E, rt);
+  return (int)cudaGetLastError();
+}
+
+template <int NB>
+static int launch_bf16_wg(const void* x, const void* wg, const void* wu,
+                          const void* wd, const int* owner, void* hidden,
+                          float* out, const int* work, int S, int C, int d,
+                          int f, int E, int rt, cudaStream_t stream) {
+  int err = launch_wg<2, NB>(x, wg, wu, owner, work, hidden, S, C, d, f, E,
+                             rt, stream);
+  if (err) return err;
+  return launch_wg<1, NB>(hidden, wd, wd, owner, work, out, S, C, f, d, E,
+                          rt, stream);
+}
+
 static int launch_f32(const void* x, const void* wg, const void* wu,
                       const void* wd, const int* owner, void* hidden,
                       float* out, const int* work, int S, int C, int d, int f,
@@ -638,7 +947,7 @@ extern "C" int gmm_launch(const void* x, const void* wg, const void* wu,
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 && ((d & 7) || (f & 7))) return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  const int RT = dtype == 1 ? (C <= 8 ? 8 : 16) : F32_ROWS;
+  const int RT = dtype == 1 ? (C <= 8 ? 8 : WG_RT) : F32_ROWS;
   const int rt = (C + RT - 1) / RT;
 
   // prologue: rows per slot, dead rows of out zeroed, the live-pair list
@@ -661,6 +970,16 @@ extern "C" int gmm_launch(const void* x, const void* wg, const void* wu,
   if (C <= 8)
     return launch_bf16<1>(x, wg, wu, wd, owner, hidden, out, work, S, C, d,
                           f, E, rt, stream);
-  return launch_bf16<2>(x, wg, wu, wd, owner, hidden, out, work, S, C, d, f,
-                        E, rt, stream);
+  // the staged rows: the capacity rounded up to a compiled wgmma width
+  if (C <= 16)
+    return launch_bf16_wg<16>(x, wg, wu, wd, owner, hidden, out, work, S, C,
+                              d, f, E, rt, stream);
+  if (C <= 32)
+    return launch_bf16_wg<32>(x, wg, wu, wd, owner, hidden, out, work, S, C,
+                              d, f, E, rt, stream);
+  if (C <= 64)
+    return launch_bf16_wg<64>(x, wg, wu, wd, owner, hidden, out, work, S, C,
+                              d, f, E, rt, stream);
+  return launch_bf16_wg<128>(x, wg, wu, wd, owner, hidden, out, work, S, C,
+                             d, f, E, rt, stream);
 }

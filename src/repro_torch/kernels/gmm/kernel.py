@@ -4,12 +4,15 @@ One C entry serves both TPU kernels it replaces: ``phys_owner=None`` is
 the plain grouped FFN (``gmm``), a ``[S]`` int32 owner table the
 owner-indexed ``placement_gmm``. Each counts its own launches. The call
 also computes, on the card, each slot's live rows (``ref.live_rows``),
-which :func:`gmm_cuda_with_rows` returns beside the output.
+which :func:`gmm_cuda_with_rows` returns beside the output. The C entry
+chooses its variant and tiles from the shapes alone; :func:`plan`
+mirrors that choice.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -21,6 +24,59 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: what each variant's vector loads take: d and f a multiple of the first,
 #: every tensor aligned to the second (bytes)
 _ALIGN = {torch.float32: (2, 8), torch.bfloat16: (8, 16)}
+
+
+#: bf16 capacities up to this take the 8-row mma.sync tile (``tc_pass``),
+#: larger ones the wgmma variant (``wg_pass``)
+MMA_MAX_C = 8
+#: the wgmma variant's staged rows (its N): C rounded up to one of these
+WG_WIDTHS = (16, 32, 64, 128)
+WG_ROWS = 128           # WG_RT: bucket rows of a wgmma row tile
+_BN = 128               # TC_BN: output columns of an item
+_BK = 64                # TC_BK / WG_BK: reduction rows of a bf16 stage
+_WG_RING = 200 * 1024   # WG_RING: shared memory of the wgmma ring
+_F32_ROWS, _F32_KCHUNK = 8, 256
+
+
+class Plan(NamedTuple):
+    """How :func:`gmm_cuda` runs a call. ``variant``: ``f32`` (CUDA-core
+    FMAs), ``mma`` (bf16 C <= 8, mma.sync) or ``wgmma`` (bf16 C > 8);
+    ``rows``, the bucket rows of a row tile, and ``row_tiles`` of them a
+    slot; ``nb``, the rows staged and computed for each tile (8, or the
+    wgmma width); then for (pass 1, pass 2): the column tiles of
+    ``_BN``, the reduction steps, the bytes of one stage of the
+    shared-memory ring (f32: its staged chunk of rows) and the stages."""
+    variant: str
+    rows: int
+    row_tiles: int
+    nb: int
+    col_tiles: tuple
+    k_steps: tuple
+    stage_bytes: tuple
+    stages: tuple
+
+
+def plan(S: int, C: int, d: int, f: int, dtype) -> Plan:
+    """The variant and tiles of an ``[S, C, d] x [d, f]`` call, a function
+    of (C, d, f, dtype) alone, as ``gmm_launch`` chooses them (``S``, the
+    slot count, changes only how many items there are)."""
+    del S
+    cols = (-(-f // _BN), -(-d // _BN))
+    if dtype == torch.float32:
+        ks = (-(-d // _F32_KCHUNK), -(-f // _F32_KCHUNK))
+        chunk = _F32_ROWS * _F32_KCHUNK * 4
+        return Plan("f32", _F32_ROWS, -(-C // _F32_ROWS), _F32_ROWS, cols,
+                    ks, (chunk, chunk), (1, 1))
+    ks = (-(-d // _BK), -(-f // _BK))
+    weights = (2 * _BK * _BN * 2, _BK * _BN * 2)       # gate and up / down
+    if C <= MMA_MAX_C:
+        rows = 8 * (_BK * 2 + 16)                      # padded by 16 bytes
+        return Plan("mma", 8, 1, 8, cols, ks,
+                    tuple(w + rows for w in weights), (4, 4))
+    nb = next(w for w in WG_WIDTHS if w >= min(C, WG_ROWS))
+    stage = tuple(w + nb * _BK * 2 for w in weights)
+    return Plan("wgmma", WG_ROWS, -(-C // WG_ROWS), nb, cols, ks, stage,
+                tuple(min(8, _WG_RING // s) for s in stage))
 
 
 @functools.cache

@@ -1,8 +1,9 @@
 """Grouped expert FFN on decode-like sparse buckets: what the CUDA
 kernel's skip of empty buckets and rows relies on.
 
-Most slots empty, some partly filled, at the capacities the serving paths
-pack (4, 5, 8) and one above a tensor-core row tile (12). The port's
+Most slots empty, some partly filled, at the capacities the decode paths
+pack (4, 5, 8), one above the 8-row mma.sync tile (12), and the
+DeepSeek-MoE-16B prefill chunks' (36, 72: the wgmma variant). The port's
 ``expert_ffn`` on the CPU (its plain version) against the JAX reference:
 2e-4 in float32 against ``gmm_ref`` / ``placement_gmm_ref``, 3e-2 in bf16
 against the Pallas kernel in interpret mode (which casts the hidden to
@@ -26,7 +27,7 @@ from repro_torch.kernels.gmm.ref import live_rows
 from repro_torch.kernels.gmm.ref import placement_gmm_ref as plain_placement
 from torch_parity import to_np
 
-CAPACITIES = (4, 5, 8, 12)
+CAPACITIES = (4, 5, 8, 12, 36, 72)
 
 
 def _sparse(seed, S, E, C, d, f, live):
