@@ -343,9 +343,9 @@ V. InternLM2-1.8B (24 layers, G 2), Granite-8B (12 of 36, G 4),
    logged); decode attention held and timed at each model's (G, L),
    Mistral-NeMo's also on the served ragged positions, and on
    DeepSeek-MoE-16B route-pack, Collect, gmm and placement_gmm on its
-   layer-0 experts at the path's token counts (C 4-72: the prefill
-   chunks take gmm's wgmma variant), gmm also held and timed off the
-   path at C 12, 16 and 144; then each smoke model
+   layer-0 experts at the path's token counts (C 4-72, all on gmm's one
+   wgmma variant: 8-row tiles and the K split up to C 8), gmm also held
+   and timed off the path at C 12, 16 and 144; then each smoke model
    with its full width's G, card against CPU in float32. ``python3
    chip_smoke.py --only V`` builds the kernels and runs this stage
    alone;
@@ -1058,15 +1058,22 @@ def check_gmm(weights, owner, hot, counts, max_batch: int, cap_of, gen,
     whole copy at Llama-4 width would be 32 GB beside its 37 GB of
     weights); at the decode capacity an all-empty call (all +0), one live
     slot, partly filled rows; the float32 variant on 16 experts' weights.
+    Order independent of the live count: at each capacity C <= 8 the path
+    packs and its largest one above 8 (or, with none, the largest of
+    ``off_path``), a slot's output alone in the call bit-identical to its
+    output beside every other slot live, for gmm and placement_gmm.
     Timed: the decode packs of both, and for gmm a one-live-slot decode,
     the largest T of each capacity and each T of ``off_path`` (held
     first), each beside its live-slot count, its bound (live experts'
     weights read once), its dense-walk bound (every slot's weights), the
     plain version and ``bmm_chain`` (event and device ms), with the
-    call's ``kernel.plan``: the profiler must name the kernel of its
-    variant and width (``tc_pass<2, 1>`` or ``wg_pass<2, nb>``)."""
+    call's ``kernel.plan`` (at C <= 8 its K ranges, and the piece length
+    the walk takes at that live count): the profiler must name the kernel
+    of its width (``wg_pass<2, nb>``), and the work buffer the C entry
+    asks for must equal ``kernel.work_ints``."""
     import re
 
+    from repro_torch.kernels.gmm import kernel as gmm_kernel
     from repro_torch.kernels.gmm.kernel import (gmm_cuda, gmm_cuda_with_rows,
                                                 plan)
     from repro_torch.kernels.gmm.ref import (gmm_ref, live_rows,
@@ -1153,6 +1160,24 @@ def check_gmm(weights, owner, hot, counts, max_batch: int, cap_of, gen,
     del wf
     log(f"gmm: all-empty, one live slot, partly filled rows and float32 "
         f"held; max abs err vs plain {errs}")
+    # a slot's output does not depend on which other slots are live
+    caps = sorted(c for c in by_cap if c <= 8)
+    wide = [c for c in by_cap if c > 8] or [cap_of(T) for T in off_path]
+    for Ci in caps + sorted(wide)[-1:]:
+        for own, n in ((None, E), (owner, S)):
+            full = sparse_buckets(n, Ci, d, n, gen, full=True)
+            s0 = int(torch.randint(0, n, (1,), generator=gen,
+                                   device="cuda"))
+            alone = torch.zeros_like(full)
+            alone[s0] = full[s0]
+            check(torch.equal(gmm_cuda(alone, wg, wu, wd, own)[s0],
+                              gmm_cuda(full, wg, wu, wd, own)[s0]),
+                  f"{'gmm' if own is None else 'placement_gmm'} C={Ci}: "
+                  f"slot {s0} alone bit-identical to it beside all {n} "
+                  f"slots live")
+            del full, alone
+    log(f"gmm, placement_gmm: a slot alone bit-identical to it beside "
+        f"every slot live at C {caps + sorted(wide)[-1:]}")
     f32 = str(torch.float32)
     bf = str(torch.bfloat16)
 
@@ -1170,17 +1195,26 @@ def check_gmm(weights, owner, hot, counts, max_batch: int, cap_of, gen,
         dense, _ = bound_ms(b.shape[0] * 3 * d * f * 2 + io,
                             6 * b.shape[0] * b.shape[1] * d * f)
         p = plan(*b.shape, f, b.dtype)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        ints = gmm_kernel._work_ints(*b.shape, f, 1)
+        check(ints == gmm_kernel.work_ints(*b.shape, f, b.dtype, sms),
+              f"gmm {list(b.shape)}: the C entry's work buffer {ints} ints "
+              f"equals kernel.work_ints on {sms} SMs")
+        # the piece length the walk takes here (C <= 8), as the card does
+        units = [int((rows > 0).sum()) * c for c in p.col_tiles]
+        pieces = [gmm_kernel.piece_len(u % sms, ns, nk, sms, nw)
+                  for u, ns, nk, nw in zip(units, p.splits, p.k_steps,
+                                           (2, 1))]
         prof = profile_calls(lambda: gmm_cuda(b, wg, wu, wd, own))
         # pass 1's kernel, demangled or not
-        kern = (r"tc_pass<2,\s*1>|_Z7tc_passILi2ELi1E" if p.variant == "mma"
-                else rf"wg_pass<2,\s*{p.nb}>|_Z7wg_passILi2ELi{p.nb}E")
+        kern = rf"wg_pass<2,\s*{p.nb}>|_Z7wg_passILi2ELi{p.nb}E"
         check(not prof["names"]
               or any(re.search(kern, n) for n in prof["names"]),
               f"gmm {list(b.shape)}: plan {p.variant} {p.nb}, the profiler "
               f"names {prof['names']}")
         r = dict(shape=list(b.shape), nonempty_slots=live,
                  live_experts=experts, slots=b.shape[0],
-                 plan=p._asdict(),
+                 plan=p._asdict(), piece_len=pieces,
                  ms=time_ms(lambda: gmm_cuda(b, wg, wu, wd, own)),
                  device_ms=prof["device_ms"],
                  plain_ms=time_ms(lambda: ref(b, wg, wu, wd)),
@@ -1193,7 +1227,8 @@ def check_gmm(weights, owner, hot, counts, max_batch: int, cap_of, gen,
                  bound_ms=bnd, bound_by=by, bound_dense_walk_ms=dense)
         log(f"  {'gmm' if own is None else 'placement_gmm'} "
             f"{list(b.shape)} x {f}, {live} of {b.shape[0]} slots live, "
-            f"{p.variant} nb {p.nb}: {r['ms']:.4f} ms, device "
+            f"{p.variant} nb {p.nb}, K ranges {p.splits}, pieces of "
+            f"{pieces}: {r['ms']:.4f} ms, device "
             f"{r['device_ms']} ms, bound {bnd:.4f} ms by {by}, dense walk "
             f"{dense:.4f} ms, plain {r['plain_ms']:.4f} ms, bmm_chain "
             f"{r['library_ms']} (device {r['library_device_ms']})")
@@ -1313,7 +1348,8 @@ def no_spills(name: str) -> None:
 def gmm_spills() -> dict:
     """Registers and spill bytes of the grouped FFN's wgmma
     instantiations (``wg_pass<NW, NB>``: both passes at every width of
-    ``kernel.WG_WIDTHS``), from nvcc's ``-Xptxas -v`` lines of
+    ``kernel.WG_WIDTHS``, the 8-row one included), from nvcc's
+    ``-Xptxas -v`` lines of
     ``csrc/gmm.cu``, each held to 0 bytes spilled. A library found
     already built in the build directory has no log: said, not held."""
     import re

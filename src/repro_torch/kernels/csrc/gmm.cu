@@ -26,63 +26,66 @@
 //    one-block plan_kernel turns rows into a compact list of live
 //    (slot, row-tile) pairs in slot order. The two passes walk that
 //    list with persistent blocks (the occupancy limit per SM, times the
-//    SM count), item i = (pair, column tile of 128), i = blockIdx.x + q *
-//    gridDim.x. An all-zero row gives +0 in the plain version, so
+//    SM count). An all-zero row gives +0 in the plain version, so
 //    computing only rows [0, rows[s]) and zeroing the rest is the same
 //    function.
-//  * One weight read per live expert and column tile: a row tile covers
-//    the whole bucket up to 128 rows, in one of two bf16 variants chosen
-//    by C alone.
-//  * C <= 8 (every decode step, the smoke's short chunks): 8-row tiles on
-//    mma.sync.m16n8k16 with f32 accumulation in a swap-AB layout (tc_pass).
-//    The 16-row operand is a 16-column slice of the weight, W^T, loaded
-//    with ldmatrix.trans from the [K, N] tile (N contiguous, as the
-//    reference keeps it); the 8-column operand is 8 bucket (or hidden)
-//    rows, already K-contiguous. A block of 8 warps owns 128 output
-//    columns (256 contiguous bytes of each weight row), 16 per warp.
-//    Bytes in flight: 16-byte cp.async.cg into a 4-stage shared-memory
-//    ring 64 rows deep. Pass 1 stages 32 KB of gate and up weights per
-//    stage (136 KB of shared memory, one block per SM, ~96 KB in
-//    flight); pass 2 16 KB of down weights (three blocks per SM). The
-//    (item, k-step) sequence of a block is one flat stream, so the next
-//    item's first tiles load during the current item's last. Weight rows
-//    are XOR-swizzled in 16-byte chunks (ldmatrix without bank
-//    conflicts); staged bucket rows are padded by 16 bytes. What is left
-//    at decode: few live slots give few items (29 live slots x 16 column
-//    tiles is 3.5 rounds of 132 SMs on DeepSeek-V3; one live slot uses 16
-//    SMs), and a block streams far below an SM's share of the bandwidth.
-//  * C > 8 (prefill chunks): 128-row tiles on wgmma (wg_pass), so that
-//    C <= 128 takes one tile per live slot (C 144 two): every row tile
-//    stages its expert's whole stripe, so small tiles would read each
-//    expert once per tile. The same swap-AB: the weight stripe is
-//    wgmma's M (64 output columns per consumer warpgroup, two
-//    warpgroups a block), read MN-major from the [K, N] tile as stored
-//    (no copy or relayout); the bucket (or hidden) rows are its N,
-//    K-major as stored, staged NB = 16, 32, 64 or 128 rows at a time (C
-//    rounded up to a compiled width). One producer warp issues TMA loads
-//    (128-byte swizzle) of 64 K-rows of each weight and of the rows into
-//    a ring of up to 200 KB (4-8 stages, mbarriers); the consumers keep
-//    one stage's products in flight while the next is issued. The
-//    weights' tensor map is 3-D, [E, K, N], so depth past K reads zero
-//    and the owner moves only its third coordinate; a row box past a
-//    slot's live rows reads the next slot's rows (or zeros past the
-//    last), whose output columns are never stored. The switch at C > 8:
-//    at C 9-16 a 16-row mma.sync tile would also read each expert once,
-//    and wg_pass at NB 16 is the faster (tools/gmm_variants.py).
+//  * bf16: one variant, wgmma on TMA-staged tiles (wg_pass), swap-AB: the
+//    weight stripe is wgmma's M (64 output columns per consumer
+//    warpgroup), read MN-major from the [K, N] tile as stored (no copy or
+//    relayout); the bucket (or hidden) rows are its N, K-major as stored,
+//    staged NB = 8, 16, 32, 64 or 128 rows at a time (C rounded up to a
+//    compiled width). One producer warp issues TMA loads (128-byte
+//    swizzle) of 64 K-rows of each weight and of the rows into a ring of
+//    up to 200 KB (mbarriers); the consumers keep one stage's products in
+//    flight while the next is issued. The weights' tensor map is 3-D,
+//    [E, K, N], so depth past K reads zero and the owner moves only its
+//    third coordinate; a row box past a slot's live rows reads the next
+//    slot's rows (or zeros past the last), whose output columns are never
+//    stored.
+//  * C > 8 (prefill chunks): 128-row tiles, so that C <= 128 takes one
+//    tile per live slot (C 144 two): every row tile stages its expert's
+//    whole stripe, so small tiles would read each expert once per tile.
+//    An item is (pair, 128 output columns): the block's two consumer
+//    warpgroups take 64 each and share one producer warp, one ring and
+//    the staged rows; each item carries the whole K reduction.
+//  * C <= 8 (every decode step, short prefill chunks): one 8-row tile per
+//    live slot (NB 8: a 1024-byte swizzle atom of rows, wgmma m64n8k16),
+//    the same 128-column units (pair, column tile), and the K reduction
+//    cut into ns fixed ranges (wg_split: a function of (N, K, NW), at
+//    least WG_FILL = 132 (unit, range) pieces at one live slot, ranges of
+//    two 64-deep steps or more). The walk fills the card at any live
+//    count: whole units go round robin (unit b + q G to block b, as the
+//    C > 8 items go, so the blocks stream neighbouring column tiles of the
+//    same weight rows at once), and the fewer than G units left over are
+//    cut into pieces of L consecutive ranges, dealt round robin too
+//    (wg_piece_len picks L on the card from the live count that
+//    plan_kernel writes, weighing the tail against a ticket a piece). A
+//    block holding a unit from range 0 folds the range sums in registers;
+//    the other pieces write theirs (float32, live rows only) to a scratch
+//    and take a ticket on the unit, and the block completing it folds the
+//    ns range sums in range order and runs the epilogue (SiLU of pass 1
+//    on the full gate and up sums). No float atomics; the tickets are
+//    zeroed by the prologue and set back to 0 by the merging block. One
+//    live slot gives DeepSeek-MoE-16B 132 / 176 (unit, range) items in
+//    its two passes (dealt as 132 / 96 pieces), where a 128-column tile
+//    carrying the whole K gave 11 / 16.
 //  * float32 stays on CUDA-core FMAs in full f32 (no TF32): 256 threads
 //    own 128 columns, the reduction split over 4 thread groups combined
 //    in a fixed order; 8-row tiles; the same skip and item walk.
-//  * Deterministic: every output element is reduced by one block in an
-//    order fixed by (C, d, f, dtype) alone, never by S, the live count or
-//    the owner table, with no split-K and no float atomics. So repeated
-//    calls are bit-identical, and the owner-indexed call is bit-identical
-//    to the plain call on owner-gathered weights (only the weight base
-//    pointer, or the tensor map's expert coordinate, differs).
+//  * Deterministic: every output element is reduced in an order fixed by
+//    (C, d, f, dtype) alone, never by S, the live count or the owner
+//    table: 16-deep products summed in K order in f32 within a K range,
+//    the range sums (C <= 8) added in range order whichever block holds
+//    them and whichever merges (the walk only moves work between blocks).
+//    So repeated calls are bit-identical, a slot's output does not depend
+//    on which other slots are live, and the owner-indexed call is
+//    bit-identical to the plain call on owner-gathered weights (only the
+//    tensor map's expert coordinate, or the weight base pointer,
+//    differs).
 //  * Two passes: pass 1 writes the hidden h = silu(g) * u, cast to the
 //    payload type, to a [S, C, f] scratch (only live rows); pass 2 reads
 //    it and writes the float32 output rows [0, rows[s]). Rows past
-//    rows[s] are zero-filled when staged (mma.sync) or staged and never
-//    stored (wgmma).
+//    rows[s] are staged and never stored.
 #include <cuda_bf16.h>
 
 #include "hopper.cuh"
@@ -100,12 +103,13 @@ __device__ __forceinline__ int owner_of(const int* owner, int s, int E) {
 
 // x: the buckets as 32-bit words, W words per row (d / 2 for bf16, d for
 // float32); mask drops the sign bit of each value (so -0.0 is zero).
+// tick: nt tickets a slot, zeroed.
 // VEC: 4 words per load (rows a multiple of 16 bytes, base aligned) or 1.
 template <int VEC>
 __global__ void __launch_bounds__(ROWS_THREADS)
 rows_kernel(const uint32_t* __restrict__ x, uint32_t mask,
-            float* __restrict__ out, int* __restrict__ rows, int C, int W,
-            int d) {
+            float* __restrict__ out, int* __restrict__ rows,
+            int* __restrict__ tick, int nt, int C, int W, int d) {
   __shared__ int red[ROWS_THREADS / 32];
   const int s = blockIdx.x;
   const uint32_t* xs = x + (size_t)s * C * W;
@@ -136,6 +140,8 @@ rows_kernel(const uint32_t* __restrict__ x, uint32_t mask,
   __syncthreads();
   const int R = red[0] + 1;
   if (threadIdx.x == 0) rows[s] = R;
+  for (int i = threadIdx.x; i < nt; i += ROWS_THREADS)
+    tick[(size_t)s * nt + i] = 0;
   float* o = out + ((size_t)s * C + R) * d;
   const size_t nz = (size_t)(C - R) * d;
   if ((d & 3) == 0) {
@@ -209,202 +215,13 @@ __device__ __forceinline__ Item item_of(int i, const int* __restrict__ work,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores, cp.async ring, persistent blocks
+// bf16: wgmma on TMA-staged tiles, persistent blocks
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Both passes: TC_BN output columns (8 warps, 16 columns each), TC_BK
-// deep, a ring of TC_ST stages. Pass 1 stages 32 KB of gate and up
-// weights (one block per SM), pass 2 16 KB of down weights (three blocks
-// per SM).
-#define TC_BK 64
-#define TC_BN 128
-#define TC_ST 4
-#define TC_THREADS (2 * TC_BN)
-
-// The tile of a pass: NW weight matrices, NT 8-row n-tiles. Shared-memory
-// layout of one stage: NW weight tiles [TC_BK][TC_BN] (16-byte chunk c of
-// row k at chunk c ^ (k & 7)), then 8 NT staged rows [TC_BK] of the
-// bucket (pass 1) or the hidden (pass 2), each padded by 16 bytes.
-template <int NW, int NT>
-struct TcTile {
-  static constexpr int ROW = TC_BN * 2;          // bytes of a weight row
-  static constexpr int CH = TC_BN / 8;           // its 16-byte chunks
-  static constexpr int W_BYTES = TC_BK * ROW;
-  static constexpr int A_STRIDE = TC_BK * 2 + 16;
-  static constexpr int RT = 8 * NT;
-  static constexpr int STAGE = NW * W_BYTES + RT * A_STRIDE;
-  static constexpr int SMEM = TC_ST * STAGE;
-};
-
-// NW = 2: pass 1 (src = buckets [S, C, K = d], w0/w1 = gate/up [E, d, f],
-// dst = hidden bf16 [S, C, N = f]); NW = 1: pass 2 (src = hidden, w0 =
-// down [E, f, d], dst = out f32 [S, C, N = d]).
-template <int NW, int NT>
-__global__ void __launch_bounds__(TC_THREADS)
-tc_pass(const __nv_bfloat16* __restrict__ src,
-        const __nv_bfloat16* __restrict__ w0,
-        const __nv_bfloat16* __restrict__ w1, const int* __restrict__ owner,
-        const int* __restrict__ work, void* __restrict__ dst, int S, int C,
-        int K, int N, int E, int rt) {
-  using L = TcTile<NW, NT>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nct = (N + TC_BN - 1) / TC_BN;
-  const int n_items = work[S] * nct;
-  const int nk = (K + TC_BK - 1) / TC_BK;
-  const int nq = n_items > (int)blockIdx.x
-                     ? (n_items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
-                     : 0;
-  const int total = nq * nk;
-
-  int ld_q = -1;
-  Item ld;
-  auto load_step = [&](int step) {
-    const int q = step / nk, kt = step % nk;
-    if (q != ld_q) {
-      ld_q = q;
-      ld = item_of(blockIdx.x + q * gridDim.x, work, owner, S, E, rt, L::RT,
-                   nct, TC_BN);
-    }
-    unsigned char* st = smem + (step % TC_ST) * L::STAGE;
-    const int k0 = kt * TC_BK;
-#pragma unroll
-    for (int c = tid; c < NW * TC_BK * L::CH; c += TC_THREADS) {
-      const int m = c / (TC_BK * L::CH), k = (c / L::CH) % TC_BK;
-      const int ch = c % L::CH;
-      const int gk = k0 + k, gn = ld.n0 + ch * 8;
-      const __nv_bfloat16* w = m ? w1 : w0;
-      const bool ok = gk < K && gn < N;
-      const __nv_bfloat16* p =
-          ok ? w + ((size_t)ld.e * K + gk) * N + gn : w;
-      cp_async16(st + m * L::W_BYTES + k * L::ROW + ((ch ^ (k & 7)) << 4),
-                 p, ok ? 16 : 0);
-    }
-    constexpr int ACH = TC_BK / 8;                 // 16-byte chunks per row
-#pragma unroll
-    for (int c = tid; c < L::RT * ACH; c += TC_THREADS) {
-      const int r = c / ACH, ch = c % ACH;
-      const int gk = k0 + ch * 8;
-      const bool ok = r < ld.nr && gk < K;
-      const __nv_bfloat16* p =
-          ok ? src + ((size_t)ld.s * C + ld.r0 + r) * K + gk : src;
-      cp_async16(st + NW * L::W_BYTES + r * L::A_STRIDE + ch * 16, p,
-                 ok ? 16 : 0);
-    }
-  };
-
-  float acc[NW][NT][4];
-#pragma unroll
-  for (int m = 0; m < NW; ++m)
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[m][t][j] = 0.f;
-
-  // ldmatrix.trans: lane l addresses row (l & 7) of 8x8 matrix l >> 3;
-  // matrices 0..3 = (k 0-7, cols 0-7), (k 0-7, cols 8-15), (k 8-15, cols
-  // 0-7), (k 8-15, cols 8-15) of the warp's 16 columns: the A fragment of
-  // W^T.
-  const int lm = lane >> 3;
-  const int ld_k = (lane & 7) + ((lm >> 1) << 3);
-  const int ld_chunk = (warp * 16 + ((lm & 1) << 3)) >> 3;
-  const int g = lane >> 2, t4 = lane & 3;
-
-#pragma unroll 1
-  for (int p = 0; p < TC_ST - 1; ++p) {
-    if (p < total) load_step(p);
-    cp_async_commit();
-  }
-#pragma unroll 1
-  for (int step = 0; step < total; ++step) {
-    cp_async_wait<TC_ST - 2>();
-    __syncthreads();
-    if (step + TC_ST - 1 < total) load_step(step + TC_ST - 1);
-    cp_async_commit();
-
-    const unsigned char* st = smem + (step % TC_ST) * L::STAGE;
-    const unsigned char* as = st + NW * L::W_BYTES;
-#pragma unroll
-    for (int kk = 0; kk < TC_BK / 16; ++kk) {
-      const int k = kk * 16 + ld_k;
-      uint32_t a[NW][4];
-#pragma unroll
-      for (int m = 0; m < NW; ++m)
-        ldmatrix_x4_trans(a[m], st + m * L::W_BYTES + k * L::ROW +
-                                    ((ld_chunk ^ (k & 7)) << 4));
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        const unsigned char* row =
-            as + (t * 8 + g) * L::A_STRIDE + (kk * 16 + 2 * t4) * 2;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(row);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(row + 16);
-#pragma unroll
-        for (int m = 0; m < NW; ++m) mma_bf16(acc[m][t], a[m], b0, b1);
-      }
-    }
-
-    if (step % nk == nk - 1) {        // the item's last k-step: epilogue
-      const Item it = item_of(blockIdx.x + (step / nk) * gridDim.x, work,
-                              owner, S, E, rt, L::RT, nct, TC_BN);
-#pragma unroll
-      for (int t = 0; t < NT; ++t)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = t * 8 + 2 * t4 + (j & 1);
-          const int col = it.n0 + warp * 16 + g + ((j >> 1) << 3);
-          if (r < it.nr && col < N) {
-            const size_t o = ((size_t)it.s * C + it.r0 + r) * N + col;
-            if (NW == 2) {
-              const float gs = acc[0][t][j], us = acc[NW - 1][t][j];
-              const float sig = 1.f / (1.f + expf(-gs));
-              reinterpret_cast<__nv_bfloat16*>(dst)[o] =
-                  __float2bfloat16(gs * sig * us);
-            } else {
-              reinterpret_cast<float*>(dst)[o] = acc[0][t][j];
-            }
-          }
-#pragma unroll
-          for (int m = 0; m < NW; ++m) acc[m][t][j] = 0.f;
-        }
-    }
-  }
-  cp_async_wait<0>();
-}
-
-// ---------------------------------------------------------------------------
-// bf16, C > 8: wgmma on TMA-staged tiles, persistent blocks
-// ---------------------------------------------------------------------------
-#define WG_RT 128      // bucket rows of a row tile
+#define WG_RT 128      // bucket rows of a row tile, C > 8
+#define WG_NARROW 8    // C <= WG_NARROW: one 8-row tile a slot, K ranges
+#define WG_FILL 132    // C <= 8: pieces a pass has at one live slot, at
+                       // least (the SMs of an H100), where K allows
+#define WG_BN 128      // output columns of a unit (two consumer warpgroups)
 #define WG_BK 64       // K rows of a stage: one 128-byte swizzle row of 64
                        // weight columns, or of 64 K-elements of a bucket row
 #define WG_BOX (WG_BK * 64 * 2)   // one weight box: 64 K-rows x 64 columns
@@ -412,11 +229,89 @@ tc_pass(const __nv_bfloat16* __restrict__ src,
                                   // 64 output columns each; 8: producer
 #define WG_RING (200 * 1024)      // shared memory of the ring
 
+// The walk of a C <= 8 pass deals whole units round robin, and cuts the
+// U2 < G units left over after the whole rounds into pieces of L
+// consecutive K ranges (of ns, each nk / ns 64-deep steps). The time of
+// pieces of L ranges, in 16 KB of weights at an SM's share of the
+// bandwidth: the most loaded block's ceil(U2 ceil(ns / L) / G) pieces,
+// each its steps (NW weight matrices) plus a ticket (the partial sums, the
+// ticket and a merge: about 128 KB).
+__host__ __device__ __forceinline__ int wg_piece_cost(int U2, int ns, int nk,
+                                                      int G, int NW, int L) {
+  const int pieces = U2 * ((ns + L - 1) / L);
+  return (pieces + G - 1) / G * (NW * ((L * nk + ns - 1) / ns) + 8);
+}
+
+// The K ranges of a C <= 8 pass with N output and K reduction columns and
+// NW weight matrices, a function of (N, K, NW) alone: ranges of two steps
+// or more (where K has them), at least WG_FILL (unit, range) pieces at
+// one live slot; of those, the fewest ranges whose best piece length
+// gives one live slot on WG_FILL SMs a time within 5% of the least.
+static int wg_split(int N, int K, int NW) {
+  const int nct = (N + WG_BN - 1) / WG_BN, nk = (K + WG_BK - 1) / WG_BK;
+  const int top = nk / 2 > 1 ? nk / 2 : 1;
+  auto best = [&](int ns) {
+    int c = -1;
+    for (int L = 1; L <= ns; ++L) {
+      const int x = wg_piece_cost(nct, ns, nk, WG_FILL, NW, L);
+      if (c < 0 || x < c) c = x;
+    }
+    return c;
+  };
+  int least = -1;
+  for (int ns = 1; ns <= top; ++ns)
+    if (nct * ns >= WG_FILL && (least < 0 || best(ns) < least))
+      least = best(ns);
+  if (least < 0) return top;
+  for (int ns = 1;; ++ns)
+    if (nct * ns >= WG_FILL && 20 * best(ns) <= 21 * least) return ns;
+}
+
+// The piece length the walk takes for U2 leftover units: the least
+// wg_piece_cost on this grid, the longest among equals. It changes which
+// block reduces a range, never the order of the sums. The lanes of a warp
+// try 32 lengths at a time; every lane returns it.
+__device__ __forceinline__ int wg_piece_len(int U2, int ns, int nk, int G,
+                                            int NW) {
+  if (U2 == 0) return ns;
+  int best = 0, cost = 0x7fffffff;
+  for (int L = ns - (int)(threadIdx.x & 31); L >= 1; L -= 32) {
+    const int c = wg_piece_cost(U2, ns, nk, G, NW, L);
+    if (c < cost) {
+      cost = c;
+      best = L;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const int oc = __shfl_xor_sync(0xffffffffu, cost, o);
+    const int ol = __shfl_xor_sync(0xffffffffu, best, o);
+    if (oc < cost || (oc == cost && ol > best)) {
+      cost = oc;
+      best = ol;
+    }
+  }
+  return best;
+}
+
 // wgmma.mma_async m64nNk16, f32 += bf16 x bf16, both from shared memory:
 // A MN-major (transposed: the [K, N] weight tile as stored), B K-major
 // (bucket or hidden rows as stored); d[N / 2] accumulators per thread.
 template <int N>
 struct WgmmaBf16;
+template <>
+struct WgmmaBf16<8> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
 template <>
 struct WgmmaBf16<16> {
   static __device__ __forceinline__ void mma(float* d, uint64_t a,
@@ -503,7 +398,7 @@ struct WgmmaBf16<128> {
   }
 };
 
-// The tile of a pass: NW weight matrices of TC_BN columns (two 64-column
+// The tile of a pass: NW weight matrices of WG_BN columns (two 64-column
 // boxes each, one per consumer warpgroup), then NB staged rows of the
 // bucket (pass 1) or the hidden (pass 2), every box in the 128-byte
 // swizzle. The ring takes as many stages as fit WG_RING, at most 8.
@@ -515,25 +410,65 @@ struct WgTile {
   static constexpr int SMEM = STAGES * STAGE + 1024 + 16 * STAGES;
 };
 
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The epilogue of a unit: accumulator 4 i8 + 2 h + x is output column g +
+// 8 h of the warp's 16, bucket row 8 i8 + 2 t4 + x of the tile. Pass 1
+// (NW 2) stores silu(gate) * up as bf16, pass 2 the float32 sum.
+template <int NW, int NB>
+__device__ __forceinline__ void wg_store(const float (&acc)[NW][NB / 2],
+                                         const Item& it, void* dst, int C,
+                                         int N) {
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+  const size_t row0 = (size_t)it.s * C + it.r0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int col = it.n0 + wg * 64 + warp * 16 + g + 8 * h;
+    if (col >= N) continue;
+#pragma unroll
+    for (int i8 = 0; i8 < NB / 8; ++i8)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int r = 8 * i8 + 2 * t4 + x, y = 4 * i8 + 2 * h + x;
+        if (r >= it.nr) continue;
+        const size_t o = (row0 + r) * N + col;
+        if (NW == 2) {
+          const float gs = acc[0][y], us = acc[NW - 1][y];
+          const float sig = 1.f / (1.f + expf(-gs));
+          reinterpret_cast<__nv_bfloat16*>(dst)[o] =
+              __float2bfloat16(gs * sig * us);
+        } else {
+          reinterpret_cast<float*>(dst)[o] = acc[0][y];
+        }
+      }
+  }
+}
+
 // NW = 2: pass 1 (smap = buckets [S * C, K = d], w0map/w1map = gate/up
 // [E, d, f], dst = hidden bf16 [S, C, N = f]); NW = 1: pass 2 (smap =
 // hidden, w0map = down [E, f, d], dst = out f32 [S, C, N = d]). NB: the
-// staged rows, the wgmma's N, at least the capacity (or WG_RT).
+// staged rows, the wgmma's N, at least the capacity (or WG_RT). At NB 8
+// (ns K ranges): part, float32 scratch of the pieces' partial sums,
+// [pieces][NW][256 threads][4]; tick, a zeroed int per unit.
 template <int NW, int NB>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wg_pass(const __grid_constant__ CUtensorMap smap,
         const __grid_constant__ CUtensorMap w0map,
         const __grid_constant__ CUtensorMap w1map,
         const int* __restrict__ owner, const int* __restrict__ work,
-        void* __restrict__ dst, int S, int C, int K, int N, int E, int rt) {
+        void* __restrict__ dst, float* __restrict__ part,
+        int* __restrict__ tick, int S, int C, int K, int N, int E, int rt,
+        int ns) {
   using L = WgTile<NW, NB>;
   constexpr int R = NB / 2;  // accumulators per thread and weight matrix
   extern __shared__ uint8_t ring[];
   const uint32_t base = (smem_u32(ring) + 1023) & ~1023u;  // swizzle atoms
   const uint32_t full = base + L::STAGES * L::STAGE;
   const uint32_t empty = full + 8 * L::STAGES;
-  const int nct = (N + TC_BN - 1) / TC_BN;
-  const int n_items = work[S] * nct;
+  const int nct = (N + WG_BN - 1) / WG_BN;
   const int nk = (K + WG_BK - 1) / WG_BK;
   if (threadIdx.x == 0) {
     for (int s = 0; s < L::STAGES; ++s) {
@@ -541,99 +476,216 @@ wg_pass(const __grid_constant__ CUtensorMap smap,
       mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  } else if (threadIdx.x == 256) {  // the producer's maps, early
+    asm volatile(
+        "prefetch.tensormap [%0];\nprefetch.tensormap [%1];\n"
+        "prefetch.tensormap [%2];\n" ::"l"(reinterpret_cast<uint64_t>(&smap)),
+        "l"(reinterpret_cast<uint64_t>(&w0map)),
+        "l"(reinterpret_cast<uint64_t>(&w1map))
+        : "memory");
   }
   __syncthreads();
 
-  if (threadIdx.x >= 256) {  // producer: one thread keeps the ring full
-    if (threadIdx.x == 256) {
-      int step = 0;
-      for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
-        const Item it =
-            item_of(i, work, owner, S, E, rt, WG_RT, nct, TC_BN);
-        for (int kt = 0; kt < nk; ++kt, ++step) {
-          const int st = step % L::STAGES;
-          if (step >= L::STAGES)
-            mbar_wait(empty + 8 * st, (step / L::STAGES - 1) & 1);
-          const uint32_t a = base + st * L::STAGE, bar = full + 8 * st;
-          mbar_expect_tx(bar, L::STAGE);
+  // one stage of the ring: the producer's loads, the consumers' products
+  auto load = [&](const Item& it, int kt, int step) {
+    const int st = step % L::STAGES;
+    if (step >= L::STAGES)
+      mbar_wait(empty + 8 * st, (step / L::STAGES - 1) & 1);
+    const uint32_t a = base + st * L::STAGE, bar = full + 8 * st;
+    mbar_expect_tx(bar, L::STAGE);
 #pragma unroll
-          for (int m = 0; m < NW; ++m)
+    for (int m = 0; m < NW; ++m)
 #pragma unroll
-            for (int h = 0; h < 2; ++h)
-              tma_load_3d(a + m * L::W_BYTES + h * WG_BOX,
-                          m ? &w1map : &w0map, bar, it.n0 + 64 * h,
-                          kt * WG_BK, it.e);
-          tma_load(a + NW * L::W_BYTES, &smap, bar, kt * WG_BK,
-                   it.s * C + it.r0);
-        }
-      }
-    }
-    return;
-  }
-
-  // consumers: warpgroup wg owns output columns n0 + 64 wg .. + 63
-  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  float acc[NW][R];
-  int step = 0;
-  for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+      for (int h = 0; h < 2; ++h)
+        tma_load_3d(a + m * L::W_BYTES + h * WG_BOX, m ? &w1map : &w0map,
+                    bar, it.n0 + 64 * h, kt * WG_BK, it.e);
+    tma_load(a + NW * L::W_BYTES, &smap, bar, kt * WG_BK, it.s * C + it.r0);
+  };
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  auto product = [&](float (&acc)[NW][R], int step, bool release_prev) {
+    const int st = step % L::STAGES;
+    mbar_wait(full + 8 * st, (step / L::STAGES) & 1);
+    const uint32_t a = base + st * L::STAGE;
+    const uint64_t db = sw128_desc(a + NW * L::W_BYTES);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk)
+#pragma unroll
+      for (int m = 0; m < NW; ++m)
+        WgmmaBf16<NB>::mma(
+            acc[m], sw128_desc(a + m * L::W_BYTES + wg * WG_BOX) + 128 * kk,
+            db + 2 * kk);
+    wg_commit();
+    // keep this stage's products in flight; the previous stage's are
+    // done, so its tiles go back to the producer
+    wg_wait_one();
+    if (release_prev && lane == 0)
+      mbar_arrive(empty + 8 * ((step - 1) % L::STAGES));
+  };
+  auto zero = [&](float (&acc)[NW][R]) {
 #pragma unroll
     for (int m = 0; m < NW; ++m) {
 #pragma unroll
-      for (int j = 0; j < R; ++j) acc[m][j] = 0.f;
+      for (int x = 0; x < R; ++x) acc[m][x] = 0.f;
       fence_regs<R>(acc[m]);
     }
-    // Only the wgmma touch the accumulators inside the loop (any other
-    // instruction that did would serialize the wgmma pipeline).
-    for (int kt = 0; kt < nk; ++kt, ++step) {
-      const int st = step % L::STAGES;
-      mbar_wait(full + 8 * st, (step / L::STAGES) & 1);
-      const uint32_t a = base + st * L::STAGE;
-      const uint64_t db = sw128_desc(a + NW * L::W_BYTES);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < WG_BK / 16; ++kk)
-#pragma unroll
-        for (int m = 0; m < NW; ++m)
-          WgmmaBf16<NB>::mma(
-              acc[m], sw128_desc(a + m * L::W_BYTES + wg * WG_BOX) + 128 * kk,
-              db + 2 * kk);
-      wg_commit();
-      // keep this stage's products in flight; the previous stage's are
-      // done, so its tiles go back to the producer
-      wg_wait_one();
-      if (kt > 0 && lane == 0)
-        mbar_arrive(empty + 8 * ((step - 1) % L::STAGES));
-    }
+  };
+  // the last stage's products done: its tiles go back, the accumulators
+  // may be read (only the wgmma touch them inside a K loop: any other
+  // instruction that did would serialize the wgmma pipeline)
+  auto drain = [&](float (&acc)[NW][R], int step) {
     wg_wait_all();
     if (lane == 0) mbar_arrive(empty + 8 * ((step - 1) % L::STAGES));
 #pragma unroll
     for (int m = 0; m < NW; ++m) fence_regs<R>(acc[m]);
+  };
 
-    // accumulator 4 i8 + 2 h + j: output column g + 8 h of the warp's 16,
-    // bucket row 8 i8 + 2 t4 + j of the tile
-    const Item it = item_of(i, work, owner, S, E, rt, WG_RT, nct, TC_BN);
-    const size_t row0 = (size_t)it.s * C + it.r0;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = it.n0 + wg * 64 + warp * 16 + g + 8 * h;
-      if (col >= N) continue;
-#pragma unroll
-      for (int i8 = 0; i8 < NB / 8; ++i8)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int r = 8 * i8 + 2 * t4 + j, x = 4 * i8 + 2 * h + j;
-          if (r >= it.nr) continue;
-          const size_t o = (row0 + r) * N + col;
-          if (NW == 2) {
-            const float gs = acc[0][x], us = acc[NW - 1][x];
-            const float sig = 1.f / (1.f + expf(-gs));
-            reinterpret_cast<__nv_bfloat16*>(dst)[o] =
-                __float2bfloat16(gs * sig * us);
-          } else {
-            reinterpret_cast<float*>(dst)[o] = acc[0][x];
-          }
+  if constexpr (NB != WG_NARROW) {
+    // an item: (pair, column tile), the whole K reduction
+    const int n_items = work[S] * nct;
+    if (threadIdx.x >= 256) {  // producer: one thread keeps the ring full
+      if (threadIdx.x == 256) {
+        int step = 0;
+        for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+          const Item it =
+              item_of(i, work, owner, S, E, rt, WG_RT, nct, WG_BN);
+          for (int kt = 0; kt < nk; ++kt, ++step) load(it, kt, step);
         }
+      }
+      return;
+    }
+    float acc[NW][R];
+    int step = 0;
+    for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+      zero(acc);
+      for (int kt = 0; kt < nk; ++kt, ++step) product(acc, step, kt > 0);
+      drain(acc, step);
+      wg_store<NW, NB>(acc, item_of(i, work, owner, S, E, rt, WG_RT, nct,
+                                    WG_BN),
+                       dst, C, N);
+    }
+  } else {
+    // Units (pair, column tile): the first rounds x G of them whole, unit
+    // b + q G to block b in round q (as the C > 8 items go: the blocks
+    // stream neighbouring column tiles at once). The U2 < G left over are
+    // cut into pieces of L consecutive K ranges, piece p = k U2 + v being
+    // ranges [k L, k L + L) of unit rounds G + v, piece b + q G to block b
+    // (the blocks stream one K region of neighbouring column tiles at
+    // once); a block walks its pieces first. L balances the pieces against
+    // the ticket each costs (wg_piece_len). Every unit is reduced in the
+    // same order, its ns ranges in range order: folded in registers as
+    // far as one block holds them from range 0 (a whole unit: all of
+    // them), the rest from the pieces' partial sums in the scratch, by the
+    // block that completes the unit's ticket.
+    const int G = gridDim.x, b = blockIdx.x;
+    const long long U = (long long)work[S] * nct;
+    const int rounds = (int)(U / G), U2 = (int)(U - (long long)rounds * G);
+    const int L = wg_piece_len(U2, ns, nk, G, NW);
+    const int npieces = U2 * ((ns + L - 1) / L);
+    const int mine = npieces > b ? (npieces - 1 - b) / G + 1 : 0;
+    auto task = [&](int q, int& u, int& r0, int& r1) {
+      if (q < mine) {                        // piece p: ranges [r0, r1)
+        const int p = b + q * G;
+        u = rounds * G + p % U2;
+        r0 = p / U2 * L;
+        r1 = min(ns, r0 + L);
+      } else {                               // a whole unit
+        u = b + (q - mine) * G;
+        r0 = 0;
+        r1 = ns;
+      }
+    };
+    const int ntask = mine + rounds;
+    if (threadIdx.x >= 256) {  // producer
+      if (threadIdx.x == 256) {
+        int step = 0;
+        for (int q = 0; q < ntask; ++q) {
+          int u, r0, r1;
+          task(q, u, r0, r1);
+          const Item it =
+              item_of(u, work, owner, S, E, rt, WG_NARROW, nct, WG_BN);
+          for (int kt = r0 * nk / ns; kt < r1 * nk / ns; ++kt, ++step)
+            load(it, kt, step);
+        }
+      }
+      return;
+    }
+    __shared__ int ticket;
+    const int t = threadIdx.x, t4 = t & 3;
+    // the scratch slot of range r of leftover unit v
+    float4* const part4 = reinterpret_cast<float4*>(part) + t;
+    auto slot = [&](int r, int v, int m) {
+      return part4 + ((size_t)(r * U2 + v) * NW + m) * 256;
+    };
+    float acc[NW][R], sum[NW][R];
+    auto fold = [&](int m, float4 v, bool first) {
+      sum[m][0] = first ? v.x : sum[m][0] + v.x;
+      sum[m][1] = first ? v.y : sum[m][1] + v.y;
+      sum[m][2] = first ? v.z : sum[m][2] + v.z;
+      sum[m][3] = first ? v.w : sum[m][3] + v.w;
+    };
+    int step = 0;
+    for (int q = 0; q < ntask; ++q) {
+      int u, r0, r1;
+      task(q, u, r0, r1);
+      const Item it =
+          item_of(u, work, owner, S, E, rt, WG_NARROW, nct, WG_BN);
+      const bool live = 2 * t4 < it.nr;   // a thread's rows 2 t4, 2 t4 + 1
+      const int v = u - rounds * G;
+      for (int r = r0; r < r1; ++r) {
+        zero(acc);
+        const int kt0 = r * nk / ns, kt1 = (r + 1) * nk / ns;
+        for (int kt = kt0; kt < kt1; ++kt, ++step)
+          product(acc, step, kt > kt0);
+        drain(acc, step);
+        if (r0 == 0) {
+#pragma unroll
+          for (int m = 0; m < NW; ++m)
+            fold(m, make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]),
+                 r == 0);
+        } else if (live) {
+#pragma unroll
+          for (int m = 0; m < NW; ++m)
+            __stcg(slot(r, v, m),
+                   make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]));
+        }
+      }
+      if (r1 - r0 < ns) {
+        // a piece: its sums to the scratch (from range 0: the fold, in the
+        // slot of its last range), then the unit's ticket; the block that
+        // completes it folds the unit's ranges in range order
+        if (r0 == 0 && live) {
+#pragma unroll
+          for (int m = 0; m < NW; ++m)
+            __stcg(slot(r1 - 1, v, m),
+                   make_float4(sum[m][0], sum[m][1], sum[m][2], sum[m][3]));
+        }
+        __threadfence();
+        bar_sync(1, 256);
+        if (t == 0) ticket = atomicAdd(tick + u, r1 - r0) + r1 - r0;
+        bar_sync(1, 256);
+        if (ticket != ns) continue;
+        __threadfence();
+        if (live) {
+#pragma unroll
+          for (int m = 0; m < NW; ++m) fold(m, __ldcg(slot(L - 1, v, m)), true);
+        }
+        for (int r = L; r < ns; r += 8) {
+          float4 x[NW][8];
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+#pragma unroll
+            for (int m = 0; m < NW; ++m)
+              if (live && r + c < ns) x[m][c] = __ldcg(slot(r + c, v, m));
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+#pragma unroll
+            for (int m = 0; m < NW; ++m)
+              if (live && r + c < ns) fold(m, x[m][c], false);
+        }
+        if (t == 0) tick[u] = 0;                    // ready for pass 2
+      }
+      wg_store<NW, NB>(sum, it, dst, C, N);
     }
   }
 }
@@ -828,35 +880,6 @@ static int persistent_grid(int threads, int smem, int* blocks) {
   return 0;
 }
 
-template <int NW, int NT>
-static int launch_tc(const void* src, const void* w0, const void* w1,
-                     const int* owner, const int* work, void* dst, int S,
-                     int C, int K, int N, int E, int rt,
-                     cudaStream_t stream) {
-  const int smem = TcTile<NW, NT>::SMEM;
-  int blocks = 0;
-  int err = persistent_grid<tc_pass<NW, NT>>(TC_THREADS, smem, &blocks);
-  if (err) return err;
-  tc_pass<NW, NT><<<blocks, TC_THREADS, smem, stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(src),
-      reinterpret_cast<const __nv_bfloat16*>(w0),
-      reinterpret_cast<const __nv_bfloat16*>(w1), owner, work, dst, S, C, K,
-      N, E, rt);
-  return (int)cudaGetLastError();
-}
-
-template <int NT>
-static int launch_bf16(const void* x, const void* wg, const void* wu,
-                       const void* wd, const int* owner, void* hidden,
-                       float* out, const int* work, int S, int C, int d,
-                       int f, int E, int rt, cudaStream_t stream) {
-  int err = launch_tc<2, NT>(x, wg, wu, owner, work, hidden, S, C, d, f, E,
-                             rt, stream);
-  if (err) return err;
-  return launch_tc<1, NT>(hidden, wd, wd, owner, work, out, S, C, f, d, E, rt,
-                          stream);
-}
-
 // A bf16 tensor map of `rank` (2 or 3) dims, dims[0] contiguous: boxes of
 // 64 elements (128 bytes) along dims[0], box1 along dims[1] and 1 along
 // dims[2], in the 128-byte swizzle; out-of-bounds elements read as zero.
@@ -881,9 +904,9 @@ static int bf16_map(CUtensorMap* map, const void* ptr, int rank,
 // the owner only moves its third coordinate.
 template <int NW, int NB>
 static int launch_wg(const void* src, const void* w0, const void* w1,
-                     const int* owner, const int* work, void* dst, int S,
-                     int C, int K, int N, int E, int rt,
-                     cudaStream_t stream) {
+                     const int* owner, const int* work, void* dst,
+                     float* part, int* tick, int S, int C, int K, int N,
+                     int E, int rt, cudaStream_t stream) {
   CUtensorMap smap, w0map, w1map;
   const cuuint64_t rows[2] = {(cuuint64_t)K, (cuuint64_t)S * C};
   const cuuint64_t ws[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)E};
@@ -897,20 +920,22 @@ static int launch_wg(const void* src, const void* w0, const void* w1,
   if ((err = persistent_grid<wg_pass<NW, NB>>(WG_THREADS, smem, &blocks)))
     return err;
   wg_pass<NW, NB><<<blocks, WG_THREADS, smem, stream>>>(
-      smap, w0map, w1map, owner, work, dst, S, C, K, N, E, rt);
+      smap, w0map, w1map, owner, work, dst, part, tick, S, C, K, N, E, rt,
+      NB == WG_NARROW ? wg_split(N, K, NW) : 1);
   return (int)cudaGetLastError();
 }
 
 template <int NB>
 static int launch_bf16_wg(const void* x, const void* wg, const void* wu,
                           const void* wd, const int* owner, void* hidden,
-                          float* out, const int* work, int S, int C, int d,
-                          int f, int E, int rt, cudaStream_t stream) {
-  int err = launch_wg<2, NB>(x, wg, wu, owner, work, hidden, S, C, d, f, E,
-                             rt, stream);
+                          float* out, int* work, float* part, int* tick,
+                          int S, int C, int d, int f, int E, int rt,
+                          cudaStream_t stream) {
+  int err = launch_wg<2, NB>(x, wg, wu, owner, work, hidden, part, tick, S,
+                             C, d, f, E, rt, stream);
   if (err) return err;
-  return launch_wg<1, NB>(hidden, wd, wd, owner, work, out, S, C, f, d, E,
-                          rt, stream);
+  return launch_wg<1, NB>(hidden, wd, wd, owner, work, out, part, tick, S, C,
+                          f, d, E, rt, stream);
 }
 
 static int launch_f32(const void* x, const void* wg, const void* wu,
@@ -933,10 +958,50 @@ static int launch_f32(const void* x, const void* wg, const void* wu,
   return (int)cudaGetLastError();
 }
 
+// The int32 work buffer: rows [S] | live pair count [1] | pairs [S * C],
+// then at C <= 8 in bf16 the tickets [S * tick_per_slot] (one per unit)
+// and, from a 128-byte boundary, the float32 partial sums of the pieces
+// ([(blocks - 1) ns][NW][1024] for the pass with more of them: fewer than
+// one unit a block is split into pieces).
+struct WorkLayout {
+  long long tick, part, ints;
+  int tick_per_slot;
+};
+static int work_layout(int S, int C, int d, int f, int dtype,
+                       WorkLayout* w) {
+  w->tick = S + 1 + (long long)S * C;
+  w->tick_per_slot = 0;
+  w->part = w->ints = w->tick;
+  if (dtype != 1 || C > WG_NARROW) return 0;
+  int g1 = 0, g2 = 0;
+  int err = persistent_grid<wg_pass<2, WG_NARROW>>(
+      WG_THREADS, WgTile<2, WG_NARROW>::SMEM, &g1);
+  if (!err)
+    err = persistent_grid<wg_pass<1, WG_NARROW>>(
+        WG_THREADS, WgTile<1, WG_NARROW>::SMEM, &g2);
+  if (err) return err;
+  const long long nc1 = (f + WG_BN - 1) / WG_BN;
+  const long long nc2 = (d + WG_BN - 1) / WG_BN;
+  const int ns1 = wg_split(f, d, 2), ns2 = wg_split(d, f, 1);
+  const long long p1 = ns1 > 1 ? (long long)(g1 - 1) * ns1 * 2 * 1024 : 0;
+  const long long p2 = ns2 > 1 ? (long long)(g2 - 1) * ns2 * 1024 : 0;
+  w->tick_per_slot = (int)(nc1 > nc2 ? nc1 : nc2);
+  w->part = (w->tick + (long long)S * w->tick_per_slot + 31) / 32 * 32;
+  w->ints = w->part + (p1 > p2 ? p1 : p2);
+  return 0;
+}
+
+// int32 entries gmm_launch's work buffer takes for a call (-1 if the
+// device cannot run the kernel).
+extern "C" long long gmm_work_ints(int S, int C, int d, int f, int dtype) {
+  WorkLayout w;
+  return work_layout(S, C, d, f, dtype, &w) ? -1 : w.ints;
+}
+
 // dtype: 0 = float32, 1 = bfloat16 (buckets, weights and hidden share it).
 // owner: null for the plain grouped FFN (slot s uses expert s).
-// work: int32 scratch of S + 1 + S * C entries; on return work[0:S] holds
-// rows[s], the live rows of each slot.
+// work: int32 scratch of gmm_work_ints(S, C, d, f, dtype) entries, 16-byte
+// aligned; on return work[0:S] holds rows[s], the live rows of each slot.
 // bf16 needs d and f multiples of 8 and 16-byte aligned pointers; float32
 // needs d and f even.
 extern "C" int gmm_launch(const void* x, const void* wg, const void* wu,
@@ -947,39 +1012,47 @@ extern "C" int gmm_launch(const void* x, const void* wg, const void* wu,
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 && ((d & 7) || (f & 7))) return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  const int RT = dtype == 1 ? (C <= 8 ? 8 : WG_RT) : F32_ROWS;
+  const int RT =
+      dtype == 1 ? (C <= WG_NARROW ? WG_NARROW : WG_RT) : F32_ROWS;
   const int rt = (C + RT - 1) / RT;
+  WorkLayout wl;
+  int err = work_layout(S, C, d, f, dtype, &wl);
+  if (err) return err;
+  int* tick = work + wl.tick;
+  float* part = reinterpret_cast<float*>(work + wl.part);
 
-  // prologue: rows per slot, dead rows of out zeroed, the live-pair list
+  // prologue: rows per slot, dead rows of out zeroed, tickets zeroed, the
+  // live-pair list
   const int W = dtype == 1 ? d / 2 : d;
   const uint32_t mask = dtype == 1 ? 0x7fff7fffu : 0x7fffffffu;
   if ((W & 3) == 0 && ((uintptr_t)x & 15) == 0)
     rows_kernel<4><<<S, ROWS_THREADS, 0, stream>>>(
-        reinterpret_cast<const uint32_t*>(x), mask, out, work, C, W, d);
+        reinterpret_cast<const uint32_t*>(x), mask, out, work, tick,
+        wl.tick_per_slot, C, W, d);
   else
     rows_kernel<1><<<S, ROWS_THREADS, 0, stream>>>(
-        reinterpret_cast<const uint32_t*>(x), mask, out, work, C, W, d);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
+        reinterpret_cast<const uint32_t*>(x), mask, out, work, tick,
+        wl.tick_per_slot, C, W, d);
+  if ((err = (int)cudaGetLastError())) return err;
   plan_kernel<<<1, PLAN_THREADS, 0, stream>>>(work, S, rt, RT);
   if ((err = (int)cudaGetLastError())) return err;
 
   if (dtype == 0)
     return launch_f32(x, wg, wu, wd, owner, hidden, out, work, S, C, d, f, E,
                       rt, stream);
-  if (C <= 8)
-    return launch_bf16<1>(x, wg, wu, wd, owner, hidden, out, work, S, C, d,
-                          f, E, rt, stream);
   // the staged rows: the capacity rounded up to a compiled wgmma width
+  if (C <= 8)
+    return launch_bf16_wg<8>(x, wg, wu, wd, owner, hidden, out, work, part,
+                             tick, S, C, d, f, E, rt, stream);
   if (C <= 16)
-    return launch_bf16_wg<16>(x, wg, wu, wd, owner, hidden, out, work, S, C,
-                              d, f, E, rt, stream);
+    return launch_bf16_wg<16>(x, wg, wu, wd, owner, hidden, out, work, part,
+                              tick, S, C, d, f, E, rt, stream);
   if (C <= 32)
-    return launch_bf16_wg<32>(x, wg, wu, wd, owner, hidden, out, work, S, C,
-                              d, f, E, rt, stream);
+    return launch_bf16_wg<32>(x, wg, wu, wd, owner, hidden, out, work, part,
+                              tick, S, C, d, f, E, rt, stream);
   if (C <= 64)
-    return launch_bf16_wg<64>(x, wg, wu, wd, owner, hidden, out, work, S, C,
-                              d, f, E, rt, stream);
-  return launch_bf16_wg<128>(x, wg, wu, wd, owner, hidden, out, work, S, C,
-                             d, f, E, rt, stream);
+    return launch_bf16_wg<64>(x, wg, wu, wd, owner, hidden, out, work, part,
+                              tick, S, C, d, f, E, rt, stream);
+  return launch_bf16_wg<128>(x, wg, wu, wd, owner, hidden, out, work, part,
+                             tick, S, C, d, f, E, rt, stream);
 }

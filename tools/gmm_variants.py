@@ -8,24 +8,33 @@ Each ``src/`` tree's ``kernels/csrc/gmm.cu`` is built by ``nvcc`` (this
 tree's flags, all builds at once) into a temporary directory and loaded
 with ``ctypes`` into one process, so that every build runs on the same
 card, inputs and host state. The call is the wrapper's (``gmm_launch``:
-buckets, weights, owner, hidden, output, work). Prints each build's
+buckets, weights, owner, hidden, output, work), with the work buffer a
+build's own ``gmm_work_ints`` asks for (``S + 1 + S * C`` ints for a
+build that has none, as before the C <= 8 K split). Prints each build's
 ``ptxas`` lines (registers, spills), then:
 
 * held: on small odd shapes (widths off the 64- and 128-element tiles,
-  C 12, 100 and 130: a second row tile) and at every timed shape, each
-  build within 3e-2 of ``gmm_ref``, its rows equal to ``live_rows``, a
-  repeat bit-identical, all-zero rows +0, and the owner-indexed call
-  bit-identical to the plain call on owner-gathered weights;
+  C 3, 5, 6, 12, 100 and 130: a second row tile; d 1000, f 2504 with
+  40 slots: whole rounds and leftover pieces) and at every timed shape,
+  each build within 3e-2 of ``gmm_ref``, its rows equal to
+  ``live_rows``, a repeat bit-identical, all-zero rows +0, the
+  owner-indexed call bit-identical to the plain call on owner-gathered
+  weights (16 slots at a time), and a live slot's output bit-identical
+  alone in the call and beside every other slot;
 * timed, at DeepSeek-MoE-16B's width (64 experts, d 2048, f 1408, top-6,
-  capacity factor 1.5) at T 4, 64, 88, 120, 128, 256, 512 and 1024
-  routed tokens (C 4, 9, 12, 16, 18, 36, 72, 144), and DeepSeek-V3's
-  (256 experts, d 7168, f 2048, top-8, 1.25) at T 4, 512 and 615 (C 4,
-  20, 24): CUDA-event ms per call (median of 20, the builds called in
-  turn a b b a), device ms under ``torch.profiler`` (each build in a
-  window of its own; each kernel's share beside the sum), the bound
-  (live experts' weights read once at 3.35 TB/s), the ``torch.bmm``
-  chain's event ms, and the largest difference between the builds'
-  outputs. ``--quick`` times only C 36 and 72.
+  capacity factor 1.5) at T 4, 32, 64, 88, 120, 128, 256, 512 and 1024
+  routed tokens (C 4, 4, 9, 12, 16, 18, 36, 72, 144), DeepSeek-V3's (256
+  experts, d 7168, f 2048, top-8, 1.25) at T 4, 64, 512 and 615 (C 4, 4,
+  20, 24) and Llama-4's (128 experts, d 5120, f 8192, top-1, 1.25) at T
+  4, 32, 512 and 826 (C 4, 4, 5, 8); for each model one live slot of C
+  4 rows, and at T 4 (decode) ``placement_gmm`` on E + 2 slots (two hot
+  experts replicated): CUDA-event ms per call (median of 20, the builds
+  called in turn a b b a), device ms under ``torch.profiler`` (each
+  build in a window of its own; each kernel's share beside the sum), the
+  bound (live experts' weights read once at 3.35 TB/s), the
+  ``torch.bmm`` chain's event and device ms (plain calls only), and the
+  largest difference between the builds' outputs. ``--quick`` times only
+  the C <= 8 shapes; ``--models`` picks models by name.
 
 Buckets are routed as the MoE layer routes them (top-k of random scores,
 each expert's first min(count, C) rows filled), from seed 0. Prints the
@@ -54,14 +63,19 @@ from repro_torch.kernels.gmm.ref import (gmm_ref, live_rows,  # noqa: E402
                                          placement_gmm_ref)
 
 HBM = 3.35e12
-#: (name, experts, d, f, top-k, capacity factor, token counts)
+#: (name, experts, d, f, top-k, capacity factor, token counts; 0: one
+#: live slot of C 4 rows)
 MODELS = (("deepseek-moe-16b", 64, 2048, 1408, 6, 1.5,
-           (4, 64, 88, 120, 128, 256, 512, 1024)),
-          ("deepseek-v3-671b", 256, 7168, 2048, 8, 1.25, (4, 512, 615)))
-QUICK = {("deepseek-moe-16b", 256), ("deepseek-moe-16b", 512)}
-#: (slots, experts, C, d, f): off the tiles, a second row tile
+           (4, 0, 32, 64, 88, 120, 128, 256, 512, 1024)),
+          ("deepseek-v3-671b", 256, 7168, 2048, 8, 1.25, (4, 0, 64, 512, 615)),
+          ("llama-4", 128, 5120, 8192, 1, 1.25, (4, 0, 32, 512, 826)))
+#: the decode token count: placement_gmm is timed there too
+DECODE_T = 4
+#: (slots, experts, C, d, f): off the tiles, a second row tile; at C <= 8
+#: ragged tiles under a K split, and whole rounds beside leftover pieces
 ODD = ((7, 5, 12, 72, 200), (6, 6, 100, 64, 136), (5, 4, 130, 136, 64),
-       (4, 4, 40, 2048, 1408))
+       (4, 4, 40, 2048, 1408), (7, 5, 3, 72, 200), (4, 4, 8, 2048, 1408),
+       (6, 5, 6, 1000, 2504), (42, 40, 5, 1000, 2504))
 
 
 def build(srcs, tmp):
@@ -83,10 +97,17 @@ def build(srcs, tmp):
                 name = line.split("'")[1]
             elif "spill" in line or "registers" in line:
                 print(f"{src}: {name}: {line.strip()}", flush=True)
-        fn = ctypes.CDLL(str(lib)).gmm_launch
+        so = ctypes.CDLL(str(lib))
+        fn = so.gmm_launch
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn.work_ints = lambda S, C, d, f: S + 1 + S * C
+        if hasattr(so, "gmm_work_ints"):
+            so.gmm_work_ints.argtypes = [ctypes.c_int] * 5
+            so.gmm_work_ints.restype = ctypes.c_longlong
+            fn.work_ints = (lambda S, C, d, f, w=so.gmm_work_ints:
+                            w(S, C, d, f, 1))
         libs.append(fn)
     return libs
 
@@ -96,7 +117,8 @@ def call(fn, b, wg, wu, wd, owner=None):
     E, _, f = wg.shape
     hidden = torch.empty((S, C, f), dtype=b.dtype, device=b.device)
     out = torch.empty((S, C, d), dtype=torch.float32, device=b.device)
-    work = torch.empty(S + 1 + S * C, dtype=torch.int32, device=b.device)
+    work = torch.empty(fn.work_ints(S, C, d, f), dtype=torch.int32,
+                       device=b.device)
     status = fn(b.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
                 None if owner is None else owner.data_ptr(),
                 hidden.data_ptr(), out.data_ptr(), work.data_ptr(), S, C, d,
@@ -125,24 +147,38 @@ def weights(E, d, f, gen):
 
 def held(fns, b, ws, what, owner=None):
     """Every build within 3e-2 of the plain version, rows, repeat, +0
-    rows, placement = gathered; returns (outputs, largest error)."""
+    rows, placement = gathered (16 slots at a time), and a live slot
+    alone = beside the others; returns (outputs, largest error)."""
     want = (gmm_ref(b, *ws) if owner is None
             else placement_gmm_ref(b, *ws, owner))
     outs, err = [], 0.0
     zero = ~(b != 0).any(dim=-1)
+    live = (live_rows(b) > 0).nonzero().flatten()
+    alone = torch.zeros_like(b)
+    if live.numel():
+        alone[live[0]] = b[live[0]]
     for i, fn in enumerate(fns):
         got, rows = call(fn, b, *ws, owner)
         e = (got - want).abs().max().item()
-        ok = (e <= 3e-2 and torch.equal(rows, live_rows(b))
-              and torch.equal(call(fn, b, *ws, owner)[0], got)
-              and bool((got[zero] == 0).all())
-              and not bool(torch.signbit(got[zero]).any()))
+        checks = {
+            "within 3e-2": e <= 3e-2,
+            "rows": torch.equal(rows, live_rows(b)),
+            "repeat": torch.equal(call(fn, b, *ws, owner)[0], got),
+            "+0 rows": bool((got[zero] == 0).all())
+            and not bool(torch.signbit(got[zero]).any())}
+        if live.numel():
+            checks["alone"] = torch.equal(
+                call(fn, alone, *ws, owner)[0][live[0]], got[live[0]])
         if owner is not None:
             o = owner.long()
-            ok = ok and torch.equal(call(fn, b, *(w[o] for w in ws))[0], got)
-        if not ok:
-            raise RuntimeError(f"{what}, build {i}: max abs err {e}, rows "
-                               f"{torch.equal(rows, live_rows(b))}")
+            checks["gathered"] = all(
+                torch.equal(call(fn, b[s:s + 16],
+                                 *(w[o[s:s + 16]] for w in ws))[0],
+                            got[s:s + 16])
+                for s in range(0, b.shape[0], 16))
+        if not all(checks.values()):
+            raise RuntimeError(f"{what}, build {i}: max abs err {e}, "
+                               f"{checks}")
         outs.append(got)
         err = max(err, e)
     return outs, err
@@ -197,10 +233,48 @@ def bmm_chain(b, g, u, dn):
                      dn).float()
 
 
+def timed(fns, b, ws, name, T, C, owner=None) -> dict:
+    """One shape held, then timed: each build's event and device ms in
+    turns beside the bound and (plain calls) the bmm chain's."""
+    what = f"{name} T {T or 'one live slot'}" + (
+        " placement" if owner is not None else "")
+    outs, err = held(fns, b, ws, what, owner)
+    E, d, f = ws[0].shape
+    rows = live_rows(b)
+    live_slots = (rows > 0).nonzero().flatten()
+    experts = int((live_slots if owner is None else owner[live_slots])
+                  .unique().numel())
+    bound = (experts * 3 * d * f * 2 + b.numel() * 6) / HBM * 1e3
+    calls = [lambda fn=fn: call(fn, b, *ws, owner) for fn in fns]
+    chain = [] if owner is not None else [lambda: bmm_chain(b, *ws)]
+    ev = turns(calls + chain)
+    row = dict(model=name, T=T, C=C, slots=b.shape[0],
+               placement=owner is not None, live=int(live_slots.numel()),
+               rows=int(rows.sum()),
+               plan=plan(b.shape[0], C, d, f, torch.bfloat16)._asdict(),
+               max_abs_err=err, events_ms=ev[:len(fns)],
+               device=[device_ms(c) for c in calls],
+               bmm_chain_ms=ev[-1] if chain else None,
+               bmm_chain_device_ms=(device_ms(chain[0])["ms"] if chain
+                                    else None),
+               bound_ms=bound,
+               builds_max_diff=max((o - outs[0]).abs().max().item()
+                                   for o in outs))
+    print(f"{what} C {C} ({row['live']} of {b.shape[0]} live): events "
+          f"{[round(t, 4) for t in row['events_ms']]} ms, device "
+          f"{[round(x['ms'], 5) for x in row['device']]} ms "
+          f"({'; '.join(map(by_kernel, row['device']))}), bmm_chain "
+          f"{row['bmm_chain_ms']} (device {row['bmm_chain_device_ms']}), "
+          f"bound {bound:.4f}, err {err:.3g}, builds differ by "
+          f"{row['builds_max_diff']:.3g}", flush=True)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", action="append", required=True)
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--models", nargs="*")
     ap.add_argument("--out")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -223,35 +297,28 @@ def main() -> int:
             print(f"odd S {S} E {E} C {C} d {d} f {f}: held, max abs err "
                   f"{max(err, err2):.3g}", flush=True)
         for name, E, d, f, k, cf, counts in MODELS:
+            if args.models and name not in args.models:
+                continue
             ws = weights(E, d, f, gen)
             for T in counts:
-                if args.quick and (name, T) not in QUICK:
-                    continue
                 C = max(int(T * k / E * cf), 4)
-                b = routed(T, E, C, d, k, gen)
-                outs, err = held(fns, b, ws, f"{name} T {T}")
-                rows = live_rows(b)
-                live = int((rows > 0).sum())
-                bound = (live * 3 * d * f * 2 + b.numel() * 6) / HBM * 1e3
-                calls = [lambda fn=fn: call(fn, b, *ws) for fn in fns]
-                ev = turns(calls + [lambda: bmm_chain(b, *ws)])
-                row = dict(model=name, T=T, C=C, live=live,
-                           rows=int(rows.sum()),
-                           plan=plan(E, C, d, f, torch.bfloat16)._asdict(),
-                           max_abs_err=err, events_ms=ev[:-1],
-                           device=[device_ms(c) for c in calls],
-                           bmm_chain_ms=ev[-1], bound_ms=bound,
-                           builds_max_diff=max(
-                               (o - outs[0]).abs().max().item()
-                               for o in outs))
-                res["timed"].append(row)
-                print(f"{name} T {T} C {C} ({live} live): events "
-                      f"{[round(t, 4) for t in ev[:-1]]} ms, device "
-                      f"{[round(x['ms'], 5) for x in row['device']]} ms "
-                      f"({'; '.join(map(by_kernel, row['device']))}), "
-                      f"bmm_chain {ev[-1]:.4f}, bound {bound:.4f}, err "
-                      f"{err:.3g}, builds differ by "
-                      f"{row['builds_max_diff']:.3g}", flush=True)
+                if args.quick and C > 8:
+                    continue
+                if T:
+                    b = routed(T, E, C, d, k, gen)
+                else:
+                    b = torch.zeros((E, C, d), dtype=torch.bfloat16,
+                                    device="cuda")
+                    b[E // 3] = torch.randn((C, d), generator=gen,
+                                            device="cuda")
+                res["timed"].append(timed(fns, b, ws, name, T, C))
+                if T == DECODE_T:
+                    hot = torch.tensor([3 % E, 77 % E])
+                    owner = torch.cat([torch.arange(E), hot]).to(
+                        device="cuda", dtype=torch.int32)
+                    pb = routed(T, E + 2, C, d, k, gen, E + 2)
+                    res["timed"].append(timed(fns, pb, ws, name, T, C,
+                                              owner))
             del ws
             torch.cuda.empty_cache()
     line = json.dumps(res)
